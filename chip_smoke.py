@@ -3,14 +3,20 @@
 
 Run from the repository root on a machine with one CUDA card::
 
-    python3 chip_smoke.py            # full size: 10M x 768 int8 IVF-Flat
+    python3 chip_smoke.py            # full size: two 10M x 768 stores
+    python3 chip_smoke.py --rows 200000 --pq-rows 200000   # quick check
 
 Phases (each one fails the run: non-zero exit, no result line):
 
 1. Card and build: the card's name and power limit, torch/CUDA versions,
-   the kernel build from ``rag_foundation_tpu_torch/csrc`` (nvcc, sm_90a).
-2. Each kernel against its plain PyTorch version on the card (int8 exact,
-   f32/bf16 within a stated tolerance) at a small size.
+   the build of the three kernels from ``rag_foundation_tpu_torch/csrc``
+   (nvcc, sm_90a, the compilers started together).
+2. Each kernel against its plain PyTorch version on the card at a small
+   size: the flat list scan (int8 exact, f32/bf16 within a stated
+   tolerance), the ADC list scan (int8 LUT unpacked and packed exact,
+   bf16 LUT within a stated tolerance, dead rows, a dead sub-block, a
+   dispatch with empty tails) and the gather-and-rescore (exact, negative
+   ids, a table whose row count is not a multiple of 8).
 3. The main path through the entry points a user calls: the port's
    ``Engine`` (ivf_flat_int8, d=768, nlist=4096, nprobe=32, p=3) behind
    ``EngineRpcServer``, driven only through ``RemoteEngine``: ingest real
@@ -23,6 +29,20 @@ Phases (each one fails the run: non-zero exit, no result line):
 5. The kernel against its plain version on the main path's Q=1024
    dispatch, with times: kernel, plain version, a library yardstick, and
    the bound.
+6. The ``ivf_pq`` main path, after the int8 store is released: a second
+   ``Engine`` (ivf_pq, d=768, m=192 unpacked 4-bit codes, device refine,
+   nlist=4096, nprobe=32) behind ``EngineRpcServer``: the same documents
+   over RPC (enough to build a PQ body), then a bulk load
+   (``StoreIndex.bulk_load_archive``) of those rows plus pads generated
+   on the card up to ``--pq-rows``; single and concurrent searches, a
+   Q=1024 batch, citations, recall against the exact scan, the recall
+   audit, and a short run of the ``host`` and ``none`` refine tiers.
+   The two kernels' launch counters are zeroed just before and read
+   just after.
+7. Restart of the ``ivf_pq`` store on its ``data_dir``: the saved body
+   (codes, ids, codebooks, refine) and archive reload verbatim.
+8. The two kernels against their plain versions on the PQ path's own
+   Q=1024 dispatch, with times and bounds.
 
 The line before last is the kernels' JSON; the last line is
 ``{"ok": true, "device": {...}}``. The script imports neither JAX nor the
@@ -48,11 +68,18 @@ ROOT = Path(__file__).resolve().parent
 # operations/s per input type
 HBM_BYTES_S = 3.35e12
 PEAK_OPS_S = {"int8": 1.979e15, "bf16": 0.989e15, "f32": 67e12}
+# shared memory: 128 bytes per SM per clock, 132 SMs at the 1.98 GHz boost
+# clock (NVIDIA's Hopper architecture paper and data sheet): the rate at which a
+# table-lookup kernel can read its table entries
+SMEM_BYTES_S = 132 * 128 * 1.98e9
 # f32/bf16 scores of unit vectors: summation-order error is at most
 # d * 2**-24 * sum|q_i r_i| <= 768 * 6e-8 = 4.6e-5 (bf16 products are exact
 # in f32), so kernel and plain version agree within this
 F32_TOL = 5e-5
 RECALL_MIN = 0.95     # recall@10 of the served store vs the exact scan
+# ADC sums with a bf16 LUT: m = 192 entries of magnitude <= 1 summed in
+# f32 in another order than the plain version: error <= m * 2**-24 * m
+BF16_LUT_TOL = 3e-3
 
 _SYL = ("ka", "lo", "mi", "ne", "ru", "ta", "vo", "zu", "pe", "shi", "dra",
         "gon", "bel", "tor", "qua", "xen", "fli", "mur", "sol", "yat")
@@ -194,6 +221,122 @@ def phase_small_kernels(ivf_scan, torch):
                f"max_abs_err={err:.3g} (tol {F32_TOL})"))
 
 
+def phase_small_pq_kernels(pq_scan, gather, torch):
+    """ADC list scan and gather-and-rescore vs their plain versions on the
+    card, small size."""
+    g = torch.Generator(device="cuda").manual_seed(2)
+    nlist, qcap, cap_len, m, p = 48, 16, 1024, 192, 4
+    codes = torch.randint(0, 16, (nlist, cap_len, m), generator=g,
+                          device="cuda", dtype=torch.uint8)
+    ids = torch.arange(nlist * cap_len, dtype=torch.int32,
+                       device="cuda").view(nlist, cap_len)
+    ids = torch.where(torch.rand(ids.shape, generator=g, device="cuda")
+                      < 0.25, torch.full_like(ids, -1), ids)
+    ids[3, 128:256] = -1      # a sub-block of dead rows
+    lut8 = torch.randint(-127, 128, (nlist, qcap, 16 * m), generator=g,
+                         device="cuda", dtype=torch.int8)
+    lutbf = (torch.randn((nlist, qcap, 16 * m), generator=g, device="cuda")
+             .clamp(-1, 1).bfloat16())
+    disp = torch.full((nlist, qcap), -1, dtype=torch.int32, device="cuda")
+    disp[::3, :] = 0          # full lists
+    disp[1::3, :5] = 1        # five live slots, then an empty tail
+    disp[2, [0, 9]] = 2       # a hole: slots up to 9 are computed
+    # the other lists of 2::3 have no query at all
+    for lut_name, lut in (("int8", lut8), ("bf16", lutbf)):
+        for packed in (False, True):
+            c = pq_scan.pack_codes(codes).contiguous() if packed else codes
+            err = 0.0
+            for dispatch in (None, disp):
+                kv, ki = pq_scan.pq_list_scan(lut, c, ids, dispatch, p=p)
+                torch.cuda.synchronize()
+                rv, ri = pq_scan.pq_list_scan_reference(lut, c, ids,
+                                                        dispatch, p=p)
+                what = (f"pq_list_scan {lut_name} LUT "
+                        f"{'packed' if packed else 'unpacked'} "
+                        f"{'with' if dispatch is not None else 'no'} "
+                        f"dispatch")
+                err = max(err, check_pq_scan(kv, ki, rv, ri,
+                                             lut_name == "int8", what))
+            log(f"kernel check pq_list_scan {lut_name} LUT "
+                f"{'packed' if packed else 'unpacked'} nlist={nlist} "
+                f"qcap={qcap} cap_len={cap_len} m={m} p={p}, dead rows, a "
+                f"dead sub-block, with and without a dispatch: "
+                + ("bit-identical" if lut_name == "int8" else
+                   f"max_abs_err={err:.3g} (tol {BF16_LUT_TOL})"))
+    for n, d, q_n, c in ((100_003, 768, 64, 64), (1001, 64, 7, 5)):
+        table = torch.randint(-127, 128, (n, d), generator=g, device="cuda",
+                              dtype=torch.int8)
+        rows = torch.randint(0, n, (q_n, c), generator=g, device="cuda",
+                             dtype=torch.int32)
+        rows[0, :3] = torch.tensor([-1, -5, n - 1], dtype=torch.int32)
+        qq = torch.randint(-127, 128, (q_n, d), generator=g, device="cuda",
+                           dtype=torch.int8)
+        out = gather.gather_rescore_int8(table, rows, qq)
+        torch.cuda.synchronize()
+        if not torch.equal(out, gather.gather_rescore_int8_reference(
+                table, rows, qq)):
+            fail(f"gather_rescore_int8 N={n} d={d}: kernel != plain version")
+        log(f"kernel check gather_rescore_int8 N={n} (N % 8 = {n % 8}) "
+            f"d={d} Q={q_n} C={c}, negative ids: bit-identical")
+
+
+def check_pq_scan(kv, ki, rv, ri, exact, what) -> float:
+    """ADC kernel (kv, ki) against plain version (rv, ri)."""
+    import torch
+    both = torch.isfinite(rv)
+    if not torch.equal(torch.isfinite(kv), both):
+        fail(f"{what}: -inf pattern differs")
+    err = float((kv[both] - rv[both]).abs().max()) if both.any() else 0.0
+    if exact:
+        if not (torch.equal(kv, rv) and torch.equal(ki, ri)):
+            bad = int((kv != rv).sum() + (ki != ri).sum())
+            fail(f"{what}: kernel != plain version ({bad} elements)")
+        return err
+    if err > BF16_LUT_TOL:
+        fail(f"{what}: max |kernel - plain| {err} > {BF16_LUT_TOL}")
+    off = ki != ri      # allowed only between rows scoring within the tol
+    if off.any() and float((kv[off] - rv[off]).abs().max()) > BF16_LUT_TOL:
+        fail(f"{what}: idx differs beyond a near-tie")
+    return err
+
+
+def pq_scan_bound(row_ids, live_n, qcap, p, m, m_bytes, lut_esize
+                  ) -> tuple[float, str, dict]:
+    """(ms, "bytes" | "operations", counts): least time for one ADC list
+    scan with ``live_n[l]`` live query slots in list ``l``. Bytes: the
+    codes of the live rows of every list with a query, every id of those
+    lists, the LUTs of the live slots and the per-list slot counts read
+    once, every output (f32 value + int32 index) written once.
+    Operations: one table lookup per (live slot, live row, subquantizer),
+    each a read of one LUT entry from shared memory, at the card's
+    shared-memory bandwidth (``SMEM_BYTES_S``)."""
+    live_rows = (row_ids >= 0).sum(dim=1).double()
+    read = live_n > 0
+    nlist, cap_len = row_ids.shape
+    c = {"lists_read": int(read.sum()), "live_slots": int(live_n.sum()),
+         "rows_needed": int(live_rows[read].sum()),
+         "rows_in_lists_read": int(read.sum()) * cap_len}
+    out_elems = nlist * qcap * (cap_len // 128) * p
+    nbytes = c["rows_needed"] * m_bytes + c["rows_in_lists_read"] * 4 \
+        + c["live_slots"] * 16 * m * lut_esize + nlist * 4 + out_elems * 8
+    c["lookups"] = int(m * float((live_n.double() * live_rows).sum()))
+    t_bytes = nbytes / HBM_BYTES_S
+    t_ops = c["lookups"] * lut_esize / SMEM_BYTES_S
+    return max(t_bytes, t_ops) * 1e3, \
+        "bytes" if t_bytes >= t_ops else "operations", c
+
+
+def gather_bound(q_n, c, d) -> tuple[float, str]:
+    """(ms, "bytes" | "operations"): Q*C rows of d int8 bytes, the query
+    rows and the ids read once, the f32 scores written once; 2*Q*C*d int8
+    operations."""
+    nbytes = q_n * c * d + q_n * d + q_n * c * 4 + q_n * c * 4
+    t_bytes = nbytes / HBM_BYTES_S
+    t_ops = 2.0 * q_n * c * d / PEAK_OPS_S["int8"]
+    return max(t_bytes, t_ops) * 1e3, \
+        "bytes" if t_bytes >= t_ops else "operations"
+
+
 def library_ms_of(qdisp, lists, p):
     """Time of ``torch.bmm`` (f32) + ``torch.topk`` for the same scores
     and per-sub-block top-p, every slot computed. The f32 copy of the
@@ -248,10 +391,387 @@ def run_concurrent(remote, key, queries, threads):
     return out, wall
 
 
+def recall_at(served, exact, k=10) -> float:
+    import numpy as np
+    return float(np.mean([len(set(a[a >= 0]) & set(b[b >= 0])) / k
+                          for a, b in zip(served, exact)]))
+
+
+def pq_recall_with_ties(seg, gather, qv, served, exact, k=10) -> float:
+    """recall@k where a served chunk counts if it scores at least the
+    k-th best exact score. The re-ranked scores are INTEGER int8 dots, so
+    near-duplicate documents tie, and which of two tied chunks comes back
+    is a matter of position, not of quality. Both id sets are scored here
+    the way the refine stage scores them (the query quantized at its own
+    absmax, exact int32 dots against the refine table's rows)."""
+    import numpy as np
+    import torch
+    body, table = seg.body, seg.body_chunk_ids
+    order = np.argsort(table, kind="stable")
+
+    def rows_of(ids):
+        pos = np.clip(np.searchsorted(table[order], ids), 0, len(table) - 1)
+        rows = order[pos]
+        return np.where((table[rows] == ids) & (ids >= 0), rows, -1)
+
+    scale = np.abs(qv).max(axis=1, keepdims=True) / 127.0
+    qq = torch.as_tensor(np.clip(np.round(qv / scale), -127, 127)
+                         .astype(np.int8), device=body.refine.device)
+
+    def scores(ids):
+        rows = rows_of(ids)
+        sc = gather.gather_rescore_int8_reference(
+            body.refine, torch.as_tensor(rows.astype(np.int32),
+                                         device=body.refine.device), qq)
+        return np.where(rows >= 0, sc.cpu().numpy(), -np.inf)
+
+    s_served, s_exact = scores(np.asarray(served)), scores(np.asarray(exact))
+    if not np.isfinite(s_exact).all():
+        # an exact neighbour outside the body (the tail): ids decide
+        return recall_at(served, exact, k)
+    return float(np.mean((s_served >= s_exact.min(axis=1, keepdims=True))
+                         .sum(axis=1) / k))
+
+
+def pq_phases(args, card, rng, sampled, mods) -> list[dict]:
+    """Phases 6-8: the ``ivf_pq`` store. Returns the two kernels' entries
+    of the ``kernels`` line."""
+    import numpy as np
+    import torch
+    (Engine, EngineConfig, EngineRpcServer, RemoteEngine, search_profile,
+     HostArchive, tpq, pq_scan, gather, quantize) = mods
+    data_dir = tempfile.mkdtemp(prefix="ragtpu-chip-smoke-pq-")
+    sock = str(Path(data_dir) / "engine.sock")
+    # ivf_p=8: the 400 documents are near-duplicates of one template and
+    # land in one posting list, a dozen to a sub-block; a capture of 4 rows
+    # a sub-block (the JAX engine's fixed width) loses some of a
+    # question's ten nearest there
+    cfg = dict(dim=768, index_mode="ivf_pq", pq_m=192, pq_packed=False,
+               pq_refine="device", nlist=4096, nprobe=32, ivf_p=8,
+               batch_window_s=0.02, build_threshold=256, data_dir=data_dir,
+               device="cuda")
+    key = "stores/chip-smoke-pq"
+    pq_scan.LAUNCHES.reset()                     # counts: this path only
+    gather.LAUNCHES.reset()
+    torch.cuda.reset_peak_memory_stats()
+    engine = Engine(EngineConfig(**cfg))
+    server = EngineRpcServer(engine, sock, allow_pad=True).start()
+    remote = RemoteEngine(sock, pool_size=80)
+    try:
+        remote.create_store(key)
+        t0 = time.perf_counter()
+        for i in range(args.docs):
+            remote.ingest_document(key, f"doc-{i}", f"project-{i}.txt",
+                                   fact_doc(i))
+        seg = engine._store(key).segment
+        saved = seg.body
+        if saved is None or type(saved).__name__ != "IVFPQIndex":
+            fail("the real documents built no IVF-PQ body")
+        saved = {"codes": saved.codes.clone(),
+                 "row_ids": saved.row_ids.clone(),
+                 "centroids": saved.centroids.clone(),
+                 "codebook_centroids": saved.codebook_centroids.clone(),
+                 "refine": saved.refine.clone(),
+                 "archive": seg._pq_archive.chunk_i8(
+                     0, seg._pq_archive.n).copy()}
+        log(f"ivf_pq: ingested {args.docs} documents in "
+            f"{time.perf_counter() - t0:.2f} s; PQ body of "
+            f"{int((saved['row_ids'] >= 0).sum())} rows, nlist "
+            f"{saved['row_ids'].shape[0]}, m {saved['codes'].shape[2]}, "
+            f"refine {tuple(saved['refine'].shape)}, archive "
+            f"{saved['archive'].shape[0]} rows, tail {seg.tail.count}")
+        before_pad = {i: remote.search([key], fact_query(i), k=5)
+                      for i in sampled}
+        for i, hits in before_pad.items():
+            if not hits or hits[0].doc_id != f"doc-{i}":
+                fail(f"ivf_pq before padding: top hit for project {i} is "
+                     f"{hits[0].doc_id if hits else None}")
+
+        # mass import: the store's live rows, then pads generated on the
+        # card with the pad_store distribution, into a host archive; the
+        # body is built from it by the streaming build
+        t0 = time.perf_counter()
+        base_v, base_i = seg.live_rows()
+        n_pad = max(0, args.pq_rows - len(base_i))
+        total = len(base_i) + n_pad
+        arch = HostArchive(768)
+        arch.reserve(total)
+        arch.append(base_v)
+        chunk = 1 << 18
+        gen = engine.pad_generator(engine.pad_centers(args.seed),
+                                   Engine.PAD_NOISE, args.seed, chunk,
+                                   seg.device)
+        for ci in range(-(-n_pad // chunk)):
+            take = min(chunk, n_pad - ci * chunk)
+            arch.append(quantize.quantize_with_scale(
+                gen(ci)[:take], arch.scale).cpu().numpy())
+        fill_s = time.perf_counter() - t0
+        pad_ids = np.arange(Engine.PAD_ID_BASE, Engine.PAD_ID_BASE + n_pad,
+                            dtype=np.int64)
+        t0 = time.perf_counter()
+        seg.bulk_load_archive(arch, np.concatenate([base_i, pad_ids]))
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        engine._pad_counts[key] = n_pad   # searches over-fetch past pads
+        body = seg.body
+        code_bytes = body.codes.numel() + body.row_ids.numel() * 4
+        mean_list = body.n / body.nlist
+        log(f"ivf_pq store rows {total} (pad {n_pad}) d=768: archive fill "
+            f"(pads generated on the card, int8 to the host) {fill_s:.2f} "
+            f"s; streaming build {build_s:.2f} s = {total / build_s:,.0f} "
+            f"vec/s; body nlist={body.nlist} cap_len={body.cap_len} "
+            f"m={body.m} live={body.n} (mean list {mean_list:.1f}, "
+            f"cap_len/mean {body.cap_len / mean_list:.3f}), in tail "
+            f"{seg.tail.count}; codes+ids {code_bytes / 2**30:.2f} GiB, "
+            f"refine {body.refine.numel() / 2**30:.2f} GiB | {card}")
+
+        lat = []
+        for i in sampled:
+            t0 = time.perf_counter()
+            hits = remote.search([key], fact_query(i), k=5)
+            lat.append((time.perf_counter() - t0) * 1e3)
+            if not hits or hits[0].doc_id != f"doc-{i}":
+                fail(f"ivf_pq padded store: top hit for project {i} is "
+                     f"{hits[0].doc_id if hits else None}")
+        log(f"ivf_pq single search over RPC: p50 "
+            f"{np.percentile(lat, 50):.3f} ms p99 "
+            f"{np.percentile(lat, 99):.3f} ms ({len(lat)} searches, right "
+            f"top hit each; a lone request waits out the "
+            f"{cfg['batch_window_s'] * 1e3:.0f} ms admission window) | "
+            f"{card}")
+        qv1 = engine.encoder.encode([fact_query(i) for i in sampled])
+        lat1, served = [], []
+        for i in range(len(sampled)):
+            t0 = time.perf_counter()
+            served.append(seg.search(qv1[i:i + 1], 10)[1][0])
+            lat1.append((time.perf_counter() - t0) * 1e3)
+        log(f"ivf_pq StoreIndex.search Q=1 in process (every batch size "
+            f"goes through the list-scan kernel): p50 "
+            f"{np.percentile(lat1, 50):.3f} ms p99 "
+            f"{np.percentile(lat1, 99):.3f} ms | {card}")
+        exact = seg.exact_reference_search(qv1, 10)
+        # Engine.search asks a padded store's index for max(4k, 32) rows
+        # (pads carry no metadata and are dropped from the hits), so for
+        # k=10 the index re-ranks the ADC top 256: the served top 10 are
+        # the first 10 of that. The bare index call with k=10 re-ranks 64
+        served40 = np.stack([seg.search(qv1[i:i + 1], 40)[1][0, :10]
+                             for i in range(len(sampled))])
+        fact_recall = pq_recall_with_ties(seg, gather, qv1, served40, exact)
+        log(f"ivf_pq recall@10 of fact questions (Q=1) vs "
+            f"exact_reference_search: {fact_recall:.4f} counting a chunk "
+            f"that ties the 10th exact score (integer int8 dots), "
+            f"{recall_at(served40, exact):.4f} by ids alone, as "
+            f"Engine.search asks the index (40 rows, ADC top 256 "
+            f"re-ranked); StoreIndex.search(k=10) (ADC top 64 re-ranked) "
+            f"{pq_recall_with_ties(seg, gather, qv1, served, exact):.4f} "
+            f"and {recall_at(served, exact):.4f}; {len(sampled)} questions "
+            f"| {card}")
+        if fact_recall < RECALL_MIN:
+            fail(f"ivf_pq fact-question recall@10 {fact_recall} < "
+                 f"{RECALL_MIN}")
+
+        threads = 64
+        qids = [int(i) for i in rng.integers(0, args.docs, size=threads * 24)]
+        scan0, gather0 = pq_scan.LAUNCHES.count, gather.LAUNCHES.count
+        search_profile.reset()
+        hits, wall = run_concurrent(remote, key,
+                                    [fact_query(i) for i in qids], threads)
+        batches = search_profile.snapshot().get("body_dispatch",
+                                                {"n": 0})["n"]
+        right = sum(1 for i, h in zip(qids, hits)
+                    if h and h[0].doc_id == f"doc-{i}")
+        conc = (pq_scan.LAUNCHES.count - scan0,
+                gather.LAUNCHES.count - gather0)
+        log(f"ivf_pq concurrent search over RPC: {threads} threads, "
+            f"{len(qids)} queries in {wall:.3f} s = "
+            f"{len(qids) / wall:,.1f} QPS; {batches} batches (mean "
+            f"{len(qids) / max(1, batches):.1f} queries), launches "
+            f"pq_list_scan {conc[0]} gather_rescore_int8 {conc[1]}; right "
+            f"top hit {right}/{len(qids)} ({right / len(qids):.4f}) | {card}")
+        if min(conc) == 0:
+            fail(f"ivf_pq concurrent batches launched {conc}")
+
+        bq = [fact_query(int(i)) for i in rng.integers(0, args.docs, 1024)]
+        remote.search_batch(key, bq[:64], k=10)
+        t0 = time.perf_counter()
+        scores, ids = remote.search_batch(key, bq, k=10)
+        bwall = time.perf_counter() - t0
+        if scores.shape != (1024, 10):
+            fail(f"ivf_pq search_batch returned {scores.shape}")
+        log(f"ivf_pq search_batch Q=1024 over RPC (encode included): "
+            f"{bwall * 1e3:.1f} ms = {1024 / bwall:,.0f} QPS; top score "
+            f"finite for {int(np.isfinite(scores[:, 0]).sum())}/1024 | "
+            f"{card}")
+        probe = remote.recall_probe(key, k=10, sample=64)
+        if probe["recall"] is None:
+            fail(f"ivf_pq recall_probe {probe}")
+        log(f"ivf_pq recall_probe@10 (stored rows, nearly all pads) vs "
+            f"exact_reference_search: {probe['recall']:.4f} (sample "
+            f"{probe['sample']}) | {card}")
+
+        # the other refine tiers on the same body, a short run each
+        seg.pq_refine = "host"
+        for i in sampled[:16]:
+            hits = remote.search([key], fact_query(i), k=5)
+            if not hits or hits[0].doc_id != f"doc-{i}":
+                fail(f"ivf_pq host refine: top hit for project {i} is "
+                     f"{hits[0].doc_id if hits else None}")
+        log(f"ivf_pq pq_refine=host (ADC on the card, rescore against the "
+            f"host archive): right top hit 16/16 | {card}")
+        with seg._body_lock:
+            seg.pq_refine = "none"
+            seg.body = body._replace(refine=body.refine[:0, :0])
+        right = 0
+        for i in sampled[:16]:
+            hits = remote.search([key], fact_query(i), k=5)
+            right += bool(hits and hits[0].doc_id == f"doc-{i}")
+        log(f"ivf_pq pq_refine=none (raw ADC ranking): right top hit "
+            f"{right}/16 | {card}")
+        with seg._body_lock:
+            seg.pq_refine = "device"
+            seg.body = body
+        launches = (pq_scan.LAUNCHES.count, gather.LAUNCHES.count)
+        log(f"ivf_pq main path kernel launches: pq_list_scan {launches[0]}, "
+            f"gather_rescore_int8 {launches[1]}; device memory allocated "
+            f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB, peak "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB | {card}")
+        if min(launches) == 0:
+            fail(f"the ivf_pq main path launched {launches}")
+
+        qv = engine.encoder.encode(bq)
+        seg.search(qv, 10)
+        t0 = time.perf_counter()
+        for _ in range(3):
+            seg.search(qv, 10)
+        dwall = (time.perf_counter() - t0) / 3
+        log(f"ivf_pq StoreIndex.search Q=1024 in process: "
+            f"{dwall * 1e3:.2f} ms = {1024 / dwall:,.0f} QPS | {card}")
+        probe_rows, _ = seg.sample_live_rows(1024, seed=args.seed + 1)
+    finally:
+        remote.close()
+        server.shutdown()
+
+    # -- phase 7: restart on the same data_dir ------------------------------
+    del engine, seg, remote, server, arch
+    gc.collect()
+    engine2 = Engine(EngineConfig(**cfg))
+    server2 = EngineRpcServer(engine2, sock, allow_pad=True).start()
+    remote2 = RemoteEngine(sock)
+    try:
+        seg2 = engine2._store(key).segment
+        back = seg2.body
+        if back is None or type(back).__name__ != "IVFPQIndex":
+            fail("ivf_pq restart: no PQ body reloaded")
+        for name in ("codes", "row_ids", "centroids", "codebook_centroids",
+                     "refine"):
+            if not torch.equal(getattr(back, name), saved[name]):
+                fail(f"ivf_pq restart: reloaded {name} differs")
+        if seg2._pq_archive is None or not np.array_equal(
+                seg2._pq_archive.chunk_i8(0, seg2._pq_archive.n),
+                saved["archive"]):
+            fail("ivf_pq restart: reloaded archive differs")
+        for i in sampled:
+            again = remote2.search([key], fact_query(i), k=5)
+            if again != before_pad[i]:
+                fail(f"ivf_pq restart: hits for project {i} differ")
+        log(f"ivf_pq restart: body.npz reloaded verbatim on the card "
+            f"(codes, ids, codebooks, refine) with its archive; "
+            f"{len(sampled)} queries give the same hits (the store as "
+            f"saved; pads are not persisted)")
+    finally:
+        remote2.close()
+        server2.shutdown()
+    del engine2, remote2, server2, back, saved, seg2
+    gc.collect()
+
+    # -- phase 8: the two kernels on the PQ path's own dispatch -------------
+    # a Q=1024 batch of stored rows through the engine's own transport
+    # (int8, batch-absmax scale), routing and inversion
+    fetch = 16                # what StoreIndex passes for k=10
+    p = min(cfg["ivf_p"], fetch)
+    q_scale = float(np.abs(probe_rows).max()) / 127.0
+    q8 = torch.as_tensor(np.clip(np.round(probe_rows / q_scale), -127, 127)
+                         .astype(np.int8), device="cuda")
+    q32, _, _, dispatch, _, dropped = tpq.route(body, q8, 32,
+                                                q_scale=q_scale)
+    lut_disp, _ = tpq.scan_inputs(body, q32, dispatch, torch.int8)
+    nlist, qcap, km = lut_disp.shape
+    cap_len, m_bytes = body.codes.shape[1], body.codes.shape[2]
+    live_n = pq_scan.live_slots(dispatch)
+    kv, ki = pq_scan.pq_list_scan(lut_disp, body.codes, body.row_ids,
+                                  dispatch, p=p)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rv, ri = pq_scan.pq_list_scan_reference(lut_disp, body.codes,
+                                            body.row_ids, dispatch, p=p)
+    torch.cuda.synchronize()
+    scan_plain_ms = (time.perf_counter() - t0) * 1e3
+    scan_err = check_pq_scan(kv, ki, rv, ri, True, "pq_list_scan int8 main")
+    del kv, ki, rv, ri
+    scan_ms = cuda_ms(lambda: pq_scan.pq_list_scan(
+        lut_disp, body.codes, body.row_ids, dispatch, p=p), reps=5,
+        warmup=1)
+    scan_bound_ms, scan_by, c = pq_scan_bound(body.row_ids, live_n, qcap, p,
+                                              body.m, m_bytes, 1)
+    log(f"pq_list_scan int8 LUT main path, Q=1024 stored rows: "
+        f"nlist={nlist} qcap={qcap} (dropped {int(dropped)}) "
+        f"cap_len={cap_len} m={body.m} p={p}, {c['lists_read']} lists with "
+        f"queries, {c['live_slots']} live slots, {c['rows_needed']} live "
+        f"rows of {c['rows_in_lists_read']}, {c['lookups']:.3e} lookups: "
+        f"bit-identical; kernel {scan_ms:.3f} ms, plain "
+        f"{scan_plain_ms:.3f} ms (one run), no single library call, bound "
+        f"{scan_bound_ms:.3f} ms ({scan_by}) | {card}")
+    del lut_disp
+
+    q32, _, rows, _ = tpq.adc_top_rows(body, q8, fetch, nprobe=32, p=p,
+                                       q_scale=q_scale)
+    qq, _ = quantize.quantize_int8(q32)
+    rows = rows.contiguous()
+    q_n, cands = rows.shape
+    out = gather.gather_rescore_int8(body.refine, rows, qq)
+    torch.cuda.synchronize()
+    ref = gather.gather_rescore_int8_reference(body.refine, rows, qq)
+    if not torch.equal(out, ref):
+        fail("gather_rescore_int8 main: kernel != plain version")
+    del out, ref
+    gather_ms = cuda_ms(lambda: gather.gather_rescore_int8(
+        body.refine, rows, qq), reps=20)
+    gather_plain_ms = cuda_ms(lambda: gather.gather_rescore_int8_reference(
+        body.refine, rows, qq), reps=3, warmup=1)
+    gather_bound_ms, gather_by = gather_bound(q_n, cands, 768)
+    log(f"gather_rescore_int8 main path, Q={q_n} C={cands} d=768 over a "
+        f"refine table of {body.refine.shape[0]} rows: bit-identical; "
+        f"kernel {gather_ms:.4f} ms, plain {gather_plain_ms:.3f} ms, no "
+        f"single library call, bound {gather_bound_ms:.4f} ms "
+        f"({gather_by}) | {card}")
+    shutil.rmtree(data_dir, ignore_errors=True)
+    return [{
+        "name": "pq_list_scan", "route": "cuda",
+        "source": "rag_foundation_tpu_torch/csrc/pq_list_scan.cu",
+        "replaces": "rag_foundation_tpu/ops/pallas_pq.py:135",
+        "launches": launches[0], "max_abs_err": scan_err, "ms": scan_ms,
+        "plain_ms": scan_plain_ms, "bound_ms": scan_bound_ms,
+        "bound_by": scan_by, "library_ms": None, "dtype": "int8 LUT",
+        "shape": {"nlist": nlist, "qcap": qcap, "cap_len": cap_len,
+                  "m": body.m, "m_bytes": m_bytes, "p": p, **c},
+    }, {
+        "name": "gather_rescore_int8", "route": "cuda",
+        "source": "rag_foundation_tpu_torch/csrc/gather_rescore_int8.cu",
+        "replaces": "rag_foundation_tpu/ops/pallas_gather.py:66",
+        "launches": launches[1], "max_abs_err": 0.0, "ms": gather_ms,
+        "plain_ms": gather_plain_ms, "bound_ms": gather_bound_ms,
+        "bound_by": gather_by, "library_ms": None, "dtype": "int8",
+        "shape": {"N": int(body.refine.shape[0]), "Q": q_n, "C": cands,
+                  "d": 768},
+    }]
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rows", type=int, default=10_000_000,
-                    help="store size after padding (default 10M)")
+                    help="int8 store size after padding (default 10M)")
+    ap.add_argument("--pq-rows", type=int, default=10_000_000,
+                    help="ivf_pq store size after padding (default 10M)")
     ap.add_argument("--docs", type=int, default=400,
                     help="real documents ingested before padding")
     ap.add_argument("--seed", type=int, default=0)
@@ -265,12 +785,15 @@ def main() -> None:
     if not torch.cuda.is_available():
         fail("torch sees no CUDA card")
     sys.path.insert(0, str(ROOT))
+    from rag_foundation_tpu_torch.engine import ivfpq as tpq
     from rag_foundation_tpu_torch.engine.api import Engine, EngineConfig
+    from rag_foundation_tpu_torch.engine.archive import HostArchive
     from rag_foundation_tpu_torch.engine.ivf import scan_inputs
     from rag_foundation_tpu_torch.engine.profile import search_profile
     from rag_foundation_tpu_torch.engine.rpc import (EngineRpcServer,
                                                      RemoteEngine)
-    from rag_foundation_tpu_torch.ops import cuda_lib, ivf_scan
+    from rag_foundation_tpu_torch.ops import (cuda_lib, gather, ivf_scan,
+                                              pq_scan, quantize)
 
     # -- phase 1: card and build -------------------------------------------
     t_start = time.perf_counter()
@@ -282,16 +805,19 @@ def main() -> None:
         f"count {torch.cuda.device_count()}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    report = cuda_lib.build(["ivf_list_scan"])
+    kernel_names = ["ivf_list_scan", "pq_list_scan", "gather_rescore_int8"]
+    report = cuda_lib.build(kernel_names)
     for name, r in report.items():
         log(f"build {name}: {r['seconds']:.2f} s")
         for line in r["ptxas"].splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  ptxas: {line.strip()}")
-    cuda_lib.load("ivf_list_scan")
+    for name in kernel_names:
+        cuda_lib.load(name)
 
     # -- phase 2: kernels vs plain versions, small size ---------------------
     phase_small_kernels(ivf_scan, torch)
+    phase_small_pq_kernels(pq_scan, gather, torch)
 
     # -- phase 3: the main path through the RPC entry point -----------------
     data_dir = tempfile.mkdtemp(prefix="ragtpu-chip-smoke-")
@@ -450,15 +976,16 @@ def main() -> None:
         # phase 5 input: a batch of 1024 stored rows (uniform traffic)
         probe_rows, _ = seg.sample_live_rows(1024, seed=args.seed + 1)
     finally:
+        remote.close()
         server.shutdown()
 
     # -- phase 4: restart on the same data_dir -------------------------------
-    del engine, seg, remote       # body stays alive for phase 5
+    del engine, seg, remote, server       # body stays alive for phase 5
     gc.collect()
     engine2 = Engine(EngineConfig(**cfg))
     server2 = EngineRpcServer(engine2, sock, allow_pad=True).start()
+    remote2 = RemoteEngine(sock)
     try:
-        remote2 = RemoteEngine(sock)
         back = engine2._store(key).segment.body
         if back is None or not (torch.equal(back.lists, saved[0])
                                 and torch.equal(back.row_ids, saved[1])
@@ -472,8 +999,9 @@ def main() -> None:
             f"scale); {len(sampled)} queries give the same hits (the store "
             f"as saved; pads are not persisted)")
     finally:
+        remote2.close()
         server2.shutdown()
-    del engine2, remote2, back, saved
+    del engine2, remote2, server2, back, saved
     gc.collect()
 
     # -- phase 5: kernel vs plain on the main path's dispatch, with times ---
@@ -509,8 +1037,23 @@ def main() -> None:
         f"plain {plain_ms:.3f} ms, torch.bmm+topk (f32, every slot, "
         f"{lib_chunks} list chunks) {library_ms:.3f} ms, bound "
         f"{bound_ms:.3f} ms ({bound_by}) | {card}")
-    log(f"total {time.perf_counter() - t_start:.1f} s")
     shutil.rmtree(data_dir, ignore_errors=True)
+    # release the int8 store before the ivf_pq phases (the servers'
+    # handler threads, which hold their engine, end once their clients'
+    # connections are closed)
+    del body, lists, row_ids, qdisp, dispatch, live_n
+    time.sleep(0.5)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"int8 store released: device memory allocated "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+
+    # -- phases 6-8: the ivf_pq store -----------------------------------------
+    pq_kernels = pq_phases(
+        args, card, rng, sampled,
+        (Engine, EngineConfig, EngineRpcServer, RemoteEngine, search_profile,
+         HostArchive, tpq, pq_scan, gather, quantize))
+    log(f"total {time.perf_counter() - t_start:.1f} s")
 
     kernels = {"kernels": [{
         "name": "ivf_list_scan",
@@ -527,7 +1070,7 @@ def main() -> None:
         "dtype": "int8",
         "shape": {"nlist": nlist, "qcap": qcap, "cap_len": cap_len, "d": d,
                   "p": p, **c},
-    }]}
+    }] + pq_kernels}
     print(json.dumps(kernels), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -44,9 +44,11 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "subblock_topp.cuh"
+
 namespace {
 
-constexpr int SUB = 128;                 // rows per sub-block = threads
+constexpr int SUB = scan::SUB;           // rows per sub-block = threads
 constexpr int CHUNK = 128;               // bytes of each row per stage
 constexpr int ROW_STRIDE = CHUNK + 16;   // padded: conflict-free 16 B reads
 constexpr int WARPS = SUB / 32;
@@ -115,23 +117,13 @@ ivf_scan_kernel(const unsigned char* __restrict__ qdisp,
   const int nlive = live_n == nullptr ? qcap : min(qcap, live_n[l]);
 
   // dead tail of the dispatch: (-inf, -1), nothing read
-  for (int i = t; i < (qcap - nlive) * p; i += SUB) {
-    const int j = nlive + i / p, pass = i % p;
-    const size_t o = ((size_t)l * qcap + j) * width + (size_t)pass * nsub + sb;
-    out_vals[o] = -INFINITY;
-    out_idx[o] = -1;
-  }
+  scan::fill_dead(out_vals, out_idx, l, qcap, width, nsub, sb, p, nlive, qcap, t);
   if (nlive == 0) return;
   const bool live = row_ids[row0 + t] >= 0;
   live_s[t] = live;
   if (__syncthreads_count(live) == 0) {
     // a sub-block of dead rows: (-inf, -1) for every live slot
-    for (int i = t; i < nlive * p; i += SUB) {
-      const int j = i / p, pass = i % p;
-      const size_t o = ((size_t)l * qcap + j) * width + (size_t)pass * nsub + sb;
-      out_vals[o] = -INFINITY;
-      out_idx[o] = -1;
-    }
+    scan::fill_dead(out_vals, out_idx, l, qcap, width, nsub, sb, p, 0, nlive, t);
     return;
   }
 
@@ -188,34 +180,9 @@ ivf_scan_kernel(const unsigned char* __restrict__ qdisp,
     __syncthreads();
 
     for (int j = warp; j < nq; j += WARPS) {
-      float v[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) v[i] = score_s[j][lane + 32 * i];
       const size_t out0 = ((size_t)l * qcap + q0 + j) * width;
-      for (int pass = 0; pass < p; ++pass) {
-        float best = v[0];
-        int col = lane;
-#pragma unroll
-        for (int i = 1; i < 4; ++i)
-          if (v[i] > best) { best = v[i]; col = lane + 32 * i; }
-#pragma unroll
-        for (int s = 16; s > 0; s >>= 1) {
-          const float ob = __shfl_xor_sync(0xffffffffu, best, s);
-          const int oc = __shfl_xor_sync(0xffffffffu, col, s);
-          if (ob > best || (ob == best && oc < col)) { best = ob; col = oc; }
-        }
-        // every lane now holds the same (best, col)
-        if ((col & 31) == lane) {
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-            if (i == (col >> 5)) v[i] = -INFINITY;
-        }
-        if (lane == 0) {
-          out_vals[out0 + (size_t)pass * nsub + sb] = best;
-          out_idx[out0 + (size_t)pass * nsub + sb] =
-              best == -INFINITY ? -1 : (int)row0 + col;
-        }
-      }
+      scan::warp_topp<false>(score_s[j], lane, p, nsub, sb, (int)row0, out_vals + out0,
+                      out_idx + out0);
     }
   }
 }

@@ -7,11 +7,11 @@ on-disk format (``meta.json``, ``vectors.npz``, ``body.npz`` per store)
 is the JAX engine's: a ``data_dir`` written by either engine loads in
 the other.
 
-Ported: the ``hash`` encoder and the ``exact``, ``ivf_flat`` and
-``ivf_flat_int8`` index modes on one device (``EngineConfig.device``,
-the card by default). Not ported yet: the ``minilm``/``hybrid``
-encoders, ``ivf_pq``, mesh sharding, the generative decoder, the
-Prometheus metrics and the reader's ``textnorm`` pinning.
+Ported: the ``hash`` encoder and the ``exact``, ``ivf_flat``,
+``ivf_flat_int8`` and ``ivf_pq`` index modes on one device
+(``EngineConfig.device``, the card by default). Not ported yet: the
+``minilm``/``hybrid`` encoders, mesh sharding, the generative decoder,
+the Prometheus metrics and the reader's ``textnorm`` pinning.
 
 Thread model: the RPC server calls in from many threads; each store
 serializes mutation under its own lock, searches read the latest
@@ -56,9 +56,14 @@ class EngineConfig:
     chunk_overlap: int = 40
     encoder: str = "hash"          # only "hash" is ported
     index_mode: str = "exact"      # "exact" | "ivf_flat" | "ivf_flat_int8"
+    #                                 | "ivf_pq"
     nlist: int = 256
     nprobe: int = 32
     build_threshold: int = 100_000  # tail size that triggers IVF build
+    pq_m: int = 48                  # PQ subspaces (ivf_pq mode)
+    pq_packed: bool = False         # nibble-packed codes
+    pq_refine: str = "device"       # device|host|none re-rank tier
+    pq_cap_slack: float = 1.5       # PQ list-capacity headroom
     ivf_p: int = 4                  # per-sub-block top-p capture
     approx_routing: bool = False    # not ported (raises when True)
     batch_window_s: float = 0.0     # >0: micro-batch concurrent searches
@@ -70,9 +75,16 @@ class EngineConfig:
         if self.encoder != "hash":
             raise ValueError(f"encoder {self.encoder!r} not ported yet "
                              "(only 'hash')")
-        if self.index_mode not in ("exact", "ivf_flat", "ivf_flat_int8"):
-            raise ValueError(f"index mode {self.index_mode!r} not ported "
-                             "yet")
+        if self.index_mode not in ("exact", "ivf_flat", "ivf_flat_int8",
+                                   "ivf_pq"):
+            raise ValueError(f"unknown index mode {self.index_mode!r}")
+        # fail fast at startup, not at the first index build
+        if self.index_mode == "ivf_pq" and self.dim % self.pq_m:
+            raise ValueError(
+                f"ENGINE_PQ_M={self.pq_m} must divide ENGINE_DIM="
+                f"{self.dim} for ivf_pq mode")
+        if self.pq_refine not in ("device", "host", "none"):
+            raise ValueError(f"invalid pq_refine {self.pq_refine!r}")
         if self.mesh_shards > 1:
             raise ValueError("mesh sharding not ported yet")
         if self.approx_routing:
@@ -123,7 +135,7 @@ class Engine:
         with self._registry_lock:
             if key in self._stores:
                 raise ValueError(f"store {key!r} already exists")
-            store = _Store(key=key, segment=self._new_index())
+            store = _Store(key=key, segment=self._new_index(key))
             self._stores[key] = store
         if self.config.data_dir:
             # persist immediately so sibling processes see the store
@@ -136,6 +148,8 @@ class Engine:
             p = self._store_dir(key)
             for f in ("vectors.npz", "meta.json", "body.npz"):
                 (p / f).unlink(missing_ok=True)
+            for f in p.glob("arch-*.i8*"):   # an ivf_pq store's archive
+                f.unlink(missing_ok=True)
 
     def list_stores(self) -> list[str]:
         return sorted(self._stores)
@@ -165,14 +179,21 @@ class Engine:
         checked on reload (the JAX engine writes the same string)."""
         return f"{self.encoder.name}:dim{self.config.dim}"
 
-    def _index_kwargs(self) -> dict:
+    def _index_kwargs(self, archive_dir: str | None) -> dict:
         cfg = self.config
         return dict(mode=cfg.index_mode, nlist=cfg.nlist, nprobe=cfg.nprobe,
-                    build_threshold=cfg.build_threshold, ivf_p=cfg.ivf_p,
-                    approx_routing=cfg.approx_routing, device=self.device)
+                    build_threshold=cfg.build_threshold, pq_m=cfg.pq_m,
+                    pq_packed=cfg.pq_packed, pq_refine=cfg.pq_refine,
+                    pq_cap_slack=cfg.pq_cap_slack, ivf_p=cfg.ivf_p,
+                    approx_routing=cfg.approx_routing,
+                    archive_dir=archive_dir, device=self.device)
 
-    def _new_index(self) -> StoreIndex:
-        return StoreIndex(self.config.dim, **self._index_kwargs())
+    def _new_index(self, key: str) -> StoreIndex:
+        # an ivf_pq store keeps its host archive under its own directory
+        archive_dir = (str(self._store_dir(key))
+                       if self.config.data_dir else None)
+        return StoreIndex(self.config.dim,
+                          **self._index_kwargs(archive_dir))
 
     def _store(self, key: str) -> _Store:
         store = self._stores.get(key)
@@ -376,9 +397,7 @@ class Engine:
             return {"padded": 0}
         d = self.config.dim
         ncenters = self.PAD_CENTERS
-        centers = np.random.default_rng(seed).standard_normal(
-            (ncenters, d), dtype=np.float32)
-        centers /= np.linalg.norm(centers, axis=1, keepdims=True)
+        centers = self.pad_centers(seed)
         sigma = np.float32(self.PAD_NOISE)
         PBLOCK = 1 << 18   # pads regenerate on demand, block-seeded
 
@@ -416,6 +435,32 @@ class Engine:
                     self._pad_counts.get(store_key, 0) + n
         return {"padded": int(n), "vectors": store.segment.count}
 
+    def pad_generator(self, centers: np.ndarray, sigma: float, seed: int,
+                      chunk: int, device: torch.device):
+        """``gen(ci) -> f32 [chunk, dim]`` on ``device``: pad rows drawn
+        like the JAX engine's (a unit center plus N(0, sigma^2) a
+        coordinate, l2-normalized), deterministic in ``ci``."""
+        from rag_foundation_tpu_torch.ops.l2norm import l2_normalize
+        d = self.config.dim
+        centers_t = torch.as_tensor(centers, device=device)
+
+        def gen(ci: int) -> torch.Tensor:
+            g = torch.Generator(device=device).manual_seed(
+                (seed + 1) * 1_000_003 + ci)
+            cid = torch.randint(0, len(centers), (chunk,), generator=g,
+                                device=device)
+            noise = torch.randn((chunk, d), generator=g, device=device)
+            return l2_normalize(centers_t[cid] + float(sigma) * noise)
+
+        return gen
+
+    def pad_centers(self, seed: int) -> np.ndarray:
+        """The ``PAD_CENTERS`` unit centers of ``pad_store(seed=seed)``."""
+        centers = np.random.default_rng(seed).standard_normal(
+            (self.PAD_CENTERS, self.config.dim), dtype=np.float32)
+        centers /= np.linalg.norm(centers, axis=1, keepdims=True)
+        return centers
+
     def _pad_int8_device(self, seg: StoreIndex, n: int, centers: np.ndarray,
                          sigma: np.float32, seed: int,
                          pad_ids: np.ndarray) -> None:
@@ -423,7 +468,6 @@ class Engine:
         from the store's live rows + the pads, without the rows ever
         visiting the host."""
         from rag_foundation_tpu_torch.engine.ivf import build_ivf_flat_device
-        from rag_foundation_tpu_torch.ops.l2norm import l2_normalize
         base_v, base_i = seg.live_rows()
         if len(base_i) > 2_000_000:
             raise ValueError("pad_store expects a small seeded store to pad")
@@ -431,15 +475,7 @@ class Engine:
         d = self.config.dim
         dev = seg.device
         chunk = 1 << 18
-        centers_t = torch.as_tensor(centers, device=dev)
-
-        def gen(ci: int) -> torch.Tensor:
-            g = torch.Generator(device=dev).manual_seed(
-                (seed + 1) * 1_000_003 + ci)
-            cid = torch.randint(0, len(centers), (chunk,), generator=g,
-                                device=dev)
-            noise = torch.randn((chunk, d), generator=g, device=dev)
-            return l2_normalize(centers_t[cid] + float(sigma) * noise)
+        gen = self.pad_generator(centers, sigma, seed, chunk, dev)
 
         body, overflow = build_ivf_flat_device(
             gen, n, d, seg._sized_nlist(total),
@@ -558,7 +594,7 @@ class Engine:
                 "store %s was embedded under encoder %s, configured %s: "
                 "searches will be near-random until it is reindexed",
                 meta.get("key"), saved_enc, self.encoder_fingerprint())
-        kw = self._index_kwargs()
+        kw = self._index_kwargs(str(d) if self.config.data_dir else None)
         body_f = d / "body.npz"
         if meta.get("layout") == "tail+body" and body_f.exists():
             # reload the serialized body, then replay only the tail

@@ -1,12 +1,12 @@
 """Per-store index: streaming exact tail + bulk IVF body.
 
 Counterpart of ``rag_foundation_tpu/engine/index.py`` for the modes
-``exact``, ``ivf_flat`` and ``ivf_flat_int8`` on one device. Fresh
-inserts land in the exact ``VectorSegment`` tail; once the tail
-outgrows ``build_threshold``, vectors are compacted into an IVF-Flat
-body (k-means + uniform-capacity posting lists) and the tail restarts
-empty. Queries scan body (IVF dispatch) and tail (exact top-k) and
-merge.
+``exact``, ``ivf_flat``, ``ivf_flat_int8`` and ``ivf_pq`` on one device.
+Fresh inserts land in the exact ``VectorSegment`` tail; once the tail
+outgrows ``build_threshold``, vectors are compacted into an IVF body
+(k-means + uniform-capacity posting lists; for ``ivf_pq`` residual PQ
+codes built through the host int8 archive) and the tail restarts empty.
+Queries scan body (IVF dispatch) and tail (exact top-k) and merge.
 
 Deletes tombstone in both structures: the tail masks at scan time, the
 body filters candidates post-scan and reclaims space at the next
@@ -15,17 +15,25 @@ rebuild.
 
 from __future__ import annotations
 
+import os
 import threading
 
 import numpy as np
 import torch
 
-from rag_foundation_tpu_torch.engine.convert import (body_from_state,
+from rag_foundation_tpu_torch.engine.archive import HostArchive
+from rag_foundation_tpu_torch.engine.convert import (archive_from_state,
+                                                     body_from_state,
                                                      body_to_state)
 from rag_foundation_tpu_torch.engine.ivf import (IVFFlatIndex,
                                                  build_ivf_flat, ivf_append,
                                                  ivf_search,
                                                  ivf_search_small)
+from rag_foundation_tpu_torch.engine.ivfpq import (IVFPQIndex,
+                                                   build_ivf_pq_streaming,
+                                                   ivfpq_append,
+                                                   ivfpq_search)
+from rag_foundation_tpu_torch.ops.pq import pq_decode
 from rag_foundation_tpu_torch.engine.profile import search_profile
 from rag_foundation_tpu_torch.engine.segments import VectorSegment
 from rag_foundation_tpu_torch.ops.quantize import (quantize_int8,
@@ -41,6 +49,17 @@ _EMPTY_TAIL = object()
 _AUDIT_BLOCK = 65536
 
 
+def _unpack(codes: torch.Tensor, packed: bool) -> torch.Tensor:
+    """Code values ``[N, m]`` of a (possibly nibble-packed) code table."""
+    if not packed:
+        return codes
+    out = torch.empty((codes.shape[0], codes.shape[1] * 2),
+                      dtype=torch.uint8, device=codes.device)
+    out[:, 0::2] = codes & 15
+    out[:, 1::2] = codes >> 4
+    return out
+
+
 def _exact_int8_topk(qq, table8, live, k, block_size: int = 8192):
     """Exact top-k of int8 queries against an int8 row table [N8, d]:
     int8 dots are exact (recall-audit / ground-truth path)."""
@@ -48,22 +67,49 @@ def _exact_int8_topk(qq, table8, live, k, block_size: int = 8192):
 
 
 class StoreIndex:
-    """Mode-aware store index: 'exact' | 'ivf_flat' | 'ivf_flat_int8'."""
+    """Mode-aware store index:
+    'exact' | 'ivf_flat' | 'ivf_flat_int8' | 'ivf_pq'."""
 
     def __init__(self, dim: int, *, mode: str = "exact", nlist: int = 256,
                  nprobe: int = 32, build_threshold: int = 100_000,
+                 pq_m: int = 48, pq_nbits: int = 4,
+                 pq_refine: bool | str = True,
+                 pq_refine_c: int | None = None,
+                 pq_packed: bool = False,
+                 pq_cap_slack: float = 1.5,
                  ivf_p: int = 4, approx_routing: bool = False,
+                 archive_dir: str | None = None,
                  seed: int = 0, mesh=None,
                  device: str | torch.device = "cuda"):
-        if mode == "ivf_pq":
-            raise ValueError("index mode 'ivf_pq' not ported yet")
-        if mode not in ("exact", "ivf_flat", "ivf_flat_int8"):
+        if mode not in ("exact", "ivf_flat", "ivf_flat_int8", "ivf_pq"):
             raise ValueError(f"unknown index mode {mode!r}")
+        if mode == "ivf_pq" and dim % pq_m:
+            raise ValueError(f"dim {dim} not divisible by pq_m {pq_m}")
         if mesh is not None:
             raise ValueError("mesh sharding not ported yet")
         if approx_routing:
             raise NotImplementedError("approx routing (lax.approx_max_k) "
                                       "is not ported yet")
+        self.pq_m = pq_m
+        self.pq_nbits = pq_nbits
+        self.pq_packed = pq_packed
+        # "device" keeps an int8 re-rank table on the card; "host"
+        # re-ranks ADC candidates against the host archive — the tier
+        # for corpora past the card's memory (engine/archive.py); "none"
+        # serves raw ADC ranking
+        if isinstance(pq_refine, bool):
+            pq_refine = "device" if pq_refine else "none"
+        if pq_refine not in ("device", "host", "none"):
+            raise ValueError(f"unknown pq_refine {pq_refine!r}")
+        self.pq_refine = pq_refine
+        # host re-rank fan-out (ADC top-C candidates re-ranked); None =
+        # the 4*fetch heuristic. C is the host tier's main cost knob
+        self.pq_refine_c = pq_refine_c
+        # list-capacity headroom over the mean fill (overflow rows
+        # re-route to the tail)
+        self.pq_cap_slack = pq_cap_slack
+        self.archive_dir = archive_dir
+        self._pq_archive: HostArchive | None = None  # mirrors body rows
         self.device = resolve_device(device)
         self.dim = dim
         self.mode = mode
@@ -77,7 +123,7 @@ class StoreIndex:
         # serializes body mutation (in-place appends, swaps) vs body reads
         self._body_lock = threading.RLock()
         self.tail = self._new_tail()
-        self.body: IVFFlatIndex | None = None
+        self.body: IVFFlatIndex | IVFPQIndex | None = None
         self.body_chunk_ids: np.ndarray | None = None  # row -> chunk id
         self._dead: set[int] = set()
         # bumped on every persisted-body mutation (rebuild/flush/
@@ -118,9 +164,16 @@ class StoreIndex:
         new_rows = np.arange(row_base, row_base + len(st["ids"]),
                              dtype=np.int32)
         with self._body_lock:
-            new_body, dropped = ivf_append(
-                self.body, torch.as_tensor(st["vectors"],
-                                           device=self.device), new_rows)
+            vecs = torch.as_tensor(st["vectors"], device=self.device)
+            if self.mode == "ivf_pq":
+                if self._pq_archive is not None:
+                    # archive mirrors body row order — dropped rows get
+                    # a -1 table slot below, so they stay dead there
+                    self._pq_archive.append(
+                        np.asarray(st["vectors"], np.float32))
+                new_body, dropped = ivfpq_append(self.body, vecs, new_rows)
+            else:
+                new_body, dropped = ivf_append(self.body, vecs, new_rows)
             # only rows that landed extend the id table; dropped rows
             # keep a -1 sentinel and re-enter through the tail + rebuild
             ids64 = np.asarray(st["ids"], np.int64)
@@ -166,9 +219,13 @@ class StoreIndex:
         return np.concatenate(parts_v), np.concatenate(parts_i)
 
     def rebuild(self) -> None:
-        """Compact tail + body into a fresh IVF body (copy-on-compact)."""
+        """Compact tail + body into a fresh IVF body (copy-on-compact).
+        IVF-PQ routes through the host-staged streaming build: its f32
+        corpus never materializes on the device or the host."""
         if self.mode == "exact":
             return
+        if self.mode == "ivf_pq":
+            return self._rebuild_pq()
         vecs, cids = self.live_rows()
         if not len(cids):
             with self._body_lock:
@@ -210,9 +267,128 @@ class StoreIndex:
         floor = -(-n // self.MAX_MEAN_LIST_ROWS)
         return max(8, floor, min(self.nlist, n // 64 or 8))
 
+    def _archive_path(self) -> str | None:
+        if not self.archive_dir:
+            return None
+        return os.path.join(self.archive_dir,
+                            f"arch-{self.body_version + 1}.i8")
+
+    def _rebuild_pq(self) -> None:
+        """IVF-PQ compaction via the host int8 archive + streaming build.
+
+        The archive mirrors body row order exactly: new-archive row i IS
+        body row i, so ``body_chunk_ids`` doubles as the row->chunk-id
+        table for both. Rows that overflow their list's capacity are
+        marked dead in the table and re-enter through the fresh tail
+        (same re-route contract as ivf_append's dropped mask)."""
+        st = self.tail.state()  # compacts tombstones
+        old_arch = self._pq_archive
+        cid_parts: list[np.ndarray] = []
+        if self.body is not None:
+            keep = self._body_keep()
+            if old_arch is not None and bool(keep.all()) \
+                    and old_arch.n == len(keep):
+                arch = old_arch       # append-only fast path: no copy
+            elif old_arch is not None:
+                arch = old_arch.compact(keep, path=self._archive_path())
+            else:
+                # body without an archive (old checkpoint): source the
+                # best reconstruction available once
+                arch = HostArchive(self.dim, path=self._archive_path())
+                arch.append(self._body_vectors()[keep])
+            cid_parts.append(self.body_chunk_ids[keep])
+        else:
+            arch = HostArchive(self.dim, path=self._archive_path())
+        if len(st["ids"]):
+            arch.append(np.asarray(st["vectors"], np.float32))
+            cid_parts.append(np.asarray(st["ids"], np.int64))
+        if not cid_parts:
+            with self._body_lock:
+                self.body = None
+                self.body_version += 1
+                self.body_chunk_ids = None
+                self._pq_archive = None
+            return
+        self._publish_pq_build(arch, np.concatenate(cid_parts))
+
+    def bulk_load_archive(self, archive: HostArchive, chunk_ids: np.ndarray,
+                          progress=None) -> None:
+        """Bulk ingestion for ivf_pq stores: take ownership of a filled
+        HostArchive (row i holds the vector for ``chunk_ids[i]``) and
+        build+publish the body through the same streaming path rebuilds
+        use. The entry point for reindex / mass import at scales where
+        per-chunk ``add()`` churn is wasteful."""
+        if self.mode != "ivf_pq":
+            raise ValueError("bulk_load_archive requires mode='ivf_pq'")
+        if archive.n != len(chunk_ids):
+            raise ValueError("archive rows != chunk_ids length")
+        self._publish_pq_build(archive, np.asarray(chunk_ids, np.int64),
+                               progress=progress)
+
+    def _publish_pq_build(self, arch: HostArchive, cids: np.ndarray,
+                          progress=None) -> None:
+        n = arch.n
+        refine = "device" if self.pq_refine == "device" else "none"
+        new_body, overflow = build_ivf_pq_streaming(
+            arch.chunk_i8, n, self.dim, self._sized_nlist(n), self.pq_m,
+            generator=self._generator(), device=self.device,
+            nbits=self.pq_nbits, packed=self.pq_packed,
+            cap_slack=self.pq_cap_slack, source_scale=arch.scale,
+            refine=refine, source_rows=arch.rows_i8, progress=progress)
+        over_rows = np.nonzero(overflow)[0]
+        over_vecs = arch.rows_f32(over_rows) if len(over_rows) else None
+        over_ids = cids[over_rows] if len(over_rows) else None
+        cids = cids.copy()
+        cids[over_rows] = -1   # dead in the body; live in the new tail
+        with self._body_lock:
+            self.body_chunk_ids = cids
+            self.body = new_body
+            self.body_version += 1
+            self._pq_archive = arch
+        self.tail = self._new_tail()
+        self._dead.clear()
+        if over_vecs is not None:
+            self.tail.add(over_vecs, over_ids)
+
+    def _pad_rows(self, out: np.ndarray) -> np.ndarray:
+        """``out`` cut or zero-padded to one row per table entry."""
+        want = len(self.body_chunk_ids)
+        if len(out) >= want:
+            return out[:want]
+        return np.concatenate(
+            [out, np.zeros((want - len(out), self.dim), np.float32)])
+
+    def _pq_body_vectors(self) -> np.ndarray:
+        idx = self.body
+        if self._pq_archive is not None:
+            # archive row i IS body row i (rebuild invariant)
+            return self._pad_rows(self._pq_archive.chunk_f32(
+                0, len(self.body_chunk_ids)))
+        if idx.refine.shape[0] > 0:
+            # restored body with a refine store: int8 originals are far
+            # higher fidelity than decoded PQ codes
+            return self._pad_rows(idx.refine.cpu().numpy().astype(
+                np.float32) * np.float32(idx.refine_scale))
+        # restored body with refine disabled: reconstruct approximately
+        # from the codes (coarse centroid + decoded residual) — lossy,
+        # but the only material left after a restart, and only rebuilds
+        # (re-train + re-encode) consume it
+        nlist, cap_len = idx.row_ids.shape
+        codes = _unpack(idx.codes.reshape(nlist * cap_len, -1), idx.packed)
+        flat = (pq_decode(idx.codebook, codes)
+                + idx.centroids.repeat_interleave(cap_len, dim=0)
+                ).cpu().numpy()
+        ids = idx.row_ids.reshape(-1).cpu().numpy()
+        live = ids >= 0
+        out = np.zeros((len(self.body_chunk_ids), self.dim), np.float32)
+        out[ids[live]] = flat[live]
+        return out
+
     def _body_vectors(self) -> np.ndarray:
         """Reconstruct body vectors in original row order. Rows whose
         table slot is a -1 sentinel (dropped appends) stay zero."""
+        if self.mode == "ivf_pq":
+            return self._pq_body_vectors()
         idx = self.body
         flat = idx.lists.reshape(-1, self.dim).float().cpu().numpy()
         if idx.lists.dtype == torch.int8:
@@ -247,6 +423,23 @@ class StoreIndex:
         vals, ids = self._finalize_padded(ctx)
         return vals[:real_q], ids[:real_q]
 
+    def search_many(self, batches: list[np.ndarray], k: int
+                    ) -> list[tuple[np.ndarray, np.ndarray]]:
+        """Pipelined multi-batch search: batch i+1's device work is
+        launched before batch i's host finalize (fetch + rescore +
+        merge) runs, so host work overlaps device time. Results match
+        ``search`` batch for batch."""
+        out: list = [None] * len(batches)
+        prev = None   # (index, handle)
+        for i, q in enumerate(batches):
+            handle = self.search_dispatch(q, k)
+            if prev is not None:
+                out[prev[0]] = self.search_finalize(prev[1])
+            prev = (i, handle)
+        if prev is not None:
+            out[prev[0]] = self.search_finalize(prev[1])
+        return out
+
     def _dispatch_padded(self, queries: np.ndarray, k: int):
         """Launch all device work for one padded batch; the returned
         context goes to ``_finalize_padded`` (fetch + host merge)."""
@@ -260,6 +453,8 @@ class StoreIndex:
         fetch = min(bucket_pow2(k + len(self._dead)),
                     bucket_pow2(k * 4 + 16))
         queries = np.asarray(queries)
+        if self.mode == "ivf_pq":
+            return self._dispatch_pq(queries, k, fetch, tail)
         with search_profile.stage("body_dispatch"), self._body_lock:
             # body, its scale and its row->chunk-id table are read
             # together under the lock: the queries are quantized with the
@@ -295,14 +490,74 @@ class StoreIndex:
             else:
                 qt = qj.float() * body.scale if q_int8 else qj
                 tail_h = tail.search_dispatch(qt, k)
-        return ("body", q_n, k, body_chunk_ids, b_vals, b_rows, tail,
-                tail_h)
+        return ("body", q_n, k, fetch, None, body_chunk_ids, b_vals, b_rows,
+                tail, tail_h, None)
+
+    def _dispatch_pq(self, queries: np.ndarray, k: int, fetch: int,
+                     tail: VectorSegment):
+        """The ``ivf_pq`` body dispatch. There is no small-batch path:
+        every batch, a single query included, goes through
+        ``ivfpq_search`` and its list-scan kernel. (The JAX engine's bf16
+        query transport is reached only by mesh stores, which are not
+        ported.)"""
+        q_n = queries.shape[0]
+        q_scale = None
+        with search_profile.stage("q_upload"):
+            if queries.dtype == np.float32:
+                # queries cross to the device as int8 + one scale, a
+                # quarter of the f32 bytes. The batch-absmax scale is
+                # computed here on the host in numpy, as the JAX engine
+                # does, so both quantize alike; the noise (~0.4% of
+                # range) is far below the 4-bit ADC's own resolution
+                q_scale = float(np.abs(queries).max()) / 127.0 or 1.0
+                qj = torch.as_tensor(np.clip(np.round(queries / q_scale),
+                                             -127, 127).astype(np.int8),
+                                     device=self.device)
+            else:
+                qj = torch.as_tensor(queries, device=self.device)
+        rescore_arch = None
+        with search_profile.stage("body_dispatch"), self._body_lock:
+            body = self.body
+            body_chunk_ids = self.body_chunk_ids
+            nprobe = min(self.nprobe, body.nlist)
+            # per-sub-block capture: 4 as in the JAX engine, which fixes
+            # it; here a larger ``ivf_p`` raises it (never below 4). The
+            # selection is a small part of the kernel's time on the card,
+            # and a dense cluster of near-duplicates in one list needs
+            # more than 4 rows a sub-block
+            p_cap = max(4, self.ivf_p)
+            if self.pq_refine == "host" and self._pq_archive is not None:
+                # tier past the card's memory: the device ADC proposes
+                # top-C, the host int8 archive re-ranks exactly (in
+                # _finalize_padded)
+                c = self.pq_refine_c or min(max(4 * fetch, 32), 256)
+                b_vals, b_rows, _ = ivfpq_search(
+                    body, qj, c, nprobe=nprobe, p=min(p_cap, c),
+                    q_scale=q_scale)
+                rescore_arch = self._pq_archive
+            else:
+                b_vals, b_rows, _ = ivfpq_search(
+                    body, qj, fetch, nprobe=nprobe, p=min(p_cap, fetch),
+                    q_scale=q_scale)
+        with search_profile.stage("tail_dispatch"):
+            if tail.count == 0:
+                tail_h = _EMPTY_TAIL
+            else:
+                # int8-uploaded queries dequantize on the device for the
+                # exact tail scan
+                qt = qj.float() * q_scale if q_scale is not None else qj
+                tail_h = tail.search_dispatch(qt, k)
+        q32 = np.asarray(queries, np.float32) \
+            if rescore_arch is not None else None
+        return ("body", q_n, k, fetch, rescore_arch, body_chunk_ids, b_vals,
+                b_rows, tail, tail_h, q32)
 
     def _finalize_padded(self, ctx) -> tuple[np.ndarray, np.ndarray]:
         if ctx[0] == "tail":
             _, tail, handle = ctx
             return tail.search_finalize(handle)
-        (_, q_n, k, body_chunk_ids, b_vals, b_rows, tail, tail_h) = ctx
+        (_, q_n, k, fetch, rescore_arch, body_chunk_ids, b_vals, b_rows,
+         tail, tail_h, q32) = ctx
         with search_profile.stage("tail_fetch"):
             if tail_h is _EMPTY_TAIL:
                 t_vals, t_ids = None, None
@@ -310,7 +565,17 @@ class StoreIndex:
                 t_vals, t_ids = tail.search_finalize(tail_h)
         with search_profile.stage("rows_fetch"):
             b_rows = b_rows.cpu().numpy()
-            b_vals = b_vals.cpu().numpy()
+            if rescore_arch is None:
+                b_vals = b_vals.cpu().numpy()
+        if rescore_arch is not None:
+            # the ADC values are REPLACED by the host rescore, so they
+            # are never fetched from the device
+            with search_profile.stage("rescore"):
+                scores = rescore_arch.rescore(q32, b_rows)
+                order = np.argsort(-scores, axis=1,
+                                   kind="stable")[:, :fetch]
+                b_vals = np.take_along_axis(scores, order, axis=1)
+                b_rows = np.take_along_axis(b_rows, order, axis=1)
         with search_profile.stage("idmap_merge"):
             # row -> chunk id, tombstone filter
             b_ids = np.where(b_rows >= 0,
@@ -399,10 +664,7 @@ class StoreIndex:
                                      device=self.device)
                 ss = torch.as_tensor([p[1] for p in picked],
                                      device=self.device)
-                vecs = body.lists[ls, ss].float().cpu().numpy()
-                if body.lists.dtype == torch.int8:
-                    vecs = vecs * np.float32(body.scale)
-                rows = body.row_ids[ls, ss].cpu().numpy()
+                vecs, rows = self._fetch_body_rows(body, ls, ss)
                 live = rows >= 0
                 parts_v.append(vecs[live])
                 parts_i.append(table[rows[live]])
@@ -410,6 +672,79 @@ class StoreIndex:
                 else np.zeros((0, self.dim), np.float32),
                 np.concatenate(parts_i) if parts_i
                 else np.zeros((0,), np.int64))
+
+    def _fetch_body_rows(self, body, ls: torch.Tensor, ss: torch.Tensor
+                         ) -> tuple[np.ndarray, np.ndarray]:
+        """Sampled body rows (list, slot) as f32 + their global row ids."""
+        rows = body.row_ids[ls, ss].cpu().numpy()
+        if isinstance(body, IVFPQIndex):
+            if self._pq_archive is not None:
+                return (self._pq_archive.rows_f32(np.clip(rows, 0, None)),
+                        rows)
+            if body.refine.shape[0] > 0:
+                safe = torch.as_tensor(np.clip(rows, 0, None),
+                                       device=self.device)
+                v8 = body.refine[safe].cpu().numpy()
+                return (v8.astype(np.float32)
+                        * np.float32(body.refine_scale), rows)
+            # no refine: reconstruct only the sampled rows from codes
+            dec = pq_decode(body.codebook,
+                            _unpack(body.codes[ls, ss], body.packed))
+            return (dec + body.centroids[ls]).cpu().numpy(), rows
+        vecs = body.lists[ls, ss].float().cpu().numpy()
+        if body.lists.dtype == torch.int8:
+            vecs = vecs * np.float32(body.scale)
+        return vecs, rows
+
+    def _table_live(self, table: np.ndarray, nrows: int) -> np.ndarray:
+        """Liveness of body rows ``[0, nrows)`` from the HOST table (row
+        -> chunk id, -1 for dropped appends), tombstones excluded: the
+        served path filters them, so the exact reference must too."""
+        live = table[:nrows] >= 0
+        if self._dead:
+            live &= ~np.isin(table[:nrows], self._dead_array())
+        return live
+
+    def _exact_pq(self, body: IVFPQIndex, table: np.ndarray,
+                  q32: np.ndarray, k: int) -> tuple[np.ndarray, np.ndarray]:
+        """Exact (values, body rows) over a PQ body's stored int8 rows:
+        the refine table on the device, or a chunked host scan of the
+        archive where there is none."""
+        if body.refine.shape[0] == 0 and self._pq_archive is not None:
+            arch = self._pq_archive
+            nrows = min(len(table), arch.n)
+            live = self._table_live(table, nrows)
+            best_v = np.full((q32.shape[0], k), -np.inf, np.float32)
+            best_r = np.full((q32.shape[0], k), -1, np.int64)
+            step = 1 << 19
+            for lo in range(0, nrows, step):
+                hi = min(nrows, lo + step)
+                s = q32 @ arch.chunk_f32(lo, hi).T
+                s[:, ~live[lo:hi]] = -np.inf
+                kk = min(k, hi - lo)
+                part = np.argpartition(-s, kk - 1, axis=1)[:, :kk]
+                allv = np.concatenate(
+                    [best_v, np.take_along_axis(s, part, axis=1)], axis=1)
+                allr = np.concatenate([best_r, part + lo], axis=1)
+                order = np.argsort(-allv, axis=1, kind="stable")[:, :k]
+                best_v = np.take_along_axis(allv, order, axis=1)
+                best_r = np.take_along_axis(allr, order, axis=1)
+            return best_v, best_r
+        if body.refine.shape[0] == 0:
+            raise NotImplementedError(
+                "exact audit over a PQ body requires the refine store or "
+                "the host archive (codes alone are lossy)")
+        qq, qscale = quantize_int8(torch.as_tensor(q32, device=self.device))
+        n8 = body.refine.shape[0]
+        live_np = np.zeros(n8, bool)
+        nrows = min(len(table), n8)
+        live_np[:nrows] = self._table_live(table, nrows)
+        vals, pos = _exact_int8_topk(
+            qq, body.refine, torch.as_tensor(live_np, device=self.device), k,
+            block_size=_AUDIT_BLOCK)
+        vals = vals.cpu().numpy() * np.float32(
+            np.float32(qscale) * np.float32(body.refine_scale))
+        return vals, pos.cpu().numpy()
 
     def exact_reference_search(self, queries: np.ndarray, k: int
                                ) -> np.ndarray:
@@ -429,6 +764,9 @@ class StoreIndex:
             return t_ids[:, :k] if t_ids.shape[1] >= k else np.pad(
                 t_ids, ((0, 0), (0, k - t_ids.shape[1])),
                 constant_values=-1)
+        if isinstance(body, IVFPQIndex):
+            vals, rows = self._exact_pq(body, table, q32, k)
+            return self._merge_exact(vals, rows, table, t_vals, t_ids, k)
         flat = body.lists.reshape(-1, self.dim)
         flat_rows = body.row_ids.reshape(-1).cpu().numpy()
         live_np = flat_rows >= 0
@@ -450,6 +788,10 @@ class StoreIndex:
         pos = pos.cpu().numpy()
         rows = flat_rows[np.clip(pos, 0, None)]
         rows = np.where(pos >= 0, rows, -1)
+        return self._merge_exact(vals, rows, table, t_vals, t_ids, k)
+
+    @staticmethod
+    def _merge_exact(vals, rows, table, t_vals, t_ids, k) -> np.ndarray:
         b_ids = np.where(rows >= 0, table[np.clip(rows, 0, None)], -1)
         # merge with the exact tail scan (both tiers are exact)
         allv = np.concatenate([vals, t_vals], axis=1)
@@ -486,14 +828,20 @@ class StoreIndex:
                 "dead": self._dead_array(),
             }
             out.update(body_to_state(self.body))
+            if self._pq_archive is not None:
+                ast = self._pq_archive.state()
+                out["archive_rows"] = ast["rows"]
+                out["archive_scale"] = ast["scale"]
         return out
 
     def restore_body(self, state: dict) -> None:
         """Install a checkpointed body (tail untouched)."""
         body = body_from_state(state, self.device)
+        archive = archive_from_state(state, path=self._archive_path())
         with self._body_lock:
             self.body = body
             self.body_version += 1
             self.body_chunk_ids = np.asarray(state["body_chunk_ids"],
                                              np.int64)
             self._dead = set(np.asarray(state["dead"], np.int64).tolist())
+            self._pq_archive = archive

@@ -252,6 +252,14 @@ class RemoteEngine:
         self._lock = threading.Lock()
         self._pool_size = pool_size
 
+    def close(self) -> None:
+        """Close the pooled connections (the server's handler threads,
+        which hold the engine, end with them). A later call reconnects."""
+        with self._lock:
+            pool, self._pool = self._pool, []
+        for sock in pool:
+            sock.close()
+
     # -- plumbing ---------------------------------------------------------
     def _connect(self) -> socket.socket:
         s = socket.socket(socket.AF_UNIX, socket.SOCK_STREAM)

@@ -38,6 +38,10 @@ _FIELDS = (
     ("nlist", "ENGINE_NLIST", int, 1024),
     ("nprobe", "ENGINE_NPROBE", int, 64),
     ("build_threshold", "ENGINE_BUILD_THRESHOLD", int, 100_000),
+    ("pq_m", "ENGINE_PQ_M", int, 48),
+    ("pq_packed", "ENGINE_PQ_PACKED", bool, False),
+    ("pq_refine", "ENGINE_PQ_REFINE", str, "device"),
+    ("pq_cap_slack", "ENGINE_PQ_CAP_SLACK", float, 1.5),
     ("ivf_p", "ENGINE_IVF_P", int, 4),
     ("approx_routing", "ENGINE_APPROX_ROUTING", bool, False),
     ("mesh_shards", "ENGINE_MESH_SHARDS", int, 1),

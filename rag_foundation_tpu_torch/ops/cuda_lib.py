@@ -3,7 +3,8 @@
 Each ``csrc/<name>.cu`` has a plain C entry point. At first use it is
 compiled with ``nvcc`` for ``sm_90a`` into a shared library under
 ``build/kernels/`` at the repository root (git-ignored), named by a hash
-of its source and flags, and loaded with ``ctypes``. Nothing is built
+of its source, the shared headers (``csrc/*.cuh``) and the flags, and
+loaded with ``ctypes``. Nothing is built
 or imported when this module is imported.
 """
 
@@ -40,9 +41,14 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    """Library of ``csrc/<name>.cu``, named by a hash of that source, of
+    every header beside it (a source may include any of them) and of the
+    flags: an edit to either builds a new library."""
+    h = hashlib.sha256((CSRC_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        h.update(header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    digest = h.hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 
 

@@ -213,6 +213,9 @@ def test_rpc_round_trip(tmp_path):
         assert isinstance(remote.metrics_text(), str)
         with pytest.raises(StoreNotFound):
             remote.search(["stores/missing"], "q")
+        remote.close()                  # pooled connections go ...
+        assert not remote._pool
+        assert remote.ping()            # ... and a later call reconnects
     finally:
         server.shutdown()
 
@@ -258,8 +261,8 @@ def test_cuda_device_raises_without_card():
         pytest.skip("a card is present")
     with pytest.raises(RuntimeError, match="no CUDA"):
         Engine(EngineConfig(dim=64))
-    with pytest.raises(ValueError, match="not ported"):
-        EngineConfig(index_mode="ivf_pq")
+    with pytest.raises(ValueError, match="must divide"):
+        EngineConfig(index_mode="ivf_pq", dim=64, pq_m=48)
     with pytest.raises(ValueError, match="not ported"):
         EngineConfig(encoder="minilm")
 
@@ -279,3 +282,283 @@ def test_engine_main_config_from_env(tmp_path):
     assert sock == str(tmp_path / "engine.sock") and not allow_pad
     cfg, _, allow_pad = config_from_env({})
     assert cfg.device == "cuda" and cfg.index_mode == "exact" and allow_pad
+
+
+# -- the ivf_pq store ----------------------------------------------------------
+
+PQ_M = 32       # 4 dims a subquantizer, as m=192 at d=768
+
+
+def _pq_cfg(data_dir, refine="device", packed=False):
+    return dict(_cfg("ivf_pq", data_dir), pq_m=PQ_M, pq_refine=refine,
+                pq_packed=packed)
+
+
+def _pq_jax(data_dir, **kw):
+    e = JaxEngine(JaxConfig(**_pq_cfg(data_dir, **kw)))
+    e.encoder = JaxHashingEncoder(dim=DIM, use_native=False)
+    return e
+
+
+def _pq_port(data_dir, **kw):
+    return Engine(EngineConfig(**_pq_cfg(data_dir, **kw), device="cpu"))
+
+
+def _assert_pq_hits(a, b, body_ids, refine="device"):
+    """``ivf_pq`` parity between the packages on the same body: the same
+    top hit for every query, the same hit on at least 0.95 of (query,
+    rank) positions (one ulp in an f32 LUT sum can move a candidate at
+    the ADC cut), and where both return the same chunk its score is
+    bit-equal when the device refine store scored it (``body_ids``: int8
+    dots times two scales), within 1e-5 relative for the host rescore and
+    the exact tail (f32 dots), within 1e-3 for raw ADC sums."""
+    same = total = 0
+    for ha, hb in zip(a, b):
+        assert ha and hb and _key(ha[0]) == _key(hb[0])
+        for x, y in zip(ha, hb):
+            total += 1
+            if _key(x) != _key(y):
+                # two f32-scored hits within 1e-5 of each other (a tie
+                # in real arithmetic) may come in either order
+                same += bool(np.isclose(x.score, y.score, rtol=1e-5)
+                             and not (refine == "device"
+                                      and {x.chunk_id, y.chunk_id}
+                                      <= body_ids))
+                continue
+            same += 1
+            in_body = x.chunk_id in body_ids
+            if refine == "device" and in_body:
+                assert np.float32(x.score) == np.float32(y.score)
+            else:
+                np.testing.assert_allclose(
+                    x.score, y.score, rtol=1e-5,
+                    atol=1e-3 if refine == "none" and in_body else 1e-6)
+    assert same >= 0.95 * total, (same, total)
+
+
+@pytest.mark.parametrize("refine", ["device", "host", "none"])
+def test_ivf_pq_port_serves_jax_data_dir(refine, tmp_path):
+    jdir = str(tmp_path / "jax")
+    jax_e = _pq_jax(jdir, refine=refine)
+    jax_e.create_store(STORE)
+    _ingest(jax_e, 0, 200)
+    jseg = jax_e._store(STORE).segment
+    assert type(jseg.body).__name__ == "IVFPQIndex" and jseg.tail.count > 0
+    pdir = str(tmp_path / "port")
+    shutil.copytree(jdir, pdir)
+    port = _pq_port(pdir, refine=refine)
+    seg = port._store(STORE).segment
+    # the saved body (codes, ids, codebooks, refine) and archive reload
+    # verbatim, refine padded to 8 rows as saved
+    for name in ("codes", "row_ids", "centroids", "codebook_centroids",
+                 "refine"):
+        np.testing.assert_array_equal(getattr(seg.body, name).numpy(),
+                                      np.asarray(getattr(jseg.body, name)))
+    assert seg.body.refine.shape[0] == (
+        0 if refine != "device" else -(-len(seg.body_chunk_ids) // 8) * 8)
+    np.testing.assert_array_equal(
+        seg._pq_archive.chunk_i8(0, seg._pq_archive.n),
+        jseg._pq_archive.chunk_i8(0, jseg._pq_archive.n))
+    _assert_pq_hits(_search_all(port), _search_all(jax_e),
+                    set(seg.body_chunk_ids.tolist()), refine)
+    assert port.store_stats(STORE) == jax_e.store_stats(STORE)
+
+
+@pytest.mark.parametrize("refine,packed", [("device", False),
+                                           ("host", True)])
+def test_ivf_pq_jax_serves_port_data_dir(refine, packed, tmp_path):
+    pdir = str(tmp_path / "port")
+    port = _pq_port(pdir, refine=refine, packed=packed)
+    port.create_store(STORE)
+    _ingest(port, 0, 200)
+    port.delete_document(STORE, "doc-3")
+    _ingest(port, 200, 215)       # a streaming tail beside the body
+    seg = port._store(STORE).segment
+    assert seg.body.packed == packed and seg.tail.count > 0
+    jax_e = _pq_jax(pdir, refine=refine, packed=packed)
+    assert jax_e.has_store(STORE)
+    _assert_pq_hits(_search_all(jax_e), _search_all(port),
+                    set(seg.body_chunk_ids.tolist()), refine)
+    assert jax_e.store_stats(STORE) == port.store_stats(STORE)
+    # and back: a restart of the port reloads its own body verbatim
+    again = _pq_port(pdir, refine=refine, packed=packed)
+    assert torch.equal(again._store(STORE).segment.body.codes, seg.body.codes)
+    assert _search_all(again) == _search_all(port)
+
+
+@pytest.mark.parametrize("refine", ["device", "host", "none"])
+def test_ivf_pq_store_lifecycle(refine):
+    """Ingest past the build threshold, search, append without a rebuild,
+    delete, rebuild (compacts the archive), audit."""
+    port = _pq_port(None, refine=refine)
+    port.create_store(STORE)
+    _ingest(port, 0, 200)
+    seg = port._store(STORE).segment
+    body0 = seg.body
+    assert type(body0).__name__ == "IVFPQIndex" and body0.m == PQ_M
+    assert (body0.refine.shape[0] > 0) == (refine == "device")
+    assert seg._pq_archive.n == len(seg.body_chunk_ids)
+    # top hits against the exact engine over the same documents: the
+    # re-ranked tiers lose at most the candidates the 4-bit ADC cut
+    # drops, raw ADC ranking more
+    exact_e = _port_engine("exact", None)
+    exact_e.create_store(STORE)
+    _ingest(exact_e, 0, 200)
+    right = sum(a[0].doc_id == b[0].doc_id
+                for a, b in zip(_search_all(port), _search_all(exact_e)))
+    assert right >= (5 if refine == "none" else 7), right
+
+    # streaming append: the tail goes into the existing body in place
+    _ingest(port, 200, 230)
+    n_tail = seg.tail.count
+    assert n_tail > 0 and seg.body is body0
+    rows_before = len(seg.body_chunk_ids)
+    seg._flush_tail_to_body()
+    assert seg.body.codes is body0.codes           # no retrain, no relayout
+    assert seg.tail.count == 0
+    assert len(seg.body_chunk_ids) == rows_before + n_tail
+    assert seg._pq_archive.n == len(seg.body_chunk_ids)
+    hits = port.search([STORE], f"What is the codename for project "
+                                f"{_name(215)}?", k=3)
+    assert hits[0].doc_id == "doc-215"
+
+    # delete: tombstoned at once, compacted away by the rebuild
+    port.delete_document(STORE, "doc-17")
+    assert all(h.doc_id != "doc-17" for hs in _search_all(port) for h in hs)
+    live = seg.count - len(seg._dead)
+    old_arch = seg._pq_archive
+    seg.rebuild()
+    assert seg._pq_archive is not old_arch and not seg._dead
+    assert seg._pq_archive.n == len(seg.body_chunk_ids) == live
+    assert seg.count == live
+    assert all(h.doc_id != "doc-17" for hs in _search_all(port) for h in hs)
+
+    # search_many pipelines batches and equals search batch for batch
+    qv = port.encoder.encode(QUERIES)
+    many = seg.search_many([qv[:4], qv[4:5], qv[5:]], 5)
+    for (v, i), q in zip(many, (qv[:4], qv[4:5], qv[5:])):
+        v1, i1 = seg.search(q, 5)
+        np.testing.assert_array_equal(i, i1)
+        np.testing.assert_array_equal(v, v1)
+
+    # the exact audit: refine store on the device, or the host archive
+    exact = seg.exact_reference_search(qv, 5)
+    served = seg.search(qv, 5)[1]
+    assert exact.shape == (len(QUERIES), 5)
+    assert np.mean(exact[:, 0] == served[:, 0]) >= (
+        0.3 if refine == "none" else 0.85)    # raw ADC ranks coarsely
+    probe = port.recall_probe(STORE, sample=32, k=5)
+    assert probe["sample"] > 0, probe
+    assert probe["recall"] >= (0.3 if refine == "none" else 0.7), probe
+
+
+def test_ivf_pq_audit_needs_stored_rows():
+    port = _pq_port(None, refine="none")
+    port.create_store(STORE)
+    _ingest(port, 0, 200)
+    seg = port._store(STORE).segment
+    seg._pq_archive = None          # as after loading an old checkpoint
+    with pytest.raises(NotImplementedError, match="refine store"):
+        seg.exact_reference_search(port.encoder.encode(QUERIES[:2]), 5)
+    # rows are then reconstructed from the codes (lossy) for a rebuild
+    vecs, ids = seg.sample_live_rows(16)
+    assert vecs.shape == (16, DIM) and np.all(np.isfinite(vecs))
+    seg.rebuild()
+    assert seg._pq_archive is not None
+    hits = port.search([STORE], QUERIES[1], k=3)
+    assert hits and hits[0].doc_id == "doc-3"
+
+
+def test_ivf_pq_restores_round1_checkpoint_without_refine_fields():
+    port = _pq_port(None)
+    port.create_store(STORE)
+    _ingest(port, 0, 200)
+    seg = port._store(STORE).segment
+    state = seg.body_state()
+    assert {"f_refine", "f_refine_scale", "archive_rows",
+            "archive_scale"} <= set(state)
+    old = {k: v for k, v in state.items()
+           if k not in ("f_refine", "f_refine_scale", "archive_rows",
+                        "archive_scale")}
+    fresh = _pq_port(None)._new_index(STORE)
+    fresh.restore_body(old)
+    assert fresh.body.refine.shape == (0, 0)
+    assert fresh.body.refine_scale == 1.0 and fresh._pq_archive is None
+    qv = port.encoder.encode(QUERIES)
+    vals, ids = fresh.search(qv, 5)              # pure ADC ranking
+    assert np.all(np.isfinite(vals[:, 0]))
+    assert np.mean(ids[:, 0] == seg.search(qv, 5)[1][:, 0]) >= 0.5
+    # a rebuild sources the rows from the codes once
+    fresh.rebuild()
+    assert fresh._pq_archive is not None
+    assert fresh.body.refine.shape[0] > 0
+
+
+def test_ivf_pq_bulk_load_archive():
+    from rag_foundation_tpu_torch.engine.archive import HostArchive
+    from rag_foundation_tpu_torch.engine.index import StoreIndex
+    rng = np.random.default_rng(0)
+    c = rng.standard_normal((16, 64)).astype(np.float32)
+    v = c[rng.integers(0, 16, 3000)] + 0.3 * rng.standard_normal(
+        (3000, 64)).astype(np.float32)
+    v /= np.linalg.norm(v, axis=1, keepdims=True)
+    arch = HostArchive(64)
+    arch.reserve(3000)
+    arch.append(v)
+    ids = np.arange(100, 3100, dtype=np.int64)
+    seg = StoreIndex(64, mode="ivf_pq", nlist=16, nprobe=8, pq_m=32,
+                     device="cpu")
+    seen = []
+    seg.bulk_load_archive(arch, ids, progress=lambda a, b: seen.append(a))
+    assert seen and seen[-1] == 3000 and seg._pq_archive is arch
+    assert seg.count == 3000 and seg.body.nlist == 16
+    _, got = seg.search(v[:32], 1)
+    assert np.mean(got[:, 0] == ids[:32]) >= 0.9
+    with pytest.raises(ValueError, match="chunk_ids length"):
+        seg.bulk_load_archive(arch, ids[:-1])
+    with pytest.raises(ValueError, match="requires mode"):
+        StoreIndex(64, device="cpu").bulk_load_archive(arch, ids)
+    with pytest.raises(ValueError, match="not divisible"):
+        StoreIndex(64, mode="ivf_pq", pq_m=48, device="cpu")
+    with pytest.raises(ValueError, match="unknown pq_refine"):
+        StoreIndex(64, mode="ivf_pq", pq_m=16, pq_refine="disk",
+                   device="cpu")
+
+
+def test_engine_main_reads_pq_variables(tmp_path):
+    cfg, _, _ = config_from_env({
+        "RAGTPU_ENGINE_PLATFORM": "cpu", "RAGTPU_DATA_DIR": str(tmp_path),
+        "RAGTPU_ENGINE_INDEX_MODE": "ivf_pq", "RAGTPU_ENGINE_DIM": "768",
+        "RAGTPU_ENGINE_PQ_M": "192", "RAGTPU_ENGINE_PQ_PACKED": "true",
+        "RAGTPU_ENGINE_PQ_REFINE": "host",
+        "RAGTPU_ENGINE_PQ_CAP_SLACK": "1.1"})
+    assert (cfg.index_mode, cfg.pq_m, cfg.pq_packed, cfg.pq_refine,
+            cfg.pq_cap_slack) == ("ivf_pq", 192, True, "host", 1.1)
+    cfg, _, _ = config_from_env({"RAGTPU_ENGINE_PLATFORM": "cpu"})
+    assert (cfg.pq_m, cfg.pq_packed, cfg.pq_refine, cfg.pq_cap_slack) == (
+        48, False, "device", 1.5)
+    with pytest.raises(ValueError, match="pq_refine"):
+        config_from_env({"RAGTPU_ENGINE_PQ_REFINE": "disk"})
+
+
+@pytest.mark.parametrize("ivf_p,want", [(3, 4), (4, 4), (8, 8)])
+def test_ivf_pq_capture_width_follows_ivf_p_from_four_up(ivf_p, want,
+                                                         monkeypatch):
+    # the JAX engine fixes the ADC scan's per-sub-block capture at 4; the
+    # port takes a larger ivf_p (a deliberate difference), never less
+    from rag_foundation_tpu_torch.engine import index as index_mod
+    seen = []
+    real = index_mod.ivfpq_search
+
+    def spy(*a, **kw):
+        seen.append(kw["p"])
+        return real(*a, **kw)
+
+    monkeypatch.setattr(index_mod, "ivfpq_search", spy)
+    port = Engine(EngineConfig(**dict(_pq_cfg(None), ivf_p=ivf_p),
+                               device="cpu"))
+    port.create_store(STORE)
+    _ingest(port, 0, 170)
+    port.search([STORE], QUERIES[1], k=5)          # fetch 8
+    port._store(STORE).segment.search(port.encoder.encode(QUERIES[:1]), 2)
+    assert seen == [want, 2]
