@@ -3,13 +3,15 @@
 
 Run from the repository root on a machine with one CUDA card::
 
-    python3 chip_smoke.py            # full size: two 10M x 768 stores
-    python3 chip_smoke.py --rows 200000 --pq-rows 200000   # quick check
+    python3 chip_smoke.py            # full size: two 10M x 768 stores,
+                                     # then the exact scan of 1M x 768
+    python3 chip_smoke.py --rows 200000 --pq-rows 200000 \
+        --exact-rows 100000          # quick check
 
 Phases (each one fails the run: non-zero exit, no result line):
 
 1. Card and build: the card's name and power limit, torch/CUDA versions,
-   the build of the three kernels from ``rag_foundation_tpu_torch/csrc``
+   the build of the five kernels from ``rag_foundation_tpu_torch/csrc``
    (nvcc, sm_90a, the compilers started together).
 2. Each kernel against its plain PyTorch version on the card at a small
    size: the flat list scan (int8 exact, f32/bf16 within a stated
@@ -43,6 +45,22 @@ Phases (each one fails the run: non-zero exit, no result line):
    (codes, ids, codebooks, refine) and archive reload verbatim.
 8. The two kernels against their plain versions on the PQ path's own
    Q=1024 dispatch, with times and bounds.
+9. After the PQ store is released: ``fused_topk`` and ``block_topk``
+   against their plain versions at a small size (f32 and bf16, unaligned
+   Q and N, a valid count below N as a device tensor, k above the live
+   rows, integer-valued rows with duplicates bit-identical, two splits of
+   the rows giving one output, ``block_topk(p=k)`` equal to
+   ``fused_topk``).
+10. The exact-scan path through ``tools.exact_scan.run_exact_1m`` at full
+    width (``--exact-rows`` x 768 bf16, Q=1024, k=10): the two kernels'
+    launch counters zeroed just before and read just after, recall@10 of
+    ``block_topk(p=2)`` against ``fused_topk`` and ``exact_topk``, which
+    must name the same rows; then each kernel against its plain version
+    on those inputs with times, a library yardstick and the bound.
+11. ``exact_topk_hosted`` over a pinned host copy of ``--exact-rows`` x 768
+    f32 rows against ``exact_topk`` on the device copy, with seconds and
+    GB/s; then a 20,000-row ``build_ivf_flat_streaming`` body adopted by
+    a ``StoreIndex`` with ``approx_routing=True`` and searched.
 
 The line before last is the kernels' JSON; the last line is
 ``{"ok": true, "device": {...}}``. The script imports neither JAX nor the
@@ -433,6 +451,283 @@ def pq_recall_with_ties(seg, gather, qv, served, exact, k=10) -> float:
                          .sum(axis=1) / k))
 
 
+def topk_bound(q_n, n_live, d, k, esize, kind) -> tuple[float, str]:
+    """(ms, "bytes" | "operations"): least time for one exact top-k of
+    ``q_n`` queries over ``n_live`` live rows: the live rows and the
+    queries read once (a row past the valid count is not read), the
+    ``[Q, k]`` values and ids written once; ``2*Q*N*d`` operations at the
+    type's peak."""
+    nbytes = (n_live + q_n) * d * esize + q_n * k * 8
+    t_bytes = nbytes / HBM_BYTES_S
+    t_ops = 2.0 * q_n * n_live * d / PEAK_OPS_S[kind]
+    return max(t_bytes, t_ops) * 1e3, \
+        "bytes" if t_bytes >= t_ops else "operations"
+
+
+def check_topk(kv, ki, rv, ri, q, c, tol, what) -> tuple[float, int]:
+    """Kernel top-k (kv, ki) against the plain version's (rv, ri):
+    (max |value difference|, ids that differ). ``tol == 0`` asks for
+    bit-identical outputs; otherwise an id may differ only between two
+    rows whose scores (recomputed in f64) lie within ``tol``."""
+    import torch
+    both = torch.isfinite(rv)
+    if not torch.equal(torch.isfinite(kv), both) \
+            or not torch.equal(ki < 0, ri < 0):
+        fail(f"{what}: pad pattern differs")
+    err = float((kv[both] - rv[both]).abs().max()) if both.any() else 0.0
+    if tol == 0:
+        if not (torch.equal(kv, rv) and torch.equal(ki, ri)):
+            bad = int((kv != rv).sum() + (ki != ri).sum())
+            fail(f"{what}: kernel != plain version ({bad} elements)")
+        return err, 0
+    if err > tol:
+        fail(f"{what}: max |kernel - plain| {err} > {tol}")
+    diff = (ki != ri).nonzero().tolist()
+    for qi, j in diff:
+        a, b = int(ki[qi, j]), int(ri[qi, j])
+        qv = q[qi].double()
+        sa, sb = float(qv @ c[a].double()), float(qv @ c[b].double())
+        if abs(sa - sb) > tol:
+            fail(f"{what}: idx differs beyond a near-tie at {(qi, j)}: "
+                 f"{a} ({sa}) vs {b} ({sb})")
+    return err, len(diff)
+
+
+def phase_small_exact_kernels(bt, ft, torch):
+    """Phase 9: fused_topk and block_topk vs their plain versions on the
+    card, small size."""
+    g = torch.Generator(device="cuda").manual_seed(3)
+    q_n, n, d, k = 77, 10_007, 768, 10        # neither a tile multiple
+    for dtype, name in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        c = torch.randn((n, d), generator=g, device="cuda")
+        c = (c / c.norm(dim=1, keepdim=True)).to(dtype)
+        q = torch.randn((q_n, d), generator=g, device="cuda")
+        q = (q / q.norm(dim=1, keepdim=True)).to(dtype)
+        worst, near = 0.0, 0
+        for vc in (None, torch.tensor(n - 500, device="cuda"), 3):
+            what = f"{name} valid_count={'N' if vc is None else int(vc)}"
+            fv, fi = ft.fused_topk(q, c, k, valid_count=vc)
+            torch.cuda.synchronize()
+            err, nd = check_topk(fv, fi, *ft.fused_topk_reference(
+                q, c, k, valid_count=vc), q, c, F32_TOL, f"fused_topk {what}")
+            worst, near = max(worst, err), near + nd
+            for splits in (1, 7):       # the split is no part of the result
+                sv, si = ft.fused_topk(q, c, k, valid_count=vc,
+                                       n_splits=splits)
+                if not (torch.equal(sv, fv) and torch.equal(si, fi)):
+                    fail(f"fused_topk {what}: n_splits={splits} changes the "
+                         f"result")
+            ev, ei = bt.block_topk(q, c, k, p=k, valid_count=vc, block_n=512)
+            if not (torch.equal(ev, fv) and torch.equal(ei, fi)):
+                fail(f"block_topk(p=k) {what} != fused_topk")
+            kw = dict(p=2, valid_count=vc, block_n=256)
+            bv, bi = bt.block_topk(q, c, k, **kw)
+            torch.cuda.synchronize()
+            err, nd = check_topk(bv, bi, *bt.block_topk_reference(
+                q, c, k, **kw), q, c, F32_TOL, f"block_topk p=2 {what}")
+            worst, near = max(worst, err), near + nd
+            if vc is not None and int(vc) < k and not (
+                    bool((fi[:, int(vc):] == -1).all())
+                    and bool(torch.isneginf(fv[:, int(vc):]).all())):
+                fail(f"fused_topk {what}: slots past the live rows are not "
+                     f"(-inf, -1)")
+        # the tie rule: small-integer rows (every partial sum exact in
+        # f32), each row two or three times, across blocks and splits
+        base = torch.randint(-3, 4, (1500, 64), generator=g,
+                             device="cuda").to(dtype)
+        ci = torch.cat([base, base, base[:700]])
+        qi = base[:50] * 2
+        rv, ri = ft.fused_topk_reference(qi, ci, 12)
+        check_topk(*ft.fused_topk(qi, ci, 12, n_splits=5), rv, ri, qi, ci, 0,
+                   f"fused_topk {name} integer rows")
+        check_topk(*bt.block_topk(qi, ci, 12, p=12, block_n=128), rv, ri, qi,
+                   ci, 0, f"block_topk(p=k) {name} integer rows")
+        check_topk(*bt.block_topk(qi, ci, 12, p=3, block_n=128),
+                   *bt.block_topk_reference(qi, ci, 12, p=3, block_n=128),
+                   qi, ci, 0, f"block_topk(p=3) {name} integer rows")
+        log(f"kernel check fused_topk + block_topk {name} Q={q_n} N={n} "
+            f"d={d} k={k}, valid_count N / N-500 (device tensor) / 3, "
+            f"n_splits 1 / 7 / default equal, block_topk(p=k) == fused_topk: "
+            f"max_abs_err={worst:.3g} (tol {F32_TOL}), {near} ids differ "
+            f"within it; integer rows with duplicates: bit-identical")
+
+
+def library_topk(torch, q, c, k, block=65_536):
+    """The yardstick the port never calls: ``torch.matmul`` in the corpus
+    dtype over row blocks, ``torch.topk`` of each, ``torch.topk`` of the
+    blocks' winners."""
+    vals, idx = [], []
+    for lo in range(0, c.shape[0], block):
+        v, i = torch.topk(torch.matmul(q, c[lo:lo + block].T),
+                          min(k, c.shape[0] - lo), dim=1)
+        vals.append(v)
+        idx.append(i + lo)
+    v, pos = torch.topk(torch.cat(vals, dim=1), k, dim=1)
+    return v, torch.gather(torch.cat(idx, dim=1), 1, pos)
+
+
+def exact_phases(args, card) -> list[dict]:
+    """Phases 9-11: the exact flat scan. Returns the two kernels' entries
+    of the ``kernels`` line."""
+    import numpy as np
+    import torch
+    from rag_foundation_tpu_torch.engine import ivf as tivf
+    from rag_foundation_tpu_torch.engine.index import StoreIndex
+    from rag_foundation_tpu_torch.ops import block_topk as bt
+    from rag_foundation_tpu_torch.ops import fused_topk as ft
+    from rag_foundation_tpu_torch.ops import ivf_scan
+    from rag_foundation_tpu_torch.ops.hosted_topk import exact_topk_hosted
+    from rag_foundation_tpu_torch.ops.topk import exact_topk
+    from rag_foundation_tpu_torch.tools import exact_scan
+
+    phase_small_exact_kernels(bt, ft, torch)
+
+    # -- phase 10: the exact-scan path at full width -------------------------
+    n, d, q_n, k = args.exact_rows, 768, 1024, 10
+    bt.LAUNCHES.reset()                          # counts: this path only
+    ft.LAUNCHES.reset()
+    torch.cuda.reset_peak_memory_stats()
+    res = exact_scan.run_exact_1m("cuda", n=n, d=d, q_n=q_n, k=k,
+                                  seed=args.seed)
+    launches = (bt.LAUNCHES.count, ft.LAUNCHES.count)   # read just after
+    log(f"exact scan {n}x{d} bf16 Q={q_n} k={k} block_topk(p=2, "
+        f"block_n=1024): {res['ms_per_batch']:.3f} ms a batch = "
+        f"{res['qps']:,.0f} QPS; recall@{k} of {res['recall_queries']} "
+        f"queries {res['recall_vs_exact']:.4f} vs exact_topk, "
+        f"{res['recall_vs_fused']:.4f} vs fused_topk; fused_topk vs "
+        f"exact_topk: {res['fused_vs_exact_near_ties']} ids differ, all "
+        f"between scores within {res['score_tolerance']:.3g}; launches "
+        f"block_topk {launches[0]} fused_topk {launches[1]}; peak device "
+        f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB | {card}")
+    if res["card"] != card:
+        fail(f"run_exact_1m names the card {res['card']!r}, not {card!r}")
+    if min(launches) == 0:
+        fail(f"the exact-scan path launched {launches}")
+    if min(res["recall_vs_exact"], res["recall_vs_fused"]) < RECALL_MIN:
+        fail(f"block_topk(p=2) recall@{k} {res['recall_vs_exact']} < "
+             f"{RECALL_MIN}")
+
+    # each kernel against its plain version on the path's own inputs
+    corpus, queries = exact_scan.make_corpus(n, d, q_n, args.seed,
+                                             torch.device("cuda"))
+    tol = exact_scan.score_tolerance(queries, corpus)
+    bound_ms, bound_by = topk_bound(q_n, n, d, k, 2, "bf16")
+    library_ms = cuda_ms(lambda: library_topk(torch, queries, corpus, k),
+                         reps=5)
+    entries = []
+    for name, mod, fn, ref, line, count in (
+            ("block_topk", bt, lambda: bt.block_topk(queries, corpus, k, p=2),
+             lambda: bt.block_topk_reference(queries, corpus, k, p=2),
+             "pallas_block_topk.py:68", launches[0]),
+            ("fused_topk", ft, lambda: ft.fused_topk(queries, corpus, k),
+             lambda: ft.fused_topk_reference(queries, corpus, k),
+             "pallas_topk.py:91", launches[1])):
+        kv, ki = fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rv, ri = ref()
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        err, near = check_topk(kv, ki, rv, ri, queries, corpus, tol,
+                               f"{name} main")
+        del kv, ki, rv, ri
+        ms = cuda_ms(fn, reps=10)
+        log(f"{name} bf16 main path, Q={q_n} N={n} d={d} k={k}"
+            f"{' p=2 block_n=1024 (stage-2 merge included)' if mod is bt else ''}"
+            f": max_abs_err={err:.3g} (tol {tol:.3g}), {near} ids differ "
+            f"within it; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms (one "
+            f"run), torch.matmul+topk (bf16, 65,536-row blocks) "
+            f"{library_ms:.3f} ms, bound {bound_ms:.3f} ms ({bound_by}) | "
+            f"{card}")
+        entries.append({
+            "name": name, "route": "cuda",
+            "source": f"rag_foundation_tpu_torch/csrc/{name}.cu",
+            "replaces": f"rag_foundation_tpu/ops/{line}",
+            "launches": count, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms, "dtype": "bf16",
+            "shape": {"Q": q_n, "N": n, "d": d, "k": k,
+                      **({"p": 2, "block_n": 1024} if mod is bt else {})},
+        })
+    del corpus, queries
+    torch.cuda.empty_cache()
+
+    # -- phase 11: the host-streamed scan, then a streamed IVF body ---------
+    g = torch.Generator(device="cuda").manual_seed(args.seed + 2)
+    host = torch.empty((n, d), dtype=torch.float32, pin_memory=True)
+    dev_rows = torch.empty((n, d), dtype=torch.float32, device="cuda")
+    for lo in range(0, n, 131_072):
+        hi = min(n, lo + 131_072)
+        dev_rows[lo:hi] = torch.randn((hi - lo, d), generator=g,
+                                      device="cuda")
+        host[lo:hi].copy_(dev_rows[lo:hi])
+    hq = dev_rows[:64] + 0.1 * torch.randn((64, d), generator=g,
+                                           device="cuda")
+    torch.cuda.synchronize()
+    walls = []
+    for _ in range(2):      # the first run also allocates the pinned buffers
+        t0 = time.perf_counter()
+        hv, hi_ = exact_topk_hosted(hq, host.numpy(), k)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    dv, di = exact_topk(hq, dev_rows, k)
+    if not torch.equal(hi_, di):
+        fail(f"exact_topk_hosted: {int((hi_ != di).sum())} ids differ from "
+             f"exact_topk on the device copy")
+    gb = n * d * 4 / 1e9
+    log(f"exact_topk_hosted {n}x{d} f32 ({gb:.2f} GB in host memory) Q=64 "
+        f"k={k} block_rows=262144: ids bit-identical to exact_topk on the "
+        f"device copy, max |value difference| "
+        f"{float((hv - dv).abs().max()):.3g}; {walls[1]:.3f} s = "
+        f"{gb / walls[1]:.2f} GB/s (first run {walls[0]:.3f} s) | {card}")
+    del host, dev_rows, hq, hv, hi_, dv, di
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    rng = np.random.default_rng(args.seed + 3)
+    sn, nlist = 20_000, 64
+    centres = rng.standard_normal((256, d)).astype(np.float32)
+    rows = centres[rng.integers(0, 256, sn)] \
+        + 0.5 * rng.standard_normal((sn, d)).astype(np.float32)
+    rows /= np.linalg.norm(rows, axis=1, keepdims=True)
+    t0 = time.perf_counter()
+    body, overflow = tivf.build_ivf_flat_streaming(
+        lambda lo, hi: rows[lo:hi], sn, d, nlist,
+        generator=torch.Generator(device="cuda").manual_seed(args.seed),
+        device="cuda", chunk=4096)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    if overflow.any() or body.n != sn or body.lists.dtype != torch.int8:
+        fail(f"build_ivf_flat_streaming: n={body.n} overflow="
+             f"{int(overflow.sum())} dtype={body.lists.dtype}")
+    seg = StoreIndex(d, mode="ivf_flat_int8", nlist=nlist, nprobe=8, ivf_p=3,
+                     approx_routing=True, device="cuda")
+    seg.adopt_body(body, np.arange(sn, dtype=np.int64) + 1000)
+    picks = rng.choice(sn, 256, replace=False)
+    qs = rows[picks] + 0.01 * rng.standard_normal((256, d)).astype(np.float32)
+    scan0 = ivf_scan.LAUNCHES.count
+    _, ids_batch = seg.search(qs, 5)             # Q*nprobe*8 > nlist
+    batch_launches = ivf_scan.LAUNCHES.count - scan0
+    ids_single = np.stack([seg.search(qs[i:i + 1], 5)[1][0]
+                           for i in range(16)])   # the small-batch path
+    if batch_launches == 0:
+        fail("the batched search of the streamed body launched no list scan")
+    # a batch drops the probes past a list's default qcap, as the JAX
+    # engine does, so the batch is held to the recall floor and the single
+    # searches (no qcap on the small-batch path) to every hit
+    right = int((ids_batch[:, 0] == picks + 1000).sum())
+    right1 = int((ids_single[:, 0] == picks[:16] + 1000).sum())
+    if right < RECALL_MIN * 256 or right1 != 16:
+        fail(f"streamed body: right top hit for {right}/256 batched and "
+             f"{right1}/16 single searches")
+    log(f"build_ivf_flat_streaming {sn}x{d} f32 source, nlist={nlist}, "
+        f"chunk 4096: {build_s:.2f} s, cap_len={body.cap_len}, no overflow; "
+        f"adopted with adopt_body, approx_routing=True: right top hit "
+        f"{right}/256 in one batch ({batch_launches} list-scan launch) and "
+        f"16/16 single searches | {card}")
+    return entries
+
+
 def pq_phases(args, card, rng, sampled, mods) -> list[dict]:
     """Phases 6-8: the ``ivf_pq`` store. Returns the two kernels' entries
     of the ``kernels`` line."""
@@ -772,6 +1067,9 @@ def main() -> None:
                     help="int8 store size after padding (default 10M)")
     ap.add_argument("--pq-rows", type=int, default=10_000_000,
                     help="ivf_pq store size after padding (default 10M)")
+    ap.add_argument("--exact-rows", type=int, default=1_000_000,
+                    help="rows of the exact scan and of the host-streamed "
+                         "scan (default 1M)")
     ap.add_argument("--docs", type=int, default=400,
                     help="real documents ingested before padding")
     ap.add_argument("--seed", type=int, default=0)
@@ -805,7 +1103,8 @@ def main() -> None:
         f"count {torch.cuda.device_count()}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    kernel_names = ["ivf_list_scan", "pq_list_scan", "gather_rescore_int8"]
+    kernel_names = ["ivf_list_scan", "pq_list_scan", "gather_rescore_int8",
+                    "block_topk", "fused_topk"]
     report = cuda_lib.build(kernel_names)
     for name, r in report.items():
         log(f"build {name}: {r['seconds']:.2f} s")
@@ -1053,6 +1352,13 @@ def main() -> None:
         args, card, rng, sampled,
         (Engine, EngineConfig, EngineRpcServer, RemoteEngine, search_profile,
          HostArchive, tpq, pq_scan, gather, quantize))
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"ivf_pq store released: device memory allocated "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+
+    # -- phases 9-11: the exact flat scan --------------------------------------
+    exact_kernels = exact_phases(args, card)
     log(f"total {time.perf_counter() - t_start:.1f} s")
 
     kernels = {"kernels": [{
@@ -1070,7 +1376,7 @@ def main() -> None:
         "dtype": "int8",
         "shape": {"nlist": nlist, "qcap": qcap, "cap_len": cap_len, "d": d,
                   "p": p, **c},
-    }] + pq_kernels}
+    }] + pq_kernels + exact_kernels}
     print(json.dumps(kernels), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

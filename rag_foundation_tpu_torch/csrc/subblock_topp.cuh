@@ -1,6 +1,8 @@
-// Shared device code of the list-scan kernels (ivf_list_scan.cu,
-// pq_list_scan.cu): the per-sub-block top-p selection and the (-inf, -1)
-// fill of slots that are not computed.
+// Shared device code of the kernels' selections: for the list-scan kernels
+// (ivf_list_scan.cu, pq_list_scan.cu) the per-sub-block top-p and the
+// (-inf, -1) fill of slots that are not computed; for the exact-scan
+// kernels (block_topk.cu, fused_topk.cu, through exact_scan.cuh) the same
+// selection over any width, as a running sorted list (further down).
 //
 // It is `extract_subblock_topp` of rag_foundation_tpu/ops/pallas_ivf.py:45
 // for one 128-row sub-block: p passes of an argmax over the 128 scores
@@ -81,6 +83,63 @@ __device__ __forceinline__ void warp_topp(const float* score, int lane, int p,
       out_vals[(size_t)pass * nsub + sb] = best;
       out_idx[(size_t)pass * nsub + sb] = best == -INFINITY ? -1 : row0 + col;
     }
+  }
+}
+
+// ---- selection over a width that is not one 128-row sub-block -----------
+// (block_topk.cu: top-p of a block_n-row corpus block; fused_topk.cu: the
+// running top-k of a whole range of rows and the merge of the ranges.)
+//
+// p first-max passes over W scores give the W scores' best p by (value
+// descending, position ascending). The same result comes from ONE pass in
+// position order over a list of the best K so far, kept sorted in shared
+// memory: a score enters only if it is strictly greater than the list's
+// last value (an equal score from a later position loses the tie), and it
+// is placed behind every entry that is >= it. The work is one compare a
+// score plus one insertion for each score that enters, which for scores in
+// no particular order is about K*ln(W/K) of the W.
+
+constexpr int LIST_MAX = 64;   // longest list: two entries a lane
+
+// Fill a warp's list with (-inf, -1).
+__device__ __forceinline__ void list_clear(float* lv, int* li, int K, int lane) {
+  for (int j = lane; j < K; j += 32) { lv[j] = -INFINITY; li[j] = -1; }
+  __syncwarp();
+}
+
+// Insert (s, idx), s > lv[K-1], into the warp's sorted list lv/li[0..K),
+// K <= LIST_MAX; every lane passes the same (s, idx). Returns the list's
+// new last value.
+__device__ __forceinline__ float list_insert(float* lv, int* li, int K, int lane,
+                                             float s, int idx) {
+  const int j0 = lane, j1 = lane + 32;
+  const bool ahead0 = j0 < K && lv[j0] >= s;
+  const bool ahead1 = j1 < K && lv[j1] >= s;
+  const int pos = __popc(__ballot_sync(0xffffffffu, ahead0)) +
+                  __popc(__ballot_sync(0xffffffffu, ahead1));
+  float v0 = s, v1 = s;
+  int i0 = idx, i1 = idx;
+  if (j0 < K && j0 > pos) { v0 = lv[j0 - 1]; i0 = li[j0 - 1]; }
+  if (j1 < K && j1 > pos) { v1 = lv[j1 - 1]; i1 = li[j1 - 1]; }
+  __syncwarp();
+  if (j0 < K && j0 >= pos) { lv[j0] = v0; li[j0] = i0; }
+  if (j1 < K && j1 >= pos) { lv[j1] = v1; li[j1] = i1; }
+  __syncwarp();
+  return lv[K - 1];
+}
+
+// One warp offers its list the 32 scores its lanes hold, lane order being
+// position order; `idx` is each lane's own index. `thresh` is the list's
+// last value, kept by the caller across calls.
+__device__ __forceinline__ void list_offer(float* lv, int* li, int K, int lane,
+                                           float s, int idx, float& thresh) {
+  unsigned m = __ballot_sync(0xffffffffu, s > thresh);
+  while (m) {
+    const int b = __ffs(m) - 1;
+    m &= m - 1;
+    const float sb = __shfl_sync(0xffffffffu, s, b);
+    const int ib = __shfl_sync(0xffffffffu, idx, b);
+    if (sb > thresh) thresh = list_insert(lv, li, K, lane, sb, ib);
   }
 }
 

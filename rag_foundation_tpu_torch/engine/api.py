@@ -65,7 +65,7 @@ class EngineConfig:
     pq_refine: str = "device"       # device|host|none re-rank tier
     pq_cap_slack: float = 1.5       # PQ list-capacity headroom
     ivf_p: int = 4                  # per-sub-block top-p capture
-    approx_routing: bool = False    # not ported (raises when True)
+    approx_routing: bool = False    # accepted; the port routes exactly
     batch_window_s: float = 0.0     # >0: micro-batch concurrent searches
     mesh_shards: int = 1            # not ported (raises when > 1)
     data_dir: str | None = None     # checkpoint root; None = memory-only
@@ -87,8 +87,6 @@ class EngineConfig:
             raise ValueError(f"invalid pq_refine {self.pq_refine!r}")
         if self.mesh_shards > 1:
             raise ValueError("mesh sharding not ported yet")
-        if self.approx_routing:
-            raise NotImplementedError("approx routing is not ported yet")
 
 
 @dataclass

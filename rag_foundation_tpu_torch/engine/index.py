@@ -87,9 +87,6 @@ class StoreIndex:
             raise ValueError(f"dim {dim} not divisible by pq_m {pq_m}")
         if mesh is not None:
             raise ValueError("mesh sharding not ported yet")
-        if approx_routing:
-            raise NotImplementedError("approx routing (lax.approx_max_k) "
-                                      "is not ported yet")
         self.pq_m = pq_m
         self.pq_nbits = pq_nbits
         self.pq_packed = pq_packed
@@ -116,6 +113,8 @@ class StoreIndex:
         self.nlist = nlist
         self.nprobe = nprobe
         self.ivf_p = ivf_p
+        # accepted and passed to ivf_search as the JAX package passes it;
+        # the port's routing is exact either way (ivf.build_dispatch)
         self.approx_routing = approx_routing
         self.build_threshold = build_threshold
         self.seed = seed

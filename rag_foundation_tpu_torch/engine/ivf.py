@@ -117,10 +117,123 @@ def build_ivf_flat(
         n=n)
 
 
-def build_ivf_flat_streaming(*args, **kwargs):
-    raise NotImplementedError(
-        "build_ivf_flat_streaming is not ported yet (host-staged int8 "
-        "build); use build_ivf_flat or build_ivf_flat_device")
+def build_ivf_flat_streaming(
+    source,
+    n: int,
+    d: int,
+    nlist: int,
+    *,
+    generator: torch.Generator,
+    device: str | torch.device,
+    kmeans_iters: int = 10,
+    sample: int | None = None,
+    capacity_slack: float = 1.0,
+    chunk: int = 262_144,
+    progress=None,
+    source_scale: float | None = None,
+) -> tuple[IVFFlatIndex, np.ndarray]:
+    """Host-staged int8 IVF-Flat build for corpora whose f32 form cannot
+    sit on the device (the direct ``build_ivf_flat`` materializes exactly
+    that; flat analog of ``build_ivf_pq_streaming``).
+
+    ``source(lo, hi) -> np f32 [hi-lo, d]``. Device work is the k-means
+    sample fit plus per-chunk assignment (int32 down: 4 B/vec);
+    quantization and the interleaved layout run in host numpy, and the
+    packed int8 table uploads once.
+
+    ``source`` may instead return int8 rows with ``source_scale`` set
+    (dequantized value = row * source_scale): pass-1 uploads then move a
+    quarter of the bytes (dequantization happens on the device) and pass
+    2 stores the rows verbatim with ``scale = source_scale``.
+
+    Returns ``(index, overflow_mask [n])``: with the default
+    ``capacity_slack=1.0`` capacity tracks the true max list count and
+    nothing overflows; a tighter explicit cap (memory-bounded callers)
+    drops the masked rows, which callers must re-route (exact tail).
+    """
+    dev = torch.device(device)
+
+    def fetch(lo, hi) -> np.ndarray:
+        raw = np.asarray(source(lo, hi))
+        if raw.dtype == np.int8:
+            if source_scale is None:
+                raise ValueError("int8 source requires source_scale")
+            return raw
+        return raw.astype(np.float32, copy=False)
+
+    def upload(rows: np.ndarray) -> torch.Tensor:
+        # int8 sources upload RAW and scale on the device
+        v = torch.as_tensor(rows, device=dev)
+        return v.float() * source_scale if v.dtype == torch.int8 else v
+
+    sample_n = min(n, sample or max(nlist * 64, 16_384))
+    centroids, _ = kmeans_fit(upload(fetch(0, sample_n)), nlist,
+                              generator=generator, iters=kmeans_iters,
+                              spherical=True)
+
+    # pass 1: assignments (4 B/vec come down) + global absmax for the
+    # shared int8 scale
+    assigns = np.empty(n, np.int32)
+    absmax = 1e-12
+    int8_src = False
+
+    def launch(lo: int):
+        """Upload one chunk and queue its assignment; nothing here waits
+        for the device."""
+        nonlocal absmax, int8_src
+        hi = min(n, lo + chunk)
+        rows = fetch(lo, hi)
+        int8_src = rows.dtype == np.int8
+        if not int8_src:
+            absmax = max(absmax, float(np.abs(rows).max()))
+        return lo, hi, assign_clusters(upload(rows), centroids)[0]
+
+    pending = launch(0) if n else None
+    while pending is not None:
+        lo, hi, a_dev = pending
+        pending = launch(hi) if hi < n else None    # queued before the wait
+        assigns[lo:hi] = a_dev.cpu().numpy()
+
+    counts = np.bincount(assigns, minlength=nlist)
+    cap_len = _cap_len(counts, capacity_slack)
+    scale = float(source_scale) if int8_src else absmax / 127.0
+
+    # pass 2: host quantize + interleaved scatter (same dest math as
+    # build_ivf_flat: bit-identical layout)
+    flat = np.zeros((nlist * cap_len, d), np.int8)
+    ids = np.full((nlist * cap_len,), -1, np.int32)
+    next_slot = np.zeros(nlist, np.int64)
+    overflow = np.zeros(n, bool)
+    for lo in range(0, n, chunk):
+        hi = min(n, lo + chunk)
+        rows = fetch(lo, hi)
+        a = assigns[lo:hi]
+        order = np.argsort(a, kind="stable")
+        sa = a[order]
+        ccounts = np.bincount(a, minlength=nlist)
+        cstarts = np.concatenate(([0], np.cumsum(ccounts)[:-1]))
+        rank = (np.arange(hi - lo) - cstarts[sa]) + next_slot[sa]
+        next_slot += ccounts
+        ok = rank < cap_len
+        overflow[lo:hi][order] = ~ok
+        dest = (sa.astype(np.int64) * cap_len
+                + interleave_slots(np.minimum(rank, cap_len - 1),
+                                   cap_len))[ok]
+        flat[dest] = (rows[order][ok] if int8_src
+                      else np.clip(np.rint(rows[order][ok] / scale),
+                                   -127, 127).astype(np.int8))
+        ids[dest] = (lo + order[ok]).astype(np.int32)
+        if progress is not None:
+            progress(hi, n)
+
+    # single upload
+    index = IVFFlatIndex(
+        centroids=centroids,
+        lists=torch.as_tensor(flat, device=dev).view(nlist, cap_len, d),
+        row_ids=torch.as_tensor(ids, device=dev).view(nlist, cap_len),
+        scale=float(np.float32(scale)),
+        n=n - int(overflow.sum()))
+    return index, overflow
 
 
 def build_ivf_flat_device(
@@ -323,31 +436,46 @@ def build_dispatch(
     query id in slot s of list l (-1 empty); ``slot[q, i]`` is q's slot
     within its i-th probed list (-1 if dropped by capacity).
 
-    The rank of query q within list l is the number of queries < q that
-    also probe l: an exclusive cumsum over the query axis of the
-    [Q, nlist] probe-count matrix. Bit-identical to the JAX package's
-    ``build_dispatch(method="cumsum")``. Nothing here waits on the
-    device: ``dropped`` stays a device tensor.
+    ``method="cumsum"`` (default): the rank of query q within list l is
+    the number of queries < q that also probe l, an exclusive cumsum over
+    the query axis of the [Q, nlist] probe-count matrix.
+    ``method="sort"`` inverts with a stable argsort of the flat probe
+    list instead; both give BIT-IDENTICAL outputs, because a stable sort
+    over the flat index (q*nprobe+i) orders each list's probes by q.
+    Both match the JAX package's ``build_dispatch`` bit for bit.
+
+    ``approx``: the JAX package routes with ``lax.approx_max_k`` when
+    set. PyTorch has no approximate top-k, so the flag is accepted and
+    the routing stays the exact stable top-``nprobe`` (which is what
+    ``approx_max_k`` computes on JAX's CPU backend).
+
+    Nothing here waits on the device: ``dropped`` stays a device tensor.
     """
-    if approx:
-        raise NotImplementedError("approx routing (lax.approx_max_k) is "
-                                  "not ported yet")
-    if method != "cumsum":
-        raise NotImplementedError(f"dispatch method {method!r} is not "
-                                  "ported; use 'cumsum'")
+    del approx
+    if method not in ("cumsum", "sort"):
+        raise ValueError(f"unknown dispatch method {method!r}")
     q_n, nlist = coarse_scores.shape
     dev = coarse_scores.device
     _, probe_lists = stable_topk(coarse_scores, nprobe)
-    # probes of one query are distinct lists, so a scatter of ones is the
-    # one-hot count matrix
-    counts = torch.zeros((q_n, nlist), dtype=torch.int32, device=dev)
-    counts.scatter_(1, probe_lists, 1)
-    start = torch.cumsum(counts, dim=0, dtype=torch.int32) - counts
-    rank = torch.gather(start, 1, probe_lists)
-    keep = rank < qcap
-    dropped = (~keep).sum(dtype=torch.int32)
     q_ids = torch.arange(q_n, dtype=torch.int32, device=dev)[:, None] \
         .expand(q_n, nprobe)
+    if method == "cumsum":
+        # probes of one query are distinct lists, so a scatter of ones is
+        # the one-hot count matrix
+        counts = torch.zeros((q_n, nlist), dtype=torch.int32, device=dev)
+        counts.scatter_(1, probe_lists, 1)
+        start = torch.cumsum(counts, dim=0, dtype=torch.int32) - counts
+        rank = torch.gather(start, 1, probe_lists)
+    else:
+        flat_l = probe_lists.reshape(-1)
+        l_sorted, order = torch.sort(flat_l, stable=True)
+        group_start = torch.searchsorted(l_sorted, l_sorted, right=False)
+        rank_sorted = torch.arange(q_n * nprobe, device=dev) - group_start
+        rank = torch.empty(q_n * nprobe, dtype=torch.int32, device=dev)
+        rank[order] = rank_sorted.to(torch.int32)
+        rank = rank.view(q_n, nprobe)
+    keep = rank < qcap
+    dropped = (~keep).sum(dtype=torch.int32)
     # dropped probes land in one spare slot past the table (sliced off);
     # kept (list, rank) pairs are distinct
     dest = torch.where(keep, probe_lists * qcap + rank.long(),

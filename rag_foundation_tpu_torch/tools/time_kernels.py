@@ -1,4 +1,4 @@
-"""Time the list-scan kernels on synthetic data of the engine's 10M shape.
+"""Time the kernels on synthetic data of the shapes their paths give them.
 
     python -m rag_foundation_tpu_torch.tools.time_kernels
     python -m rag_foundation_tpu_torch.tools.time_kernels \\
@@ -15,7 +15,11 @@ live, p 8 and 1, bf16 LUT, packed codes) and the flat scan
 source (another version of the flat kernel with the same C entry point;
 headers are taken from its own directory) and times the two in turns
 (other, this, this, other), so that two versions are compared within one
-run on one card.
+run on one card. Last come the exact-scan kernels on ``--exact-rows`` x 768
+normal rows and 1024 queries: ``block_topk`` (p 2 and 10, its kernel alone
+and with the stage-2 merge), ``fused_topk`` (the default split of the rows
+and a few others, k 10 and 64), in bf16, and both in f32 on an eighth of
+the rows.
 """
 
 from __future__ import annotations
@@ -142,6 +146,34 @@ def time_flat(torch, g, nlist: int, live_rows: int,
                   f"{_ms(this):.3f} other {_ms(other):.3f} ms", flush=True)
 
 
+def time_exact(torch, g, rows: int) -> None:
+    from rag_foundation_tpu_torch.ops import block_topk as bt
+    from rag_foundation_tpu_torch.ops import fused_topk as ft
+    d, q_n = 768, 1024
+    for dtype, n in ((torch.bfloat16, rows), (torch.float32, rows // 8)):
+        c = torch.empty((n, d), dtype=dtype, device="cuda")
+        for lo in range(0, n, 131_072):
+            c[lo:lo + 131_072] = torch.randn((min(131_072, n - lo), d),
+                                             generator=g, device="cuda")
+        q = torch.randn((q_n, d), generator=g, device="cuda").to(dtype)
+        name = f"{str(dtype).split('.')[1]} N={n} d={d} Q={q_n}"
+        for p in (2, 10):
+            t1 = _ms(lambda: bt.block_candidates(q, c, p, n, 1024), reps=5)
+            t2 = _ms(lambda: bt.block_topk(q, c, 10, p=p), reps=5)
+            print(f"block_topk {name} k=10 p={p} block_n=1024: kernel "
+                  f"{t1:.3f} ms, with the stage-2 merge {t2:.3f} ms",
+                  flush=True)
+        auto = ft.default_splits(q_n, n, c.device)
+        for k, splits in ((10, None), (10, 16), (10, 64), (10, 512),
+                          (64, None)):
+            t = _ms(lambda: ft.fused_topk(q, c, k, n_splits=splits), reps=5)
+            print(f"fused_topk {name} k={k} n_splits="
+                  f"{auto if splits is None else splits}"
+                  f"{' (default)' if splits is None else ''}: {t:.3f} ms",
+                  flush=True)
+        del c, q
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--nlist", type=int, default=4096)
@@ -149,6 +181,8 @@ def main() -> None:
                     help="live rows a list (10M rows over 4096 lists)")
     ap.add_argument("--other-flat", default=None,
                     help="another ivf_list_scan.cu to time in turns")
+    ap.add_argument("--exact-rows", type=int, default=1_000_000,
+                    help="corpus rows of the exact-scan kernels (bf16)")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
     import torch
@@ -161,6 +195,7 @@ def main() -> None:
     g = torch.Generator(device="cuda").manual_seed(args.seed)
     time_pq(torch, g, args.nlist, args.live_rows)
     time_flat(torch, g, args.nlist, args.live_rows, args.other_flat)
+    time_exact(torch, g, args.exact_rows)
 
 
 if __name__ == "__main__":

@@ -11,14 +11,26 @@ version; f32/bf16 sums run in another order, so values agree within 1e-5
 list scan with an int8 LUT and the int8 gather-and-rescore are exact
 integer sums: bit-identical. With a bf16 LUT the f32 sum of m = 24
 unit-scale entries runs in another order: 1e-5 relative, and an index
-may differ only between rows scoring within that.
+may differ only between rows scoring within that. The exact-scan kernels
+(``fused_topk``, ``block_topk``) sum each score over d in another order
+than the plain version's matmul: unit-norm rows agree within 1e-5, and
+an index may differ only between rows scoring within that;
+small-integer inputs (every partial sum exact in f32) are bit-identical,
+duplicate rows across blocks and splits included.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from rag_foundation_tpu_torch.ops import cuda_lib, gather, ivf_scan, pq_scan
+from rag_foundation_tpu_torch.ops import block_topk as block_topk_mod
+from rag_foundation_tpu_torch.ops import cuda_lib
+from rag_foundation_tpu_torch.ops import fused_topk as fused_topk_mod
+from rag_foundation_tpu_torch.ops import gather, ivf_scan, pq_scan
+from rag_foundation_tpu_torch.ops.block_topk import (block_topk,
+                                                     block_topk_reference)
+from rag_foundation_tpu_torch.ops.fused_topk import (fused_topk,
+                                                     fused_topk_reference)
 from rag_foundation_tpu_torch.ops.gather import (
     gather_rescore_int8, gather_rescore_int8_reference)
 from rag_foundation_tpu_torch.ops.ivf_scan import (ivf_list_scan,
@@ -176,3 +188,102 @@ def test_gather_kernel_matches_plain_version_on_card(card, n, d, q, c):
     torch.cuda.synchronize()
     assert gather.LAUNCHES.count == before + 1
     assert torch.equal(out, gather_rescore_int8_reference(table, rows, qq))
+
+
+def _unit(rng, n, d):
+    v = rng.standard_normal((n, d)).astype(np.float32)
+    return v / np.linalg.norm(v, axis=1, keepdims=True)
+
+
+def _assert_topk_close(kv, ki, rv, ri, tol=1e-5):
+    fin = torch.isfinite(rv)
+    assert torch.equal(torch.isfinite(kv), fin)
+    assert torch.equal(ki < 0, ri < 0)
+    torch.testing.assert_close(kv[fin], rv[fin], rtol=tol, atol=tol)
+    off = ki != ri          # only between rows scoring within the tolerance
+    assert torch.all((kv[off] - rv[off]).abs() <= tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("q_n,n,d,k", [(13, 1000, 64, 7), (200, 5000, 768, 10),
+                                       (300, 3000, 72, 64), (1, 130, 8, 3)])
+def test_exact_scan_kernels_match_plain_versions_on_card(card, dtype, q_n, n,
+                                                         d, k):
+    rng = np.random.default_rng(n + k)
+    c = torch.as_tensor(_unit(rng, n, d), device=card).to(dtype)
+    q = torch.as_tensor(_unit(rng, q_n, d), device=card).to(dtype)
+    for vc in (None, n - 37, torch.tensor(n // 2, device=card), 3):
+        before = fused_topk_mod.LAUNCHES.count
+        kv, ki = fused_topk(q, c, k, valid_count=vc)
+        torch.cuda.synchronize()
+        assert fused_topk_mod.LAUNCHES.count == before + 1
+        rv, ri = fused_topk_reference(q, c, k, valid_count=vc)
+        _assert_topk_close(kv, ki, rv, ri)
+        live = n if vc is None else int(vc)
+        assert int(ki.max()) < live
+        # the number of splits is no part of the result
+        for splits in (1, 3):
+            sv, si = fused_topk(q, c, k, valid_count=vc, n_splits=splits)
+            assert torch.equal(sv, kv) and torch.equal(si, ki)
+        if n < 1000:
+            continue
+        before = block_topk_mod.LAUNCHES.count
+        bv, bi = block_topk(q, c, min(k, 8), p=2, valid_count=vc,
+                            block_n=200)
+        torch.cuda.synchronize()
+        assert block_topk_mod.LAUNCHES.count == before + 1
+        rv, ri = block_topk_reference(q, c, min(k, 8), p=2, valid_count=vc,
+                                      block_n=200)
+        _assert_topk_close(bv, bi, rv, ri)
+        # p = k is exact: the fused kernel's answer, to the bit
+        ev, ei = block_topk(q, c, k, p=k, valid_count=vc, block_n=256)
+        assert torch.equal(ev, kv) and torch.equal(ei, ki)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_exact_scan_kernels_tie_rule_bit_identical_on_card(card, dtype):
+    rng = np.random.default_rng(5)
+    base = rng.integers(-3, 4, (700, 64)).astype(np.float32)
+    c = torch.as_tensor(np.concatenate([base, base, base[:300]]),
+                        device=card).to(dtype)
+    q = torch.as_tensor(base[:50] * 2.0, device=card).to(dtype)
+    rv, ri = fused_topk_reference(q, c, 12)
+    for splits in (None, 1, 5):
+        kv, ki = fused_topk(q, c, 12, n_splits=splits)
+        assert torch.equal(kv, rv) and torch.equal(ki, ri)
+    bv, bi = block_topk(q, c, 12, p=12, block_n=128)
+    assert torch.equal(bv, rv) and torch.equal(bi, ri)
+    bv, bi = block_topk(q, c, 12, p=3, block_n=128)
+    rv, ri = block_topk_reference(q, c, 12, p=3, block_n=128)
+    assert torch.equal(bv, rv) and torch.equal(bi, ri)
+    # -0.0 and +0.0 tie: the lower row wins
+    z = torch.zeros((300, 16), device=card, dtype=dtype)
+    z[::2] = -z[::2]
+    _, zi = fused_topk(torch.ones((2, 16), device=card, dtype=dtype), z, 5)
+    assert torch.equal(zi.cpu(), torch.arange(5, dtype=torch.int32)
+                       .expand(2, 5))
+
+
+@pytest.mark.cuda
+def test_exact_scan_kernels_cuda_checks(card, monkeypatch):
+    q = torch.zeros((4, 64), device=card)
+    c = torch.zeros((3000, 64), device=card)
+    for fn in (fused_topk, block_topk):
+        with pytest.raises(ValueError, match="dtype"):
+            fn(q.half(), c.half(), 3)
+        with pytest.raises(ValueError, match="contiguous"):
+            fn(q, torch.zeros((64, 3000), device=card).T, 3)
+        with pytest.raises(ValueError, match="16-byte"):
+            fn(q[:, :6].contiguous(), c[:, :6].contiguous().bfloat16(), 3)
+    with pytest.raises(ValueError, match="at most"):
+        fused_topk(q, c, 65)
+
+    def missing(name):
+        raise RuntimeError("kernel library unavailable")
+
+    monkeypatch.setattr(cuda_lib, "load", missing)
+    for fn in (fused_topk, block_topk):
+        with pytest.raises(RuntimeError, match="unavailable"):
+            fn(q, c, 3)

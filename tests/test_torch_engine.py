@@ -256,6 +256,34 @@ def test_pad_store_host_rows_match_jax():
     np.testing.assert_array_equal(ts["vectors"], js["vectors"])
 
 
+def test_approx_routing_is_accepted_and_matches_jax(tmp_path):
+    # the JAX engine with approx_routing=True (lax.approx_max_k, exact on
+    # its CPU backend) and the port serving a copy of its data_dir with
+    # the flag set give the same hits; the flag reaches ivf_search through
+    # StoreIndex as in the JAX package
+    jdir, pdir = str(tmp_path / "jax"), str(tmp_path / "port")
+    jax_e = JaxEngine(JaxConfig(**_cfg("ivf_flat_int8", jdir),
+                                approx_routing=True))
+    jax_e.encoder = JaxHashingEncoder(dim=DIM, use_native=False)
+    jax_e.create_store(STORE)
+    _ingest(jax_e, 0, 240)
+    shutil.copytree(jdir, pdir)
+    port = Engine(EngineConfig(**_cfg("ivf_flat_int8", pdir), device="cpu",
+                               approx_routing=True))
+    for e in (jax_e, port):
+        assert e._store(STORE).segment.approx_routing is True
+    assert port._store(STORE).segment.body is not None
+    _assert_same_hits(_search_all(port), _search_all(jax_e),
+                      _int8_body_ids(port))
+    # a batch of all the queries passes Q*nprobe*8 > nlist and routes
+    # through build_dispatch(approx=True)
+    qv = port.encoder.encode(QUERIES * 2)
+    jv, ji = jax_e._store(STORE).segment.search(qv, 5)
+    tv, ti = port._store(STORE).segment.search(qv, 5)
+    np.testing.assert_array_equal(ti, ji)
+    np.testing.assert_allclose(tv, jv, **TOL)
+
+
 def test_cuda_device_raises_without_card():
     if torch.cuda.is_available():
         pytest.skip("a card is present")
@@ -282,6 +310,9 @@ def test_engine_main_config_from_env(tmp_path):
     assert sock == str(tmp_path / "engine.sock") and not allow_pad
     cfg, _, allow_pad = config_from_env({})
     assert cfg.device == "cuda" and cfg.index_mode == "exact" and allow_pad
+    assert cfg.approx_routing is False
+    cfg, _, _ = config_from_env({"RAGTPU_ENGINE_APPROX_ROUTING": "true"})
+    assert cfg.approx_routing is True
 
 
 # -- the ivf_pq store ----------------------------------------------------------

@@ -21,6 +21,7 @@ from rag_foundation_tpu.ops.kmeans import assign_clusters as jax_assign
 from rag_foundation_tpu.ops.kmeans import kmeans_fit as jax_kmeans
 from rag_foundation_tpu_torch.engine import ivf as tivf
 from rag_foundation_tpu_torch.engine.convert import (body_from_state,
+                                                     body_to_state,
                                                      segment_from_state)
 from rag_foundation_tpu_torch.ops.kmeans import assign_clusters, kmeans_fit
 from rag_foundation_tpu_torch.ops.topk import exact_topk
@@ -50,19 +51,44 @@ def _jax_body_state(x, mode, nlist=16):
 
 @pytest.mark.parametrize("qcap", [4, 16])
 def test_build_dispatch_bit_identical(qcap):
+    _dispatch_equal_to_jax(qcap)
+
+
+@pytest.mark.parametrize("qcap", [4, 16])
+@pytest.mark.parametrize("kw", [dict(method="sort"), dict(approx=True),
+                                dict(method="sort", approx=True)],
+                         ids=["sort", "approx", "sort_approx"])
+def test_build_dispatch_sort_and_approx_bit_identical(qcap, kw):
+    # the stable-argsort inversion equals the cumsum one, in the port and
+    # against JAX; approx=True routes exactly in the port, as
+    # lax.approx_max_k does on JAX's CPU backend
+    got = _dispatch_equal_to_jax(qcap, **kw)
+    want = _dispatch_equal_to_jax(qcap)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert isinstance(got[3], torch.Tensor)      # no host copy of dropped
+
+
+def test_build_dispatch_unknown_method_raises():
+    with pytest.raises(ValueError, match="method"):
+        tivf.build_dispatch(torch.zeros((4, 8)), 2, 4, method="heap")
+
+
+def _dispatch_equal_to_jax(qcap, **kw):
     rng = np.random.default_rng(7)
     coarse = rng.standard_normal((64, 48)).astype(np.float32)
     coarse[:, 10] = coarse[:, 11]          # ties between lists
     jp, jd, js, jdrop = jivf.build_dispatch(jnp.asarray(coarse), nprobe=8,
-                                            qcap=qcap)
+                                            qcap=qcap, **kw)
     tp, td, ts, tdrop = tivf.build_dispatch(torch.as_tensor(coarse),
-                                            nprobe=8, qcap=qcap)
+                                            nprobe=8, qcap=qcap, **kw)
     np.testing.assert_array_equal(tp.numpy(), np.asarray(jp))
     np.testing.assert_array_equal(td.numpy(), np.asarray(jd))
     np.testing.assert_array_equal(ts.numpy(), np.asarray(js))
     assert int(tdrop) == int(jdrop)
     if qcap == 4:
         assert int(tdrop) > 0
+    return tp, td, ts, tdrop
 
 
 def test_assign_clusters_equal():
@@ -246,3 +272,116 @@ def test_device_build_layout_and_overflow():
     l, s = np.nonzero(ids == 42)
     np.testing.assert_allclose(idx.lists[l[0], s[0]].float().numpy()
                                * idx.scale, head[42], atol=1 / 127)
+
+
+def _share_centroids(monkeypatch, x, nlist):
+    """Both packages' k-means differ in their random draws: hand both
+    builds the same centroids (a JAX fit of the same sample)."""
+    cents, _ = jax_kmeans(jnp.asarray(x), nlist, key=jax.random.key(0),
+                          spherical=True)
+    cents = np.asarray(cents)
+    monkeypatch.setattr(jivf, "kmeans_fit",
+                        lambda *a, **k: (jnp.asarray(cents), None))
+    monkeypatch.setattr(tivf, "kmeans_fit",
+                        lambda *a, **k: (torch.as_tensor(cents.copy()), None))
+
+
+def _unit_rows(n, d, seed):
+    v = np.random.default_rng(seed).standard_normal((n, d)).astype(np.float32)
+    return v / np.linalg.norm(v, axis=1, keepdims=True)
+
+
+@pytest.mark.parametrize("src,slack", [("f32", 1.0), ("int8", 1.0),
+                                       ("f32", 0.6)],
+                         ids=["f32", "int8", "f32_overflow"])
+def test_streaming_build_bit_equal_to_jax(monkeypatch, src, slack):
+    n, d, nlist = 5000, 64, 8
+    vecs = _unit_rows(n, d, 3)
+    _share_centroids(monkeypatch, vecs, nlist)
+    q8 = np.clip(np.rint(vecs * 127.0), -127, 127).astype(np.int8)
+    source = (lambda lo, hi: q8[lo:hi]) if src == "int8" else (
+        lambda lo, hi: vecs[lo:hi])
+    scale = 1.0 / 127.0 if src == "int8" else None
+    jidx, jover = jivf.build_ivf_flat_streaming(
+        source, n, d, nlist, key=jax.random.key(0), chunk=1024,
+        capacity_slack=slack, source_scale=scale)
+    seen = []
+    tidx, tover = tivf.build_ivf_flat_streaming(
+        source, n, d, nlist, generator=torch.Generator().manual_seed(0),
+        device="cpu", chunk=1024, capacity_slack=slack, source_scale=scale,
+        progress=lambda done, total: seen.append((done, total)))
+    assert seen == [(1024, n), (2048, n), (3072, n), (4096, n), (n, n)]
+    np.testing.assert_array_equal(tover, jover)
+    assert bool(tover.any()) == (slack < 1)
+    assert tidx.n == jidx.n == n - int(tover.sum())
+    np.testing.assert_array_equal(tidx.row_ids.numpy(),
+                                  np.asarray(jidx.row_ids))
+    np.testing.assert_array_equal(tidx.lists.numpy(), np.asarray(jidx.lists))
+    assert np.float32(tidx.scale) == np.float32(jidx.scale)
+    if src == "int8":      # the source ints, verbatim, where the ids say
+        l, s = np.nonzero(tidx.row_ids.numpy() == 0)
+        np.testing.assert_array_equal(tidx.lists[l[0], s[0]].numpy(), q8[0])
+    # and the searches agree to the bit (int8 scores are exact)
+    q = vecs[:64]
+    jv, ji, _ = jivf.ivf_search(jidx, jnp.asarray(q), 5, nprobe=4, p=5,
+                                interpret=True)
+    tv, ti, _ = tivf.ivf_search(tidx, torch.as_tensor(q), 5, nprobe=4, p=5)
+    np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
+    np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
+
+
+def test_streaming_build_matches_direct_build_on_the_port():
+    # tests/test_ivf.py::test_build_ivf_flat_streaming_matches_direct, on
+    # the port alone: same generator seed, same sample, so the same
+    # centroids and layout; quantization agrees up to 1 lsb
+    n, d, nlist = 5000, 64, 8
+    vecs = _unit_rows(n, d, 3)
+    direct = tivf.build_ivf_flat(torch.as_tensor(vecs), nlist,
+                                 generator=torch.Generator().manual_seed(0),
+                                 int8=True)
+    stream, overflow = tivf.build_ivf_flat_streaming(
+        lambda lo, hi: vecs[lo:hi], n, d, nlist,
+        generator=torch.Generator().manual_seed(0), device="cpu", chunk=1024)
+    assert not overflow.any() and stream.n == direct.n == n
+    assert torch.equal(stream.row_ids, direct.row_ids)
+    diff = (stream.lists.int() - direct.lists.int()).abs()
+    assert int(diff.max()) <= 1
+    q = torch.as_tensor(vecs[:64])
+    _, ia, _ = tivf.ivf_search(direct, q, 5, nprobe=4, p=5)
+    _, ib, _ = tivf.ivf_search(stream, q, 5, nprobe=4, p=5)
+    assert _recall(ia.numpy(), ib.numpy(), 5) >= 0.99
+    assert (ib[:, 0].numpy() == np.arange(64)).mean() >= 0.98
+
+
+def test_streaming_build_int8_source_needs_scale():
+    q8 = np.zeros((100, 16), np.int8)
+    with pytest.raises(ValueError, match="source_scale"):
+        tivf.build_ivf_flat_streaming(
+            lambda lo, hi: q8[lo:hi], 100, 16, 4,
+            generator=torch.Generator().manual_seed(0), device="cpu")
+
+
+def test_streamed_body_converts_both_ways():
+    # a streamed body is an IVFFlatIndex like any other: its state loads
+    # in the JAX package and comes back, and both search it alike
+    n, d, nlist = 3000, 32, 8
+    vecs = _unit_rows(n, d, 9)
+    tidx, _ = tivf.build_ivf_flat_streaming(
+        lambda lo, hi: vecs[lo:hi], n, d, nlist,
+        generator=torch.Generator().manual_seed(0), device="cpu", chunk=700)
+    state = body_to_state(tidx)
+    jidx = jivf.IVFFlatIndex(
+        centroids=jnp.asarray(state["f_centroids"]),
+        lists=jnp.asarray(state["f_lists"]),
+        row_ids=jnp.asarray(state["f_row_ids"]),
+        scale=jnp.asarray(state["f_scale"], jnp.float32), n=int(state["f_n"]))
+    back = body_from_state(state, "cpu")
+    for a, b in zip(back, tidx):
+        assert torch.equal(a, b) if isinstance(a, torch.Tensor) else a == b
+    q = vecs[:32]
+    jv, ji, _ = jivf.ivf_search(jidx, jnp.asarray(q), 5, nprobe=4, p=3,
+                                approx_select=True, interpret=True)
+    tv, ti, _ = tivf.ivf_search(back, torch.as_tensor(q), 5, nprobe=4, p=3,
+                                approx_select=True)
+    np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
+    np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
