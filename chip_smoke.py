@@ -61,8 +61,28 @@ Phases (each one fails the run: non-zero exit, no result line):
     f32 rows against ``exact_topk`` on the device copy, with seconds and
     GB/s; then a 20,000-row ``build_ivf_flat_streaming`` body adopted by
     a ``StoreIndex`` with ``approx_routing=True`` and searched.
+12. ``flash_attention`` against its plain version on the card, bf16 and
+    f32, H=12, D=32, S in {16, 32, 100, 128, 512} (B*H = 288 at S=512),
+    with pads, an all-pad row and a row of one token, within a stated
+    tolerance.
+13. The MiniLM encoder path at full width (hidden 384, 6 layers, 12
+    heads): an ``EngineRpcServer`` with ``encoder="minilm"`` and the
+    repository's trained ``checkpoints/minilm_ict.npz`` (max_len 128)
+    ingests the fact documents and serves single and 64 concurrent
+    searches over RPC (the kernel's launch counter must rise on ingest
+    and on a single search; recall@10 >= 0.95 against the exact scan; the
+    stored embeddings against the plain attention on the card, cosine
+    >= 0.999); the same documents under ``encoder="hybrid"`` (768 = 384
+    hash + 384 MiniLM, w=0.35); then a random MiniLM-L6 with
+    ``max_len=512`` made by ``init_params`` from ``--seed``, saved with
+    ``save_params`` and loaded by an ``Engine`` through
+    ``encoder_ckpt``, which ingests long documents at the default 200
+    words a chunk: batches of 256 chunks at S=512, the kernel's main
+    shape, with chunks/s, and the kernel's time there beside its bound,
+    its plain version and ``scaled_dot_product_attention`` (timed only).
 
-The line before last is the kernels' JSON; the last line is
+``--long-docs`` sets the number of long documents of phase 13. The line
+before last is the kernels' JSON; the last line is
 ``{"ok": true, "device": {...}}``. The script imports neither JAX nor the
 JAX package.
 """
@@ -98,6 +118,14 @@ RECALL_MIN = 0.95     # recall@10 of the served store vs the exact scan
 # ADC sums with a bf16 LUT: m = 192 entries of magnitude <= 1 summed in
 # f32 in another order than the plain version: error <= m * 2**-24 * m
 BF16_LUT_TOL = 3e-3
+# flash attention: both outputs are convex combinations of v. The plain
+# version computes in f32 and rounds its output to the input dtype once;
+# the bf16 kernel also rounds each softmax weight to bf16 before P.V
+# (2^-9 relative): at most three bf16 roundings of max|v| apart. f32: sums
+# in another order, 1e-5 of max|v|
+ATTN_TOL = {"bf16": 3 * 2 ** -9, "f32": 1e-5}
+EMBED_COS_MIN = 0.999  # stored embeddings vs the plain attention path
+LONG_BATCH = 256       # chunks an encode: the ingest pipeline's batch
 
 _SYL = ("ka", "lo", "mi", "ne", "ru", "ta", "vo", "zu", "pe", "shi", "dra",
         "gon", "bel", "tor", "qua", "xen", "fli", "mur", "sol", "yat")
@@ -1061,6 +1089,314 @@ def pq_phases(args, card, rng, sampled, mods) -> list[dict]:
     }]
 
 
+_NOUNS = ("report", "budget", "engineer", "station", "survey", "network",
+          "harbor", "archive", "signal", "garden", "council", "reactor",
+          "library", "market", "tunnel", "orchard")
+_VERBS = ("measured", "reported", "tested", "moved", "checked", "updated",
+          "ranked", "opened")
+
+
+def long_doc(rng, words: int) -> str:
+    """``words`` whitespace words of report prose from ``rng``: plurals,
+    past tenses, adverbs and numbers with separators, which the tokenizer
+    splits, so a 200-word chunk tokenizes past 256 ids."""
+    out, n = [], 0
+    while n < words:
+        a, b = rng.integers(0, len(_NOUNS), 2)
+        sent = (f"The {_NOUNS[a]}s of project "
+                f"{project_name(int(rng.integers(8000)))} "
+                f"{_VERBS[int(rng.integers(len(_VERBS)))]} "
+                f"{int(rng.integers(1, 999))},{int(rng.integers(1000)):03d} "
+                f"credits quickly, and the {_NOUNS[b]} teams were "
+                f"{_VERBS[int(rng.integers(len(_VERBS)))]} steadily.")
+        out.append(sent)
+        n += len(sent.split())
+    return " ".join(out)
+
+
+def attention_inputs(torch, g, b, h, s, d, dtype):
+    """q, k, v normal; segment 1 for a token, 0 for a pad; random lengths,
+    row 1 all pads, row 2 one token."""
+    q, k, v = (torch.randn((b, h, s, d), generator=g, device="cuda")
+               .to(dtype) for _ in range(3))
+    lengths = torch.randint(1, s + 1, (b,), generator=g, device="cuda")
+    lengths[1], lengths[2] = 0, 1
+    seg = (torch.arange(s, device="cuda")[None, :] < lengths[:, None])
+    return q, k, v, seg.int().contiguous()
+
+
+def check_attention(torch, out, ref, v, kind, what) -> tuple[float, float]:
+    """(max |kernel - plain|, tolerance); fails beyond the tolerance."""
+    tol = ATTN_TOL[kind] * float(v.float().abs().max())
+    if not bool(torch.isfinite(out).all()):
+        fail(f"{what}: non-finite output")
+    err = float((out.float() - ref.float()).abs().max())
+    if err > tol:
+        fail(f"{what}: max |kernel - plain| {err} > {tol}")
+    return err, tol
+
+
+def phase_small_attention(fa, torch):
+    """Phase 12: flash_attention vs its plain version on the card."""
+    g = torch.Generator(device="cuda").manual_seed(4)
+    h, d = 12, 32
+    for dtype, kind in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
+        report = []
+        for b, s in ((8, 16), (8, 32), (8, 100), (8, 128), (24, 512)):
+            q, k, v, seg = attention_inputs(torch, g, b, h, s, d, dtype)
+            out = fa.flash_attention(q, k, v, seg, seg, d ** -0.5)
+            torch.cuda.synchronize()
+            ref = fa.flash_attention_reference(q, k, v, seg, seg, d ** -0.5)
+            err, tol = check_attention(torch, out, ref, v, kind,
+                                       f"flash_attention {kind} S={s}")
+            report.append(f"S={s} B={b} {err:.3g} (tol {tol:.3g})")
+            del q, k, v, seg, out, ref
+        log(f"kernel check flash_attention {kind} H={h} D={d}, random "
+            f"lengths, an all-pad row, a one-token row: max_abs_err "
+            + ", ".join(report))
+
+
+def attention_bound(seg_q, seg_kv, h, d, esize) -> tuple[float, str, dict]:
+    """(ms, "bytes" | "operations", counts): q, k, v read once and the
+    output written once (``esize`` bytes an element), the segment ids read
+    once; 4*d operations a head for every (query, key) pair of one
+    segment (2*d for the score, 2*d for its share of P.V) at the bf16
+    peak: the pairs these segments need, not all S^2."""
+    b, s = seg_q.shape
+    pairs = int((seg_q[:, :, None] == seg_kv[:, None, :]).sum())
+    nbytes = 4 * b * h * s * d * esize + 2 * b * s * 4
+    ops = 4.0 * h * d * pairs
+    t_bytes, t_ops = nbytes / HBM_BYTES_S, ops / PEAK_OPS_S["bf16"]
+    return max(t_bytes, t_ops) * 1e3, \
+        "bytes" if t_bytes >= t_ops else "operations", \
+        {"pairs": pairs, "dense_pairs": b * s * s, "bytes": nbytes,
+         "operations": ops}
+
+
+def encoder_phases(args, card, rng, sampled, mods) -> dict:
+    """Phase 13: the MiniLM encoder path. Returns the flash_attention
+    entry of the ``kernels`` line."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from rag_foundation_tpu_torch.models import encoder as tenc
+    from rag_foundation_tpu_torch.ops import flash_attention as fa
+    Engine, EngineConfig, EngineRpcServer, RemoteEngine = mods
+    ckpt = ROOT / "checkpoints" / "minilm_ict.npz"
+    if not ckpt.exists():
+        fail(f"{ckpt} not found")
+    data_dir = tempfile.mkdtemp(prefix="ragtpu-chip-smoke-minilm-")
+    sock = str(Path(data_dir) / "engine.sock")
+    key = "stores/chip-smoke-minilm"
+    # 76 words a chunk stays inside the checkpoint's 128-token window (no
+    # warning). An IVF-Flat body of 16 lists, all probed, capturing 10
+    # rows a sub-block: under MiniLM the near-duplicate fact documents
+    # crowd a few lists, and 12 probes with the default capture of 4
+    # served recall@10 0.9359 (a throwaway run on the H100)
+    base = dict(chunk_tokens=76, chunk_overlap=16, index_mode="ivf_flat",
+                nlist=16, nprobe=16, ivf_p=10, build_threshold=256,
+                batch_window_s=0.02, device="cuda")
+    fa.LAUNCHES.reset()                          # counts: this path only
+    engine = Engine(EngineConfig(dim=384, encoder="minilm",
+                                 encoder_ckpt=str(ckpt), data_dir=data_dir,
+                                 **base))
+    server = EngineRpcServer(engine, sock, allow_pad=True).start()
+    remote = RemoteEngine(sock, pool_size=80)
+    queries = [fact_query(i) for i in sampled]
+    try:
+        remote.create_store(key)
+        t0 = time.perf_counter()
+        for i in range(args.docs):
+            remote.ingest_document(key, f"doc-{i}", f"project-{i}.txt",
+                                   fact_doc(i))
+        ingest_s = time.perf_counter() - t0
+        ingest_launches = fa.LAUNCHES.count
+        n0 = fa.LAUNCHES.count
+        remote.search([key], queries[0], k=10)
+        single_launches = fa.LAUNCHES.count - n0
+        seg = engine._store(key).segment
+        log(f"minilm (minilm_ict.npz: hidden 384, 6 layers, 12 heads, "
+            f"max_len 128): ingested {args.docs} documents over RPC in "
+            f"{ingest_s:.2f} s ({remote.store_stats(key)['chunks']} chunks, "
+            f"IVF-Flat body {'built' if seg.body is not None else 'NOT built'}"
+            f"); flash_attention launches: ingest {ingest_launches}, one "
+            f"single search {single_launches} | {card}")
+        if ingest_launches == 0 or single_launches == 0:
+            fail(f"the MiniLM path launched flash_attention {ingest_launches}"
+                 f" times on ingest and {single_launches} on a search")
+        lat, served, right = [], [], 0
+        for i, q in zip(sampled, queries):
+            t0 = time.perf_counter()
+            hits = remote.search([key], q, k=10)
+            lat.append((time.perf_counter() - t0) * 1e3)
+            served.append([h.chunk_id for h in hits]
+                          + [-1] * (10 - len(hits)))
+            right += bool(hits and hits[0].doc_id == f"doc-{i}")
+        # one question an encode, as served: another batch shape rounds
+        # the bf16 forward differently, which can swap near-tied chunks
+        qv = np.concatenate([engine.encoder.encode([q]) for q in queries])
+        recall = recall_at(np.asarray(served), seg.exact_reference_search(
+            qv, 10))
+        log(f"minilm single search over RPC (encode on the card included): "
+            f"p50 {np.percentile(lat, 50):.3f} ms p99 "
+            f"{np.percentile(lat, 99):.3f} ms ({len(lat)} searches, a lone "
+            f"request waits out the {base['batch_window_s'] * 1e3:.0f} ms "
+            f"window); recall@10 vs exact_reference_search {recall:.4f}; "
+            f"right top hit {right}/{len(sampled)} | {card}")
+        if recall < RECALL_MIN:
+            fail(f"minilm recall@10 {recall} < {RECALL_MIN}")
+        threads = 64
+        qids = [int(i) for i in rng.integers(0, args.docs, size=threads * 8)]
+        hits, wall = run_concurrent(remote, key,
+                                    [fact_query(i) for i in qids], threads)
+        right_c = sum(1 for i, h in zip(qids, hits)
+                      if h and h[0].doc_id == f"doc-{i}")
+        log(f"minilm concurrent search over RPC: {threads} threads, "
+            f"{len(qids)} queries in {wall:.3f} s = {len(qids) / wall:,.1f} "
+            f"QPS; right top hit {right_c}/{len(qids)} | {card}")
+        # the stored embeddings against the plain attention on the card
+        vecs, cids = seg.live_rows()
+        store = engine._store(key)
+        enc = engine.encoder
+        ids = enc.tokenizer.encode_batch(
+            [store.chunks[int(c)].text for c in cids], enc.cfg.max_len)
+        with torch.inference_mode():
+            plain = tenc.encode_tokens(
+                enc.params, torch.as_tensor(ids, device="cuda"), enc.cfg,
+                attention=fa.flash_attention_reference).cpu().numpy()
+        cos = float((vecs * plain).sum(axis=1).min())
+        log(f"minilm stored embeddings ({len(cids)}, kernel path, batches "
+            f"of one chunk) vs encode_tokens with flash_attention_reference "
+            f"on the card (one batch at S={enc.cfg.max_len}): min cosine "
+            f"{cos:.6f} (floor {EMBED_COS_MIN}) | {card}")
+        if cos < EMBED_COS_MIN:
+            fail(f"minilm embeddings: min cosine {cos} < {EMBED_COS_MIN}")
+    finally:
+        remote.close()
+        server.shutdown()
+    shutil.rmtree(data_dir, ignore_errors=True)
+    del engine, server, remote, seg, store, enc
+
+    # -- the same documents under the hybrid encoder -------------------------
+    hyb = Engine(EngineConfig(dim=768, encoder="hybrid",
+                              encoder_ckpt=str(ckpt), hybrid_w=0.35,
+                              **base))
+    hyb.create_store(key)
+    n0 = fa.LAUNCHES.count
+    t0 = time.perf_counter()
+    for i in range(args.docs):
+        hyb.ingest_document(key, f"doc-{i}", f"project-{i}.txt", fact_doc(i))
+    hyb_s = time.perf_counter() - t0
+    right_h = sum(1 for i, q in zip(sampled, queries)
+                  if hyb.search([key], q, k=5)[0].doc_id == f"doc-{i}")
+    log(f"hybrid (384 hash + 384 MiniLM, w=0.35, dim 768): ingested "
+        f"{args.docs} documents in process in {hyb_s:.2f} s "
+        f"({fa.LAUNCHES.count - n0} flash_attention launches); right top "
+        f"hit {right_h}/{len(sampled)} (MiniLM alone {right}/"
+        f"{len(sampled)}) | {card}")
+    del hyb
+
+    # -- the long-chunk configuration: MiniLM-L6 at max_len 512 --------------
+    cfg512 = tenc.EncoderConfig(max_len=512)
+    tmp = tempfile.mkdtemp(prefix="ragtpu-chip-smoke-minilm512-")
+    path = str(Path(tmp) / "minilm_l6_len512.npz")
+    tenc.save_params(tenc.init_params(
+        torch.Generator().manual_seed(args.seed), cfg512), path, cfg512)
+    long_e = Engine(EngineConfig(dim=384, encoder="minilm",
+                                 encoder_ckpt=path, device="cuda"))
+    enc = long_e.encoder
+    drng = np.random.default_rng(args.seed + 5)
+    # LONG_BATCH + 1 chunks a document at 200 words a chunk, 40
+    # overlapping: the ingest pipeline encodes a batch of LONG_BATCH, then 1
+    docs = [long_doc(drng, 160 * LONG_BATCH + 200)
+            for _ in range(args.long_docs)]
+    long_e.create_store(key)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for j, text in enumerate(docs):
+        long_e.ingest_document(key, f"long-{j}", f"long-{j}.txt", text)
+    torch.cuda.synchronize()
+    long_s = time.perf_counter() - t0
+    flash_launches = fa.LAUNCHES.count           # read just after the path
+    store = long_e._store(key)
+    texts = [store.chunks[c].text for c in sorted(store.chunks)]
+    lens = (enc.tokenizer.encode_batch(texts[:LONG_BATCH], 512) != 0).sum(
+        axis=1)
+    log(f"minilm max_len 512 (init_params seed {args.seed}, save_params -> "
+        f"encoder_ckpt, chunk_tokens 200): ingested {len(docs)} documents "
+        f"of {len(docs[0].split())} words = {len(texts)} chunks in "
+        f"{long_s:.2f} s = {len(texts) / long_s:,.1f} chunks/s (chunking, "
+        f"tokenizing, encoding, insert); a chunk tokenizes to "
+        f"{int(lens.min())}-{int(lens.max())} ids, so every batch encodes "
+        f"at S={512 if lens.max() > 256 else 256} | {card}")
+    # the encoder alone: host tokenizer + device forward, then the forward
+    n_enc = min(len(texts), 8 * LONG_BATCH) // LONG_BATCH * LONG_BATCH
+    enc.encode(texts[:LONG_BATCH])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for lo in range(0, n_enc, LONG_BATCH):
+        enc.encode(texts[lo:lo + LONG_BATCH])
+    torch.cuda.synchronize()
+    enc_s = time.perf_counter() - t0
+    ids = torch.as_tensor(enc.tokenizer.encode_batch(texts[:LONG_BATCH],
+                                                     512), device="cuda")
+    captured = []
+
+    def capture(*a):
+        captured.append([t.clone() if torch.is_tensor(t) else t for t in a])
+        return fa.flash_attention_reference(*a)
+
+    with torch.inference_mode():
+        fwd_ms = cuda_ms(lambda: tenc.encode_tokens(enc.params, ids, cfg512),
+                         reps=5)
+        tenc.encode_tokens(enc.params, ids, cfg512, attention=capture)
+    log(f"minilm max_len 512 encode of {n_enc} chunks in batches of "
+        f"{LONG_BATCH}: {enc_s:.2f} s = {n_enc / enc_s:,.1f} chunks/s with "
+        f"the host tokenizer; the device forward alone (6 layers, "
+        f"B={LONG_BATCH}, S=512) {fwd_ms:.2f} ms = "
+        f"{LONG_BATCH / fwd_ms * 1e3:,.1f} chunks/s | {card}")
+
+    # -- the kernel on the path's own layer-0 inputs, with times -------------
+    q, k, v, sq, skv, scale = captured[0]
+    del captured
+    out = fa.flash_attention(q, k, v, sq, skv, scale)
+    torch.cuda.synchronize()
+    ref = fa.flash_attention_reference(q, k, v, sq, skv, scale)
+    err, tol = check_attention(torch, out, ref, v, "bf16",
+                               "flash_attention main")
+    del out, ref
+    b, h, s, d = q.shape
+    ms = cuda_ms(lambda: fa.flash_attention(q, k, v, sq, skv, scale),
+                 reps=20)
+    plain_ms = cuda_ms(lambda: fa.flash_attention_reference(
+        q, k, v, sq, skv, scale), reps=3, warmup=1)
+    mask = (sq[:, :, None] == skv[:, None, :])[:, None]
+    library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, attn_mask=mask, scale=scale), reps=20)
+    bound_ms, bound_by, c = attention_bound(sq, skv, h, d, 2)
+    log(f"flash_attention bf16 main path (layer 0 of a batch of long "
+        f"chunks), B={b} H={h} S={s} D={d}, {c['pairs']} of "
+        f"{c['dense_pairs']} (query, key) pairs share a segment: "
+        f"max_abs_err={err:.3g} (tol {tol:.3g}); kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.3f} ms, scaled_dot_product_attention (bool mask) "
+        f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}; dense "
+        f"S^2 operations {4.0 * b * h * s * s * d / PEAK_OPS_S['bf16'] * 1e3:.4f}"
+        f" ms) | {card}")
+    del long_e, enc, q, k, v, sq, skv, mask
+    shutil.rmtree(tmp, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"name": "flash_attention", "route": "cuda",
+            "source": "rag_foundation_tpu_torch/csrc/flash_attention.cu",
+            "replaces": "jax/experimental/pallas/ops/tpu/flash_attention.py"
+                        ":758 (called at rag_foundation_tpu/models/"
+                        "encoder.py:116)",
+            "launches": flash_launches, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms, "dtype": "bf16",
+            "shape": {"B": b, "H": h, "S": s, "D": d, **c}}
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rows", type=int, default=10_000_000,
@@ -1072,6 +1408,8 @@ def main() -> None:
                          "scan (default 1M)")
     ap.add_argument("--docs", type=int, default=400,
                     help="real documents ingested before padding")
+    ap.add_argument("--long-docs", type=int, default=8,
+                    help="long documents (257 chunks each) of phase 13")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
 
@@ -1090,8 +1428,9 @@ def main() -> None:
     from rag_foundation_tpu_torch.engine.profile import search_profile
     from rag_foundation_tpu_torch.engine.rpc import (EngineRpcServer,
                                                      RemoteEngine)
-    from rag_foundation_tpu_torch.ops import (cuda_lib, gather, ivf_scan,
-                                              pq_scan, quantize)
+    from rag_foundation_tpu_torch.ops import (cuda_lib, flash_attention,
+                                              gather, ivf_scan, pq_scan,
+                                              quantize)
 
     # -- phase 1: card and build -------------------------------------------
     t_start = time.perf_counter()
@@ -1104,7 +1443,7 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     kernel_names = ["ivf_list_scan", "pq_list_scan", "gather_rescore_int8",
-                    "block_topk", "fused_topk"]
+                    "block_topk", "fused_topk", "flash_attention"]
     report = cuda_lib.build(kernel_names)
     for name, r in report.items():
         log(f"build {name}: {r['seconds']:.2f} s")
@@ -1359,6 +1698,12 @@ def main() -> None:
 
     # -- phases 9-11: the exact flat scan --------------------------------------
     exact_kernels = exact_phases(args, card)
+
+    # -- phases 12-13: the MiniLM encoder and its attention kernel ------------
+    phase_small_attention(flash_attention, torch)
+    attn_kernel = encoder_phases(
+        args, card, rng, sampled,
+        (Engine, EngineConfig, EngineRpcServer, RemoteEngine))
     log(f"total {time.perf_counter() - t_start:.1f} s")
 
     kernels = {"kernels": [{
@@ -1376,7 +1721,7 @@ def main() -> None:
         "dtype": "int8",
         "shape": {"nlist": nlist, "qcap": qcap, "cap_len": cap_len, "d": d,
                   "p": p, **c},
-    }] + pq_kernels + exact_kernels}
+    }] + pq_kernels + exact_kernels + [attn_kernel]}
     print(json.dumps(kernels), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -7,11 +7,11 @@ on-disk format (``meta.json``, ``vectors.npz``, ``body.npz`` per store)
 is the JAX engine's: a ``data_dir`` written by either engine loads in
 the other.
 
-Ported: the ``hash`` encoder and the ``exact``, ``ivf_flat``,
-``ivf_flat_int8`` and ``ivf_pq`` index modes on one device
-(``EngineConfig.device``, the card by default). Not ported yet: the
-``minilm``/``hybrid`` encoders, mesh sharding, the generative decoder,
-the Prometheus metrics and the reader's ``textnorm`` pinning.
+Ported: the ``hash``, ``minilm`` and ``hybrid`` encoders and the
+``exact``, ``ivf_flat``, ``ivf_flat_int8`` and ``ivf_pq`` index modes on
+one device (``EngineConfig.device``, the card by default; the MiniLM
+encoder runs there too). Not ported yet: mesh sharding, the generative
+decoder, the Prometheus metrics and the reader's ``textnorm`` pinning.
 
 Thread model: the RPC server calls in from many threads; each store
 serializes mutation under its own lock, searches read the latest
@@ -54,7 +54,9 @@ class EngineConfig:
     dim: int = 384
     chunk_tokens: int = 200
     chunk_overlap: int = 40
-    encoder: str = "hash"          # only "hash" is ported
+    encoder: str = "hash"          # "hash" | "minilm" | "hybrid"
+    encoder_ckpt: str | None = None  # MiniLM npz (the JAX format)
+    hybrid_w: float = 0.35         # semantic-channel weight (hybrid)
     index_mode: str = "exact"      # "exact" | "ivf_flat" | "ivf_flat_int8"
     #                                 | "ivf_pq"
     nlist: int = 256
@@ -72,9 +74,8 @@ class EngineConfig:
     device: str = "cuda"            # "cuda" (raises without a card) | "cpu"
 
     def __post_init__(self):
-        if self.encoder != "hash":
-            raise ValueError(f"encoder {self.encoder!r} not ported yet "
-                             "(only 'hash')")
+        if self.encoder not in ("hash", "minilm", "hybrid"):
+            raise ValueError(f"unknown encoder {self.encoder!r}")
         if self.index_mode not in ("exact", "ivf_flat", "ivf_flat_int8",
                                    "ivf_pq"):
             raise ValueError(f"unknown index mode {self.index_mode!r}")
@@ -115,13 +116,72 @@ class StoreNotFound(KeyError):
     pass
 
 
+def _make_minilm(cfg: EngineConfig, dim: int, device: torch.device):
+    from rag_foundation_tpu_torch.models.encoder import (EncoderConfig,
+                                                         MiniLMEncoder,
+                                                         checkpoint_config,
+                                                         load_params)
+    if cfg.encoder_ckpt:
+        # fail fast on a bad path/arch — a half-loaded encoder would
+        # silently embed garbage. The checkpoint carries its
+        # EncoderConfig (max_len etc.); dim must match.
+        enc_cfg = checkpoint_config(cfg.encoder_ckpt)
+        if enc_cfg is not None and enc_cfg.hidden != dim:
+            raise ValueError(
+                f"encoder checkpoint hidden={enc_cfg.hidden} != "
+                f"expected dim {dim}")
+        enc_cfg = enc_cfg or EncoderConfig(hidden=dim)
+        params = load_params(cfg.encoder_ckpt, enc_cfg, device=device)
+        return MiniLMEncoder(dim=dim, cfg=enc_cfg, params=params,
+                             device=device)
+    return MiniLMEncoder(dim=dim, device=device)
+
+
+def _make_encoder(cfg: EngineConfig, device: torch.device):
+    if cfg.encoder == "hash":
+        return HashingEncoder(dim=cfg.dim)
+    if cfg.encoder == "minilm":
+        return _make_minilm(cfg, cfg.dim, device)
+    # hybrid: lexical ⊕ semantic in one dense space. ENGINE_DIM is the
+    # TOTAL width; the MiniLM checkpoint fixes its half and the hash
+    # channel takes the remainder (models/hybrid_encoder)
+    from rag_foundation_tpu_torch.models.encoder import checkpoint_config
+    from rag_foundation_tpu_torch.models.hybrid_encoder import HybridEncoder
+    mini_dim = cfg.dim // 2
+    if cfg.encoder_ckpt:
+        enc_cfg = checkpoint_config(cfg.encoder_ckpt)
+        if enc_cfg is not None:
+            mini_dim = enc_cfg.hidden
+    hash_dim = cfg.dim - mini_dim
+    if hash_dim <= 0:
+        raise ValueError(
+            f"ENGINE_DIM={cfg.dim} too small for hybrid with a "
+            f"{mini_dim}-dim MiniLM checkpoint")
+    return HybridEncoder(hash_dim, _make_minilm(cfg, mini_dim, device),
+                         w_mini=cfg.hybrid_w)
+
+
 class Engine:
     """In-process index-and-query engine on one device."""
 
     def __init__(self, config: EngineConfig | None = None):
         self.config = config or EngineConfig()
         self.device = resolve_device(self.config.device)
-        self.encoder = HashingEncoder(dim=self.config.dim)
+        self.encoder = _make_encoder(self.config, self.device)
+        enc_cfg = getattr(getattr(self.encoder, "mini", self.encoder),
+                          "cfg", None)
+        max_len = getattr(enc_cfg, "max_len", None)
+        if max_len is not None and self.config.chunk_tokens > \
+                int(max_len * 0.6):
+            import logging
+            logging.getLogger(__name__).warning(json.dumps({
+                "event": "chunk_exceeds_encoder_window",
+                "chunk_tokens": self.config.chunk_tokens,
+                "encoder_max_len": int(max_len),
+                "detail": "suffix splitting expands token counts; chunk "
+                          "tails past the window are invisible to the "
+                          "semantic channel — lower ENGINE_CHUNK_TOKENS "
+                          "or retrain with a longer max_len"}))
         self._stores: dict[str, _Store] = {}
         self._pad_counts: dict[str, int] = {}   # bench pads (pad_store)
         self._registry_lock = threading.Lock()
@@ -173,9 +233,17 @@ class Engine:
                 fcntl.flock(f, fcntl.LOCK_UN)
 
     def encoder_fingerprint(self) -> str:
-        """Identity of the embedding space, persisted per store and
-        checked on reload (the JAX engine writes the same string)."""
-        return f"{self.encoder.name}:dim{self.config.dim}"
+        """Identity of the embedding space (encoder name, dim,
+        checkpoint, hybrid weight), persisted per store and checked on
+        reload (the JAX engine writes the same string)."""
+        cfg = self.config
+        parts = [self.encoder.name, f"dim{cfg.dim}"]
+        if cfg.encoder_ckpt:
+            import os
+            parts.append(os.path.basename(cfg.encoder_ckpt))
+        if cfg.encoder == "hybrid":
+            parts.append(f"w{cfg.hybrid_w}")
+        return ":".join(parts)
 
     def _index_kwargs(self, archive_dir: str | None) -> dict:
         cfg = self.config
@@ -309,7 +377,10 @@ class Engine:
                                                               maybe_trace)
         timer = StageTimer()
         with timer.stage("embed"):
-            qv = self.encoder.encode_queries(queries)
+            # query-side encode (stopword-stripped lexical channel) when
+            # the encoder distinguishes it (MiniLM does not)
+            enc_q = getattr(self.encoder, "encode_queries", None)
+            qv = enc_q(queries) if enc_q else self.encoder.encode(queries)
         filtered = doc_filter is not None or meta_filter is not None
         # padded stores (pad_store) drop metadata-less rows in assembly
         # below — over-fetch so k real hits usually survive

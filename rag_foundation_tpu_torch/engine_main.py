@@ -4,7 +4,8 @@
 
 Counterpart of ``rag_foundation_tpu/app/engine_main.py``. It reads the
 same ``RAGTPU_*`` variables the JAX app maps into its engine config
-(``ENGINE_DIM``, ``ENGINE_INDEX_MODE``, ``ENGINE_NLIST``, ...,
+(``ENGINE_DIM``, ``ENGINE_ENCODER``, ``ENGINE_ENCODER_CKPT``,
+``ENGINE_HYBRID_W``, ``ENGINE_INDEX_MODE``, ``ENGINE_NLIST``, ...,
 ``DATA_DIR``, ``ENGINE_RPC_SOCKET``, ``ENVIRONMENT``) with its own small
 reader, builds the port's ``Engine`` and serves ``EngineRpcServer`` on
 ``RAGTPU_ENGINE_RPC_SOCKET`` (default ``DATA_DIR/engine.sock``). API
@@ -34,6 +35,8 @@ _FIELDS = (
     ("chunk_tokens", "ENGINE_CHUNK_TOKENS", int, 200),
     ("chunk_overlap", "ENGINE_CHUNK_OVERLAP", int, 40),
     ("encoder", "ENGINE_ENCODER", str, "hash"),
+    ("encoder_ckpt", "ENGINE_ENCODER_CKPT", str, ""),
+    ("hybrid_w", "ENGINE_HYBRID_W", float, 0.35),
     ("index_mode", "ENGINE_INDEX_MODE", str, "exact"),
     ("nlist", "ENGINE_NLIST", int, 1024),
     ("nprobe", "ENGINE_NPROBE", int, 64),
@@ -71,6 +74,7 @@ def config_from_env(env: dict[str, str] | None = None
     env = dict(os.environ if env is None else env)
     kw = {f: _get(env, name, typ, default)
           for f, name, typ, default in _FIELDS}
+    kw["encoder_ckpt"] = kw["encoder_ckpt"] or None
     kw["batch_window_s"] = _get(env, "ENGINE_BATCH_WINDOW_MS", float,
                                 0.0) / 1000.0
     data_dir = _get(env, "DATA_DIR", str, "./data")

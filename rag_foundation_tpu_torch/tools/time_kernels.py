@@ -19,7 +19,11 @@ run on one card. Last come the exact-scan kernels on ``--exact-rows`` x 768
 normal rows and 1024 queries: ``block_topk`` (p 2 and 10, its kernel alone
 and with the stage-2 merge), ``fused_topk`` (the default split of the rows
 and a few others, k 10 and 64), in bf16, and both in f32 on an eighth of
-the rows.
+the rows. Then the encoder's attention (``flash_attention``, H=12, D=32,
+bf16) at the batch and sequence buckets MiniLM encodes at (B 1, 64, 256;
+S 16, 128, 512), every token real and with chunks of half the bucket
+(pads past them), beside ``scaled_dot_product_attention`` with the same
+boolean mask. ``--only`` picks sections.
 """
 
 from __future__ import annotations
@@ -174,6 +178,30 @@ def time_exact(torch, g, rows: int) -> None:
         del c, q
 
 
+def time_attention(torch, g) -> None:
+    import torch.nn.functional as F
+    from rag_foundation_tpu_torch.ops import flash_attention as fa
+    h, d = 12, 32
+    for b in (1, 64, 256):
+        for s in (16, 128, 512):
+            q, k, v = (torch.randn((b, h, s, d), generator=g, device="cuda")
+                       .bfloat16() for _ in range(3))
+            for name, real in (("all real", s), ("half real", s // 2)):
+                seg = (torch.arange(s, device="cuda") < real).int() \
+                    .expand(b, s).contiguous()
+                mask = (seg[:, :, None] == seg[:, None, :])[:, None]
+                t = _ms(lambda: fa.flash_attention(q, k, v, seg, seg,
+                                                   d ** -0.5), reps=20)
+                lib = _ms(lambda: F.scaled_dot_product_attention(
+                    q, k, v, attn_mask=mask, scale=d ** -0.5), reps=20)
+                print(f"flash_attention bf16 B={b} H={h} S={s} D={d} "
+                      f"{name}: {t:.4f} ms (scaled_dot_product_attention "
+                      f"{lib:.4f} ms)", flush=True)
+
+
+SECTIONS = ("pq", "flat", "exact", "attention")
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--nlist", type=int, default=4096)
@@ -183,6 +211,8 @@ def main() -> None:
                     help="another ivf_list_scan.cu to time in turns")
     ap.add_argument("--exact-rows", type=int, default=1_000_000,
                     help="corpus rows of the exact-scan kernels (bf16)")
+    ap.add_argument("--only", nargs="+", choices=SECTIONS, default=SECTIONS,
+                    help="sections to time (default all)")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
     import torch
@@ -193,9 +223,14 @@ def main() -> None:
                          text=True, timeout=60, check=True)
     print(out.stdout.strip().splitlines()[0], flush=True)
     g = torch.Generator(device="cuda").manual_seed(args.seed)
-    time_pq(torch, g, args.nlist, args.live_rows)
-    time_flat(torch, g, args.nlist, args.live_rows, args.other_flat)
-    time_exact(torch, g, args.exact_rows)
+    if "pq" in args.only:
+        time_pq(torch, g, args.nlist, args.live_rows)
+    if "flat" in args.only:
+        time_flat(torch, g, args.nlist, args.live_rows, args.other_flat)
+    if "exact" in args.only:
+        time_exact(torch, g, args.exact_rows)
+    if "attention" in args.only:
+        time_attention(torch, g)
 
 
 if __name__ == "__main__":

@@ -16,14 +16,21 @@ may differ only between rows scoring within that. The exact-scan kernels
 than the plain version's matmul: unit-norm rows agree within 1e-5, and
 an index may differ only between rows scoring within that;
 small-integer inputs (every partial sum exact in f32) are bit-identical,
-duplicate rows across blocks and splits included.
+duplicate rows across blocks and splits included. ``flash_attention``:
+the plain version computes in f32 and rounds its output to the input
+dtype; the bf16 kernel also rounds each softmax weight to bf16 before
+the P.V product, so the two differ by at most three bf16 roundings of a
+convex combination of v: 3 * 2^-9 * max|v| (``BF16_ATTN_TOL``); in f32
+both sum in f32 in another order: 1e-5 * max|v|.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from rag_foundation_tpu_torch.models import encoder as tenc
 from rag_foundation_tpu_torch.ops import block_topk as block_topk_mod
+from rag_foundation_tpu_torch.ops import flash_attention as fa
 from rag_foundation_tpu_torch.ops import cuda_lib
 from rag_foundation_tpu_torch.ops import fused_topk as fused_topk_mod
 from rag_foundation_tpu_torch.ops import gather, ivf_scan, pq_scan
@@ -39,10 +46,15 @@ from rag_foundation_tpu_torch.ops.pq_scan import (pack_codes, pq_list_scan,
                                                   pq_list_scan_reference)
 
 
+BF16_ATTN_TOL = 3 * 2 ** -9     # times max|v|, see the module docstring
+F32_ATTN_TOL = 1e-5
+
+
 @pytest.fixture()
 def card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
+    torch.backends.cuda.matmul.allow_tf32 = False
     return torch.device("cuda")
 
 
@@ -287,3 +299,95 @@ def test_exact_scan_kernels_cuda_checks(card, monkeypatch):
     for fn in (fused_topk, block_topk):
         with pytest.raises(RuntimeError, match="unavailable"):
             fn(q, c, 3)
+
+
+def _attn_inputs(b, h, s, d, dtype, device, seed=0):
+    """q, k, v normal; segments 1 for tokens, 0 for pads: rows of every
+    length from full down, one all-pad row, one of a single token."""
+    rng = np.random.default_rng(seed)
+    q, k, v = (torch.as_tensor(rng.standard_normal((b, h, s, d)).astype(
+        np.float32), device=device).to(dtype) for _ in range(3))
+    lengths = [s, 0, 1] + list(rng.integers(1, s + 1, max(0, b - 3)))
+    seg = torch.zeros((b, s), dtype=torch.int32)
+    for i, n in enumerate(lengths[:b]):
+        seg[i, :n] = 1
+    return q, k, v, seg.to(device)
+
+
+def _check_attention(out, ref, v):
+    tol = (BF16_ATTN_TOL if v.dtype == torch.bfloat16 else F32_ATTN_TOL) \
+        * float(v.float().abs().max())
+    assert out.dtype == ref.dtype and bool(torch.isfinite(out).all())
+    err = float((out.float() - ref.float()).abs().max())
+    assert err <= tol, (err, tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,h,s,d", [(4, 3, 16, 32), (5, 2, 32, 32),
+                                     (4, 12, 100, 32), (3, 4, 128, 32),
+                                     (24, 12, 512, 32), (3, 2, 77, 16),
+                                     (3, 2, 200, 64)])
+def test_flash_attention_matches_plain_version_on_card(card, dtype, b, h, s,
+                                                       d):
+    q, k, v, seg = _attn_inputs(b, h, s, d, dtype, card, seed=s + d)
+    before = fa.LAUNCHES.count
+    out = fa.flash_attention(q, k, v, seg, seg, d ** -0.5)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES.count == before + 1
+    _check_attention(out, fa.flash_attention_reference(q, k, v, seg, seg,
+                                                       d ** -0.5), v)
+    # q and kv segments apart: a query of segment 2 sees no key of its own
+    # segment but pads of 2 in the kv ids
+    seg_kv = torch.where(seg == 0, 2, seg).int()
+    seg_q = seg.clone()
+    out = fa.flash_attention(q, k, v, seg_q, seg_kv, 1.0)
+    ref = fa.flash_attention_reference(q, k, v, seg_q, seg_kv, 1.0)
+    live = (seg_q[:, None, :, None] == 1).expand_as(out)
+    torch.testing.assert_close(out[live].float(), ref[live].float(),
+                               rtol=0, atol=float(v.float().abs().max()) * (
+                                   BF16_ATTN_TOL if dtype == torch.bfloat16
+                                   else F32_ATTN_TOL))
+
+
+@pytest.mark.cuda
+def test_flash_attention_cuda_checks(card, monkeypatch):
+    q, k, v, seg = _attn_inputs(2, 2, 64, 48, torch.bfloat16, card)
+    with pytest.raises(ValueError, match="head dim"):
+        fa.flash_attention(q, k, v, seg, seg, 1.0)
+    q, k, v, seg = _attn_inputs(2, 2, 64, 32, torch.bfloat16, card)
+    with pytest.raises(ValueError, match="contiguous"):
+        fa.flash_attention(q.transpose(1, 2).contiguous().transpose(1, 2),
+                           k, v, seg, seg, 1.0)
+    with pytest.raises(ValueError, match="dtype"):
+        fa.flash_attention(q.half(), k.half(), v.half(), seg, seg, 1.0)
+    with pytest.raises(ValueError, match="one device"):
+        fa.flash_attention(q, k, v, seg.cpu(), seg, 1.0)
+
+    def missing(name):
+        raise RuntimeError("kernel library unavailable")
+
+    monkeypatch.setattr(cuda_lib, "load", missing)
+    with pytest.raises(RuntimeError, match="unavailable"):
+        fa.flash_attention(q, k, v, seg, seg, 1.0)
+
+
+@pytest.mark.cuda
+def test_minilm_encoder_on_card_launches_the_kernel(card):
+    cfg = tenc.EncoderConfig(vocab_size=512, hidden=64, layers=2, heads=2,
+                             ffn=128, max_len=64)
+    enc = tenc.MiniLMEncoder(dim=64, cfg=cfg, seed=3, device="cuda")
+    texts = ["revenue grew", "penguins live in antarctica", "x",
+             "The codename for project Kalomi is ZEBRA42 and its budget is "
+             "913 thousand credits in sector 4 of campus north."]
+    before = fa.LAUNCHES.count
+    out = enc.encode(texts)
+    assert fa.LAUNCHES.count == before + cfg.layers
+    ids = torch.as_tensor(enc.tokenizer.encode_batch(texts, 64)[:, :32],
+                          device=card)
+    with torch.inference_mode():
+        ref = tenc.encode_tokens(enc.params, ids, cfg,
+                                 attention=fa.flash_attention_reference)
+    ref = ref.cpu().numpy()
+    assert out.shape == (4, 64) and np.isfinite(out).all()
+    assert (out * ref).sum(axis=1).min() >= 0.999

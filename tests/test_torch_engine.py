@@ -291,8 +291,10 @@ def test_cuda_device_raises_without_card():
         Engine(EngineConfig(dim=64))
     with pytest.raises(ValueError, match="must divide"):
         EngineConfig(index_mode="ivf_pq", dim=64, pq_m=48)
-    with pytest.raises(ValueError, match="not ported"):
-        EngineConfig(encoder="minilm")
+    with pytest.raises(ValueError, match="unknown encoder"):
+        EngineConfig(encoder="bert")
+    with pytest.raises(RuntimeError, match="no CUDA"):
+        Engine(EngineConfig(encoder="minilm", dim=64))
 
 
 def test_engine_main_config_from_env(tmp_path):
@@ -593,3 +595,140 @@ def test_ivf_pq_capture_width_follows_ivf_p_from_four_up(ivf_p, want,
     port.search([STORE], QUERIES[1], k=5)          # fetch 8
     port._store(STORE).segment.search(port.encoder.encode(QUERIES[:1]), 2)
     assert seen == [want, 2]
+
+
+# -- the MiniLM and hybrid encoders --------------------------------------------
+
+# a small MiniLM saved by the JAX package; the engines run it in bf16 (a
+# checkpoint stores no dtype), so the two packages' embeddings differ at
+# bf16 rounding level (tests/test_torch_encoder.py): scores agree within
+# ENC_TOL (observed 1.3e-3), and two hits may swap only within it
+MINI = dict(vocab_size=512, hidden=64, layers=2, heads=2, ffn=128,
+            max_len=64)
+ENC_TOL = 5e-3
+
+
+@pytest.fixture(scope="module")
+def minilm_ckpt(tmp_path_factory):
+    import jax
+
+    from rag_foundation_tpu.models import encoder as jenc
+    cfg = jenc.EncoderConfig(**MINI)
+    path = str(tmp_path_factory.mktemp("ckpt") / "mini.npz")
+    jenc.save_params(jenc.init_params(jax.random.key(0), cfg), path, cfg)
+    return path
+
+
+def _enc_cfg(encoder, ckpt, data_dir=None, mode="exact"):
+    # chunk_tokens 30 <= 0.6 * max_len: no window warning. An IVF body
+    # probes all its lists: the two packages train other centroids
+    return dict(dim=64 if encoder == "minilm" else 128, encoder=encoder,
+                encoder_ckpt=ckpt, hybrid_w=0.35, chunk_tokens=30,
+                chunk_overlap=5, index_mode=mode, nlist=16, nprobe=16,
+                build_threshold=40, data_dir=data_dir)
+
+
+def _enc_engines(encoder, ckpt, jdir=None, pdir=None, mode="exact"):
+    jax_e = JaxEngine(JaxConfig(**_enc_cfg(encoder, ckpt, jdir, mode)))
+    if encoder == "hybrid":     # the hash channel on the Python path
+        jax_e.encoder.hash_enc = JaxHashingEncoder(dim=64, use_native=False)
+    port = Engine(EngineConfig(**_enc_cfg(encoder, ckpt, pdir, mode),
+                               device="cpu"))
+    return jax_e, port
+
+
+def _assert_near_hits(a, b, tol=ENC_TOL):
+    """Scores rank by rank within ``tol``; a hit that beats the other
+    list's last score by more than 2 tol is in the other list too."""
+    assert len(a) == len(b)
+    for ha, hb in zip(a, b):
+        assert len(ha) == len(hb) > 0
+        np.testing.assert_allclose([h.score for h in ha],
+                                   [h.score for h in hb], rtol=0, atol=tol)
+        for x, y in ((ha, hb), (hb, ha)):
+            ids = {_key(h) for h in y}
+            for h in x:
+                if h.score > y[-1].score + 2 * tol:
+                    assert _key(h) in ids, (h, y)
+
+
+@pytest.mark.parametrize("encoder,mode", [("minilm", "exact"),
+                                          ("minilm", "ivf_flat"),
+                                          ("hybrid", "exact")])
+def test_minilm_engines_ingest_and_search_alike(encoder, mode, minilm_ckpt):
+    jax_e, port = _enc_engines(encoder, minilm_ckpt, mode=mode)
+    assert port.encoder_fingerprint() == jax_e.encoder_fingerprint() == (
+        "minilm-jax:dim64:mini.npz" if encoder == "minilm"
+        else "hybrid-hash-minilm:dim128:mini.npz:w0.35")
+    for e in (jax_e, port):
+        e.create_store(STORE)
+        _ingest(e, 0, 60)
+    assert port.store_stats(STORE) == jax_e.store_stats(STORE)
+    if mode == "ivf_flat":
+        assert port._store(STORE).segment.body is not None
+    # the stored vectors: the same chunks, embedded alike
+    jv, ji = jax_e._store(STORE).segment.live_rows()
+    pv, pi = port._store(STORE).segment.live_rows()
+    jv, pv = np.asarray(jv)[np.argsort(ji)], np.asarray(pv)[np.argsort(pi)]
+    assert np.array_equal(np.sort(ji), np.sort(pi))
+    assert (jv * pv).sum(axis=1).min() >= 0.9995
+    _assert_near_hits(_search_all(port), _search_all(jax_e))
+
+
+def test_minilm_data_dirs_load_across_without_mismatch(minilm_ckpt,
+                                                       tmp_path, caplog):
+    import logging
+    jdir, pdir = str(tmp_path / "jax"), str(tmp_path / "port")
+    jax_e, port = _enc_engines("hybrid", minilm_ckpt, jdir, pdir)
+    for e in (jax_e, port):
+        e.create_store(STORE)
+        _ingest(e, 0, 40)
+    caplog.set_level(logging.WARNING)
+    port_on_jax = Engine(EngineConfig(**_enc_cfg("hybrid", minilm_ckpt,
+                                                 jdir), device="cpu"))
+    jax_on_port, _ = _enc_engines("hybrid", minilm_ckpt, pdir)
+    assert port_on_jax.has_store(STORE) and jax_on_port.has_store(STORE)
+    assert not [r for r in caplog.records
+                if "mismatch" in r.getMessage()
+                or "embedded under" in r.getMessage()]
+    _assert_near_hits(_search_all(port_on_jax), _search_all(jax_e))
+    _assert_near_hits(_search_all(jax_on_port), _search_all(port))
+    # another hybrid weight is another embedding space: the port says so
+    caplog.clear()
+    Engine(EngineConfig(**dict(_enc_cfg("hybrid", minilm_ckpt, jdir),
+                               hybrid_w=0.5), device="cpu"))
+    assert [r for r in caplog.records if "embedded under" in r.getMessage()]
+
+
+def test_minilm_engine_checks_and_window_warning(minilm_ckpt, caplog):
+    import logging
+    with pytest.raises(ValueError, match="hidden=64"):
+        Engine(EngineConfig(encoder="minilm", encoder_ckpt=minilm_ckpt,
+                            dim=128, device="cpu"))
+    with pytest.raises(ValueError, match="too small"):
+        Engine(EngineConfig(encoder="hybrid", encoder_ckpt=minilm_ckpt,
+                            dim=64, device="cpu"))
+    caplog.set_level(logging.WARNING)
+    Engine(EngineConfig(**_enc_cfg("minilm", minilm_ckpt), device="cpu"))
+    assert "chunk_exceeds_encoder_window" not in caplog.text
+    e = Engine(EngineConfig(encoder="minilm", encoder_ckpt=minilm_ckpt,
+                            dim=64, chunk_tokens=200, device="cpu"))
+    assert "chunk_exceeds_encoder_window" in caplog.text
+    assert e.encoder.cfg.max_len == 64 and e.encoder.device.type == "cpu"
+    # no checkpoint: a random MiniLM of the default architecture
+    e = Engine(EngineConfig(encoder="minilm", dim=384, chunk_tokens=60,
+                            device="cpu"))
+    assert e.encoder.cfg.layers == 6 and e.encoder_fingerprint() == \
+        "minilm-jax:dim384"
+
+
+def test_engine_main_reads_encoder_variables(minilm_ckpt):
+    cfg, _, _ = config_from_env({
+        "RAGTPU_ENGINE_PLATFORM": "cpu", "RAGTPU_ENGINE_ENCODER": "hybrid",
+        "RAGTPU_ENGINE_ENCODER_CKPT": minilm_ckpt,
+        "RAGTPU_ENGINE_HYBRID_W": "0.5", "RAGTPU_ENGINE_DIM": "128"})
+    assert (cfg.encoder, cfg.encoder_ckpt, cfg.hybrid_w, cfg.dim) == (
+        "hybrid", minilm_ckpt, 0.5, 128)
+    cfg, _, _ = config_from_env({"RAGTPU_ENGINE_PLATFORM": "cpu"})
+    assert (cfg.encoder, cfg.encoder_ckpt, cfg.hybrid_w) == (
+        "hash", None, 0.35)
