@@ -11,7 +11,7 @@ Run from the repository root on a machine with one CUDA card::
 Phases (each one fails the run: non-zero exit, no result line):
 
 1. Card and build: the card's name and power limit, torch/CUDA versions,
-   the build of the five kernels from ``rag_foundation_tpu_torch/csrc``
+   the build of every kernel library from ``rag_foundation_tpu_torch/csrc``
    (nvcc, sm_90a, the compilers started together).
 2. Each kernel against its plain PyTorch version on the card at a small
    size: the flat list scan (int8 exact, f32/bf16 within a stated
@@ -81,8 +81,29 @@ Phases (each one fails the run: non-zero exit, no result line):
     shape, with chunks/s, and the kernel's time there beside its bound,
     its plain version and ``scaled_dot_product_attention`` (timed only).
 
+14. The attention backward kernels (``flash_attention_bwd_dkv``,
+    ``flash_attention_bwd_dq``) against their plain versions on the card,
+    bf16 and f32, H=12, D=32, S in {16, 32, 100, 128, 512} and one D=64
+    case, with pads, an all-pad row and a row of one token; the forward
+    kernel's ``lse`` against a masked logsumexp; ``FlashAttention``'s
+    gradients against autograd of the plain forward.
+15. Encoder training at full width: a corpus from the recipe's own
+    ``scripts/build_text_corpus.py`` (``--corpus-passages``), then the
+    port's trainer (``tools.train_encoder.train_ict``, ICT mode: batch 256,
+    q_len 32, d_len 128, symmetric InfoNCE at temperature 0.05, adamw lr
+    3e-4 with warmup and cosine decay, clip 1.0) for ``--train-steps``
+    steps, the three attention launch counters zeroed just before and read
+    just after, a finite and falling loss, ms/step, pairs/s and held-out
+    recall beside the hash encoder; the saved checkpoint served by an
+    ``Engine`` through ``encoder_ckpt``; one step's gradients with the
+    kernels against the plain attention (worst cosine a leaf); a few steps
+    at d_len 512 with peak device memory; the two backward kernels timed on
+    the steps' own layer-0 inputs (d side, S=128 and S=512) beside their
+    plain versions, ``scaled_dot_product_attention``'s backward and their
+    bounds.
+
 ``--long-docs`` sets the number of long documents of phase 13. The line
-before last is the kernels' JSON; the last line is
+before last is the kernels' JSON (eight entries); the last line is
 ``{"ok": true, "device": {...}}``. The script imports neither JAX nor the
 JAX package.
 """
@@ -126,6 +147,31 @@ BF16_LUT_TOL = 3e-3
 ATTN_TOL = {"bf16": 3 * 2 ** -9, "f32": 1e-5}
 EMBED_COS_MIN = 0.999  # stored embeddings vs the plain attention path
 LONG_BATCH = 256       # chunks an encode: the ingest pipeline's batch
+# the attention backward kernels against their plain versions on the same
+# lse and di: each output is a sum of products a.b (p.dO for dV, ds.q for
+# dK, ds.k for dQ). The bf16 kernels round each p and ds to bf16 before
+# the product (2^-9 relative a term) and the output to bf16 (2^-9); the
+# plain version rounds only its output. ds = p (dO.v - di) * scale
+# cancels, so its f32 error is relative to |a| = p (sum|dO||v| + |di|) *
+# scale, not to |ds|: an element differs by at most 2^-8 * (sum|a||b| +
+# |plain|). f32: exp2 against exp, sums in another order, 1e-5 of the
+# same
+ATTN_BWD_TOL = {"bf16": 2 ** -8, "f32": 1e-5}
+# FlashAttention's gradients against autograd of the plain forward, which
+# keeps o and the weights in f32: in bf16 three roundings of 2^-9 a term
+# (P for P.V in the forward, which moves o and so di; P and dS in the
+# backward); relative norm error of each gradient. f32: 1e-5
+APPLY_TOL = {"bf16": 2 ** -6, "f32": 1e-5}
+# the forward kernel's lse against a masked logsumexp: scores from the same
+# exact bf16 products summed in another order, exp2/log2 in f32
+LSE_TOL = 1e-4
+TRAIN_BATCH = 256      # the production recipe's batch
+# one training step's gradients, kernel path vs plain attention, each leaf:
+# the two paths round bf16 activations at other places (the kernels round
+# the attention weights, P and dS, to bf16; the plain path keeps them in
+# f32), a relative 2^-9 a rounding through 6 layers and the loss's
+# 1/temperature = 20; a kernel fault (a tile, a mask) turns whole gradients
+GRAD_COS_MIN = 0.99
 
 _SYL = ("ka", "lo", "mi", "ne", "ru", "ta", "vo", "zu", "pe", "shi", "dra",
         "gon", "bel", "tor", "qua", "xen", "fli", "mur", "sol", "yat")
@@ -1397,6 +1443,462 @@ def encoder_phases(args, card, rng, sampled, mods) -> dict:
             "shape": {"B": b, "H": h, "S": s, "D": d, **c}}
 
 
+def bwd_check(torch, got, want, bound, kind, what) -> float:
+    """Max |kernel - plain| of a backward output; fails beyond
+    ``ATTN_BWD_TOL[kind] * (bound + |plain|)`` in any element (``bound``
+    is sum |a||b| of the output's products)."""
+    if got.dtype != want.dtype or not bool(torch.isfinite(got).all()):
+        fail(f"{what}: dtype {got.dtype} or non-finite output")
+    diff = (got.float() - want.float()).abs()
+    excess = diff - ATTN_BWD_TOL[kind] * (bound + want.float().abs())
+    if float(excess.max()) > 0.0:
+        fail(f"{what}: |kernel - plain| beyond the tolerance by "
+             f"{float(excess.max())}")
+    return float(diff.max())
+
+
+def bwd_bounds(torch, fa, q, k, v, sq, skv, lse, do, di, scale):
+    """sum |a||b| of each output's products, with ds's magnitude before
+    its cancellation (see ATTN_BWD_TOL): (dq, dk, dv)."""
+    p, _ = fa.backward_terms_reference(q, k, v, sq, skv, lse, do, di, scale)
+    dp = torch.einsum("bhqd,bhkd->bhqk", do.float().abs(), v.float().abs())
+    ds = p * (dp + di.abs()[..., None]) * scale
+    del dp
+    return (torch.einsum("bhqk,bhkd->bhqd", ds, k.float().abs()),
+            torch.einsum("bhqk,bhqd->bhkd", ds, q.float().abs()),
+            torch.einsum("bhqk,bhqd->bhkd", p, do.float().abs()))
+
+
+def check_bwd_kernels(torch, fa, q, k, v, sq, skv, lse, do, di, scale, kind,
+                      what) -> tuple[float, float]:
+    """Both backward kernels against their plain versions on the same
+    inputs: (max_abs_err of dK/dV, of dQ)."""
+    dk, dv = fa.flash_attention_bwd_dkv(q, k, v, sq, skv, lse, do, di, scale)
+    dq = fa.flash_attention_bwd_dq(q, k, v, sq, skv, lse, do, di, scale)
+    torch.cuda.synchronize()
+    rk, rv = fa.flash_attention_bwd_dkv_reference(q, k, v, sq, skv, lse, do,
+                                                  di, scale)
+    rq = fa.flash_attention_bwd_dq_reference(q, k, v, sq, skv, lse, do, di,
+                                             scale)
+    bq, bk, bv = bwd_bounds(torch, fa, q, k, v, sq, skv, lse, do, di, scale)
+    err_kv = max(bwd_check(torch, dk, rk, bk, kind, f"{what} dK"),
+                 bwd_check(torch, dv, rv, bv, kind, f"{what} dV"))
+    err_q = bwd_check(torch, dq, rq, bq, kind, f"{what} dQ")
+    return err_kv, err_q
+
+
+def phase_small_attention_bwd(fa, torch):
+    """Phase 14: the backward kernels against their plain versions, the
+    forward's lse against a masked logsumexp, and FlashAttention's
+    gradients against autograd of the plain forward, on the card."""
+    g = torch.Generator(device="cuda").manual_seed(14)
+    for dtype, kind in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
+        report = []
+        for b, h, s, d in ((8, 12, 16, 32), (8, 12, 32, 32),
+                           (8, 12, 100, 32), (8, 12, 128, 32),
+                           (24, 12, 512, 32), (4, 4, 200, 64)):
+            q, k, v, seg = attention_inputs(torch, g, b, h, s, d, dtype)
+            do = torch.randn((b, h, s, d), generator=g,
+                             device="cuda").to(dtype)
+            scale = d ** -0.5
+            out, lse = fa.flash_attention_forward(q, k, v, seg, seg, scale,
+                                                  with_lse=True)
+            torch.cuda.synchronize()
+            logits = torch.einsum("bhqd,bhkd->bhqk", q.float(),
+                                  k.float()) * scale
+            same = (seg[:, :, None] == seg[:, None, :])[:, None]
+            want = torch.logsumexp(logits.masked_fill(~same, -float("inf")),
+                                   dim=-1)
+            lse_err = float((lse - want).abs().max())
+            if not bool(torch.isfinite(lse).all()) or lse_err > LSE_TOL:
+                fail(f"flash_attention lse {kind} S={s}: max error "
+                     f"{lse_err} > {LSE_TOL}")
+            del logits, same, want
+            # the backward kernels on the plain forward's lse and di
+            ref_out, ref_lse = fa.flash_attention_reference(
+                q, k, v, seg, seg, scale, with_lse=True)
+            di = (ref_out.float() * do.float()).sum(dim=-1)
+            err_kv, err_q = check_bwd_kernels(
+                torch, fa, q, k, v, seg, seg, ref_lse, do, di, scale, kind,
+                f"flash_attention_bwd {kind} S={s} D={d}")
+            # FlashAttention (all three kernels) against autograd of the
+            # plain forward
+            grads = []
+            for fn in (fa.flash_attention, fa.flash_attention_reference):
+                t = [x.clone().requires_grad_(True) for x in (q, k, v)]
+                fn(*t, seg, seg, scale).backward(do)
+                grads.append([x.grad.float() for x in t])
+            rel = max(float((a - r).norm() / r.norm())
+                      for a, r in zip(*grads))
+            if rel > APPLY_TOL[kind]:
+                fail(f"FlashAttention {kind} S={s}: gradient relative norm "
+                     f"error {rel} > {APPLY_TOL[kind]}")
+            report.append(f"S={s} B={b} H={h} D={d}: lse {lse_err:.3g}, "
+                          f"dK/dV {err_kv:.3g}, dQ {err_q:.3g}, autograd "
+                          f"rel {rel:.3g}")
+            del q, k, v, seg, do, out, lse, ref_out, ref_lse, di, grads
+        log(f"kernel check flash_attention_bwd_dkv/_dq {kind} (random "
+            f"lengths, an all-pad row, a one-token row; max_abs_err, "
+            f"within {ATTN_BWD_TOL[kind]:.3g} x (sum|a||b| + |plain|)), "
+            f"lse vs logsumexp (tol {LSE_TOL}), FlashAttention vs autograd "
+            f"of the plain forward (tol {APPLY_TOL[kind]:.3g}): "
+            + "; ".join(report))
+    torch.cuda.empty_cache()
+
+
+def attention_bwd_bound(seg_q, seg_kv, h, d, esize, outputs, ops_per_pair
+                        ) -> tuple[float, str, dict]:
+    """(ms, "bytes" | "operations", counts) of one backward kernel: q, k, v,
+    dO read and ``outputs`` gradients written once (``esize`` bytes an
+    element), lse and di read once (f32), the segment ids read once;
+    ``ops_per_pair * d`` operations a head for every (query, key) pair of
+    one segment at the bf16 peak."""
+    b, s = seg_q.shape
+    pairs = int((seg_q[:, :, None] == seg_kv[:, None, :]).sum())
+    nbytes = (4 + outputs) * b * h * s * d * esize + 2 * b * h * s * 4 \
+        + 2 * b * s * 4
+    ops = float(ops_per_pair) * h * d * pairs
+    t_bytes, t_ops = nbytes / HBM_BYTES_S, ops / PEAK_OPS_S["bf16"]
+    return max(t_bytes, t_ops) * 1e3, \
+        "bytes" if t_bytes >= t_ops else "operations", \
+        {"pairs": pairs, "dense_pairs": b * s * s, "bytes": nbytes,
+         "operations": ops}
+
+
+def time_attention_bwd(torch, F, fa, cap, card, what) -> dict:
+    """Both backward kernels on captured layer-0 inputs ``cap`` = (q, k, v,
+    seg_q, seg_kv, scale, dO): checked against their plain versions, timed
+    beside them, beside scaled_dot_product_attention's backward with the
+    boolean mask (timed only) and beside their bounds."""
+    q, k, v, sq, skv, scale, do = cap
+    b, h, s, d = q.shape
+    out, lse = fa.flash_attention_forward(q, k, v, sq, skv, scale,
+                                          with_lse=True)
+    di = (out.float() * do.float()).sum(dim=-1)
+    err_kv, err_q = check_bwd_kernels(torch, fa, q, k, v, sq, skv, lse, do,
+                                      di, scale, "bf16", what)
+    args = (q, k, v, sq, skv, lse, do, di, scale)
+    res = {}
+    mask = (sq[:, :, None] == skv[:, None, :])[:, None]
+    ql, kl, vl = (x.detach().clone().requires_grad_(True) for x in (q, k, v))
+    sdpa = F.scaled_dot_product_attention(ql, kl, vl, attn_mask=mask,
+                                          scale=scale)
+    for name, kern, plain, wrt, outputs, ops, err in (
+            ("flash_attention_bwd_dkv", fa.flash_attention_bwd_dkv,
+             fa.flash_attention_bwd_dkv_reference, (kl, vl), 2, 8, err_kv),
+            ("flash_attention_bwd_dq", fa.flash_attention_bwd_dq,
+             fa.flash_attention_bwd_dq_reference, (ql,), 1, 6, err_q)):
+        ms = cuda_ms(lambda: kern(*args), reps=20)
+        plain_ms = cuda_ms(lambda: plain(*args), reps=2, warmup=1)
+        library_ms = cuda_ms(lambda: torch.autograd.grad(
+            sdpa, wrt, do, retain_graph=True), reps=20)
+        bound_ms, bound_by, c = attention_bwd_bound(sq, skv, h, d, 2,
+                                                    outputs, ops)
+        log(f"{name} bf16 {what}, B={b} H={h} S={s} D={d}, {c['pairs']} of "
+            f"{c['dense_pairs']} pairs share a segment: max_abs_err={err:.3g}"
+            f"; kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, "
+            f"scaled_dot_product_attention backward (bool mask, grad of "
+            f"{'k, v' if outputs == 2 else 'q'}) {library_ms:.4f} ms, bound "
+            f"{bound_ms:.4f} ms ({bound_by}; dense S^2 operations "
+            f"{ops * b * h * s * s * d / PEAK_OPS_S['bf16'] * 1e3:.4f} ms) "
+            f"| {card}")
+        res[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                     "bound_ms": bound_ms, "bound_by": bound_by,
+                     "library_ms": library_ms,
+                     "shape": {"B": b, "H": h, "S": s, "D": d, **c}}
+    del out, lse, di, args, mask, ql, kl, vl, sdpa
+    return res
+
+
+def capture_layer0(fa, torch, calls: int):
+    """An attention function that runs flash_attention and keeps the
+    inputs and the output's gradient of its ``calls``-th call (0-based):
+    (q, k, v, seg_q, seg_kv, scale, dO) in ``.captured``."""
+    seen = [0]
+
+    def attention(q, k, v, sq, skv, scale):
+        out = fa.flash_attention(q, k, v, sq, skv, scale)
+        if seen[0] == calls:
+            keep = [x.detach().clone() for x in (q, k, v, sq, skv)]
+
+            def grab(grad):
+                attention.captured = (*keep, scale, grad.contiguous().clone())
+
+            out.register_hook(grab)
+        seen[0] += 1
+        return out
+
+    attention.captured = None
+    return attention
+
+
+# kernel-name fragments of the training step's device time, in the order
+# they are matched (the rest is elementwise passes and reductions)
+STEP_PARTS = (("attention kernels", ("flash_fwd", "flash_bwd")),
+              ("matmul (cuBLAS)", ("gemm", "xmma", "nvjet", "cutlass")),
+              ("layernorm", ("layer_norm", "gammabeta")),
+              ("embedding", ("embedding", "index")),
+              ("optimizer (foreach AdamW)", ("multi_tensor", "adam")))
+
+
+def profile_train_steps(torch, step, params, qb, db, steps, card) -> None:
+    """Device time of ``steps`` training steps by kernel, from
+    torch.profiler: the parts of STEP_PARTS, the top kernels and the
+    device's busy share of the window (kernel time over wall time; the
+    profiler's own cost is in the wall time)."""
+    from torch.profiler import ProfilerActivity, profile
+    step(params, qb, db)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            step(params, qb, db)
+        torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    # kernels only: a user annotation ("Optimizer.step#AdamW.step") also
+    # has device time, that of the kernels under it
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and e.self_device_time_total > 0
+               and not getattr(e, "is_user_annotation", False)]
+    total = sum(e.self_device_time_total for e in kernels) / 1e3
+    if total == 0:
+        log(f"training step profile: the profiler saw no device time (not "
+            f"measured) | {card}")
+        return
+    parts = {name: 0.0 for name, _ in STEP_PARTS}
+    parts["other (elementwise, reductions)"] = 0.0
+    for e in kernels:
+        key = e.key.lower()
+        name = next((n for n, frags in STEP_PARTS
+                     if any(f in key for f in frags)),
+                    "other (elementwise, reductions)")
+        parts[name] += e.self_device_time_total / 1e3
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
+    log(f"training step profile ({steps} steps under torch.profiler, batch "
+        f"{qb.shape[0]}, q_len {qb.shape[1]}, d_len {db.shape[1]}): device "
+        f"time {total / steps:.2f} ms a step, wall {wall_ms / steps:.2f} ms "
+        f"a step, device busy {total / wall_ms:.1%}; "
+        + ", ".join(f"{n} {t / steps:.2f} ms ({t / total:.1%})"
+                    for n, t in parts.items())
+        + "; top kernels: "
+        + "; ".join(f"{e.key[:60]} x{e.count // steps} "
+                    f"{e.self_device_time_total / 1e3 / steps:.3f} ms"
+                    for e in top) + f" | {card}")
+
+
+def train_phases(args, card, rng, sampled, mods) -> list[dict]:
+    """Phase 15: MiniLM-L6 training at full width through the port's
+    trainer (ICT on a corpus built by the recipe's own tool), serving from
+    the checkpoint it saved, a few steps at d_len 512, the kernel path's
+    gradients against the plain attention's, and the two backward kernels
+    timed on the step's own layer-0 inputs. Returns their two entries of
+    the ``kernels`` line."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from rag_foundation_tpu_torch.models import encoder as tenc
+    from rag_foundation_tpu_torch.models import optim
+    from rag_foundation_tpu_torch.models.tokenizer import Tokenizer
+    from rag_foundation_tpu_torch.ops import flash_attention as fa
+    from rag_foundation_tpu_torch.tools import train_encoder
+    Engine, EngineConfig = mods
+    tmp = tempfile.mkdtemp(prefix="ragtpu-chip-smoke-train-")
+    corpus = str(Path(tmp) / "corpus.jsonl")
+    t0 = time.perf_counter()
+    built = subprocess.run(
+        [sys.executable, str(ROOT / "scripts" / "build_text_corpus.py"),
+         "--out", corpus, "--max-passages", str(args.corpus_passages)],
+        capture_output=True, text=True, timeout=600)
+    if built.returncode != 0:
+        fail(f"build_text_corpus.py failed: {built.stderr[-2000:]}")
+    corpus_s = time.perf_counter() - t0
+    chunks = train_encoder.load_chunks(corpus)
+    log(f"corpus: scripts/build_text_corpus.py --max-passages "
+        f"{args.corpus_passages} in {corpus_s:.1f} s: "
+        f"{built.stderr.strip().splitlines()[-1]}, {len(chunks)} chunks of "
+        f"25-100 words")
+
+    # -- the trainer, ICT mode, the recipe's shapes --------------------------
+    ckpt = str(Path(tmp) / "minilm_ict_port.npz")
+    targs = train_encoder.parse_args([
+        "--corpus", corpus, "--steps", str(args.train_steps), "--batch",
+        str(TRAIN_BATCH), "--q-len", "32", "--d-len", "128", "--lr", "3e-4",
+        "--temperature", "0.05", "--seed", str(args.seed), "--out", ckpt,
+        "--device", "cuda"])
+    counters = (fa.LAUNCHES, fa.BWD_DKV_LAUNCHES, fa.BWD_DQ_LAUNCHES)
+    for c in counters:
+        c.reset()                                 # counts: this path only
+    torch.cuda.synchronize()
+    run = train_encoder.train_ict(targs, log=lambda m: log(f"  {m}"))
+    torch.cuda.synchronize()
+    launches = [c.count for c in counters]        # read just after the path
+    losses, summary = run["losses"], run["summary"]
+    steps, secs = targs.steps, run["train_s"]
+    tenth = max(1, steps // 10)
+    first, last = float(losses[:tenth].mean()), float(losses[-tenth:].mean())
+    log(f"train_encoder ICT (MiniLM-L6: hidden 384, 6 layers, 12 heads, "
+        f"ffn 1536, bf16; batch {TRAIN_BATCH}, q_len 32, d_len 128, "
+        f"symmetric InfoNCE t=0.05, adamw lr 3e-4 warmup-cosine, clip 1.0, "
+        f"seed {args.seed}): {steps} steps in {secs:.2f} s = "
+        f"{secs / steps * 1e3:.2f} ms/step = {steps * TRAIN_BATCH / secs:,.0f}"
+        f" pairs/s (batch draws, host loop and logging included); loss "
+        f"{float(losses[0]):.4f} -> {float(losses[-1]):.4f}, mean of the "
+        f"first tenth {first:.4f}, of the last {last:.4f}; launches on the "
+        f"training path: flash_attention {launches[0]}, "
+        f"flash_attention_bwd_dkv {launches[1]}, flash_attention_bwd_dq "
+        f"{launches[2]} | {card}")
+    if not np.isfinite(losses).all():
+        fail(f"non-finite loss at step {int(np.argmin(np.isfinite(losses)))}")
+    if not last < first:
+        fail(f"the loss did not fall: first tenth {first}, last {last}")
+    if min(launches) == 0:
+        fail(f"the training path launched an attention kernel no time: "
+             f"{launches}")
+    log(f"held-out recall (eval_n {summary['eval_n']} chunks, keyword "
+        f"queries; printed, no floor): minilm(ICT) recall@1 "
+        f"{summary['minilm']['recall@1']:.4f} recall@10 "
+        f"{summary['minilm']['recall@10']:.4f}; hash-fnv-v2 recall@1 "
+        f"{summary['hash']['recall@1']:.4f} recall@10 "
+        f"{summary['hash']['recall@10']:.4f} | {card}")
+    trained, cfg = run["encoder"].params, run["encoder"].cfg
+    del run
+
+    # -- train -> checkpoint -> serve ------------------------------------------
+    engine = Engine(EngineConfig(dim=384, encoder="minilm",
+                                 encoder_ckpt=ckpt, chunk_tokens=76,
+                                 chunk_overlap=16, device="cuda"))
+    loaded = tenc._leaves(engine.encoder.params)
+    for key, t in tenc._leaves(trained).items():
+        if not torch.equal(loaded[key], t.detach()):
+            fail(f"the served encoder's {key} differs from the trained one")
+    key = "stores/chip-smoke-trained"
+    engine.create_store(key)
+    n0 = fa.LAUNCHES.count
+    t0 = time.perf_counter()
+    for i in range(args.docs):
+        engine.ingest_document(key, f"doc-{i}", f"project-{i}.txt",
+                               fact_doc(i))
+    ingest_s = time.perf_counter() - t0
+    right = 0
+    for i in sampled:
+        hits = engine.search([key], fact_query(i), k=10)
+        if len(hits) != 10 or not all(np.isfinite(h.score) for h in hits):
+            fail(f"trained encoder: search for project {i} gave {hits}")
+        right += hits[0].doc_id == f"doc-{i}"
+    log(f"served from the trained checkpoint (Engine encoder_ckpt, every "
+        f"parameter equal to the trained one): ingested {args.docs} fact "
+        f"documents in {ingest_s:.2f} s, {len(sampled)} searches of 10 hits;"
+        f" right top hit {right}/{len(sampled)} (printed: the corpus never "
+        f"saw these names); flash_attention launches "
+        f"{fa.LAUNCHES.count - n0} | {card}")
+    del engine, loaded
+
+    # -- one step's gradients: kernel path vs plain attention -----------------
+    tok = Tokenizer(vocab_size=cfg.vocab_size)
+    qrng = np.random.default_rng(args.seed + 3)
+    batch = chunks[:TRAIN_BATCH]
+    qb = torch.as_tensor(tok.encode_batch(
+        [train_encoder.keyword_query(qrng, c) for c in batch], 32),
+        device="cuda")
+    db = torch.as_tensor(tok.encode_batch(batch, 128), device="cuda")
+    leaves = list(tenc._leaves(trained).values())
+    grads = {}
+    cap128 = capture_layer0(fa, torch, cfg.layers)   # the d side's layer 0
+    for name, attn in (("kernel", cap128), ("plain",
+                                             fa.flash_attention_reference)):
+        loss = tenc.contrastive_loss(trained, qb, db, cfg, 0.05, True,
+                                     attention=attn)
+        grads[name] = torch.autograd.grad(loss, leaves)
+    worst_cos, worst_rel = 1.0, 0.0
+    for a, r in zip(grads["kernel"], grads["plain"]):
+        a, r = a.double().ravel(), r.double().ravel()
+        if not bool(torch.isfinite(a).all()):
+            fail("kernel-path gradient not finite")
+        if float(r.norm()) == 0.0:
+            continue
+        worst_cos = min(worst_cos, float(a @ r / (a.norm() * r.norm())))
+        worst_rel = max(worst_rel, float((a - r).norm() / r.norm()))
+    log(f"one step's gradients (batch {TRAIN_BATCH}, q_len 32, d_len 128), "
+        f"attention=flash_attention vs flash_attention_reference, "
+        f"{len(leaves)} leaves: worst cosine {worst_cos:.6f} (floor "
+        f"{GRAD_COS_MIN}), worst relative norm error {worst_rel:.4g} | "
+        f"{card}")
+    if worst_cos < GRAD_COS_MIN:
+        fail(f"gradient cosine {worst_cos} < {GRAD_COS_MIN}")
+    del grads
+    profile_train_steps(
+        torch, tenc.make_train_step(cfg, optim.adamw(3e-4), max_grad_norm=1.0,
+                                    temperature=0.05, symmetric=True),
+        trained, qb, db, 3, card)
+
+    # -- d_len 512: the shape at which JAX's TPU path takes the kernels -------
+    cfg512 = tenc.EncoderConfig(max_len=512)
+    params512 = tenc.init_params(
+        torch.Generator(device="cuda").manual_seed(args.seed), cfg512)
+    drng = np.random.default_rng(args.seed + 15)
+    docs = [long_doc(drng, 380) for _ in range(TRAIN_BATCH)]
+    d512 = torch.as_tensor(tok.encode_batch(docs, 512), device="cuda")
+    q512 = torch.as_tensor(tok.encode_batch(
+        [train_encoder.keyword_query(drng, t) for t in docs], 32),
+        device="cuda")
+    lens = (d512 != 0).sum(dim=1)
+    step = tenc.make_train_step(cfg512, optim.adamw(3e-4), max_grad_norm=1.0,
+                                temperature=0.05, symmetric=True)
+    step(params512, q512, d512)                  # warm-up: allocator, build
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    n512 = 4
+    t0 = time.perf_counter()
+    l512 = [step(params512, q512, d512) for _ in range(n512)]
+    torch.cuda.synchronize()
+    ms512 = (time.perf_counter() - t0) / n512 * 1e3
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    if not all(bool(torch.isfinite(x)) for x in l512):
+        fail("non-finite loss at d_len 512")
+    log(f"train step at d_len 512 (seeded MiniLM-L6 max_len 512, batch "
+        f"{TRAIN_BATCH} long documents of {int(lens.min())}-"
+        f"{int(lens.max())} ids, q_len 32): {ms512:.2f} ms/step = "
+        f"{TRAIN_BATCH / ms512 * 1e3:,.0f} pairs/s; loss "
+        f"{float(l512[0]):.4f} -> {float(l512[-1]):.4f}; peak device memory "
+        f"{peak:.2f} GiB | {card}")
+
+    # -- the backward kernels on the step's own layer-0 inputs ----------------
+    cap512 = capture_layer0(fa, torch, cfg512.layers)
+    loss = tenc.contrastive_loss(params512, q512, d512, cfg512, 0.05, True,
+                                 attention=cap512)
+    torch.autograd.grad(loss, list(tenc._leaves(params512).values()))
+    del loss, params512, step
+    at128 = time_attention_bwd(torch, F, fa, cap128.captured, card,
+                               "training step, layer 0 of the d side")
+    at512 = time_attention_bwd(torch, F, fa, cap512.captured, card,
+                               "d_len 512 step, layer 0 of the d side")
+    shutil.rmtree(tmp, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    entries = []
+    for name, line, launched in (
+            ("flash_attention_bwd_dkv", 1121, launches[1]),
+            ("flash_attention_bwd_dq", 1456, launches[2])):
+        main, big = at128[name], at512[name]
+        entries.append({
+            "name": name, "route": "cuda",
+            "source": "rag_foundation_tpu_torch/csrc/flash_attention_bwd.cu",
+            "replaces": f"jax/experimental/pallas/ops/tpu/flash_attention.py"
+                        f":{line} (reached from rag_foundation_tpu/models/"
+                        f"encoder.py:187 make_train_step)",
+            "launches": launched, "max_abs_err": main["max_abs_err"],
+            "ms": main["ms"], "plain_ms": main["plain_ms"],
+            "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+            "library_ms": main["library_ms"], "dtype": "bf16",
+            "shape": main["shape"],
+            "at_s512": {k: big[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                            "bound_ms", "bound_by",
+                                            "library_ms", "shape")}})
+    return entries
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rows", type=int, default=10_000_000,
@@ -1410,6 +1912,10 @@ def main() -> None:
                     help="real documents ingested before padding")
     ap.add_argument("--long-docs", type=int, default=8,
                     help="long documents (257 chunks each) of phase 13")
+    ap.add_argument("--corpus-passages", type=int, default=6000,
+                    help="passages of phase 15's ICT corpus")
+    ap.add_argument("--train-steps", type=int, default=300,
+                    help="steps of phase 15's training run")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
 
@@ -1443,7 +1949,8 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     kernel_names = ["ivf_list_scan", "pq_list_scan", "gather_rescore_int8",
-                    "block_topk", "fused_topk", "flash_attention"]
+                    "block_topk", "fused_topk", "flash_attention",
+                    "flash_attention_bwd"]
     report = cuda_lib.build(kernel_names)
     for name, r in report.items():
         log(f"build {name}: {r['seconds']:.2f} s")
@@ -1704,6 +2211,11 @@ def main() -> None:
     attn_kernel = encoder_phases(
         args, card, rng, sampled,
         (Engine, EngineConfig, EngineRpcServer, RemoteEngine))
+
+    # -- phases 14-15: encoder training and the attention backward kernels ---
+    phase_small_attention_bwd(flash_attention, torch)
+    bwd_kernels = train_phases(args, card, rng, sampled,
+                               (Engine, EngineConfig))
     log(f"total {time.perf_counter() - t_start:.1f} s")
 
     kernels = {"kernels": [{
@@ -1721,7 +2233,7 @@ def main() -> None:
         "dtype": "int8",
         "shape": {"nlist": nlist, "qcap": qcap, "cap_len": cap_len, "d": d,
                   "p": p, **c},
-    }] + pq_kernels + exact_kernels + [attn_kernel]}
+    }] + pq_kernels + exact_kernels + [attn_kernel] + bwd_kernels}
     print(json.dumps(kernels), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

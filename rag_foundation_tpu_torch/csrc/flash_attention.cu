@@ -16,6 +16,16 @@
 //   [B, S] int32. The encoder gives 1 to a token and 0 to a pad, so a pad
 //   query attends to pad keys only; a row always has its own key.
 //
+// For training, the kernel also writes the log-sum-exp of each row when it
+// is given a non-null `lse` [B, H, S] f32 (a second instantiation, so the
+// code without it is the serve path's as before): the row's running max plus the
+// log of its running sum, in natural-log units, over the keys of the row's
+// own segment (-inf for a row with none, which the encoder never makes).
+// The library's forward saves the max `m` and the sum `l` apart
+// (`_flash_attention_fwd`, :234-251) and its backward recomputes
+// p = exp(s - m) / l; one lse carries the same information, as
+// p = exp(s - lse). With a null pointer nothing else changes.
+//
 // Bound on an H100 SXM at the encoder's long-chunk shape (B=256, H=12,
 // S=512, D=32, bf16), reckoned from the data sheet, not measured: bytes
 // 4*B*S*H*D*2 of q, k, v, out = 403 MB, 0.120 ms at 3.35 TB/s; operations
@@ -56,33 +66,20 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "mma_bf16.cuh"
+
 namespace {
+
+using flash::ld32;
+using flash::LN2;
+using flash::LOG2E;
+using flash::mma_16816;
+using flash::pack_bf16;
 
 constexpr int BQ = 64;          // query rows of a block
 constexpr int BKV = 64;         // keys of a staged tile
 constexpr int WARPS = BQ / 16;  // bf16: a warp owns 16 query rows
 constexpr int THREADS = WARPS * 32;
-constexpr float LOG2E = 1.4426950408889634f;
-
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// two f32 values as one bf16x2 register, the first in the low half
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// d += a . b, a 16x16 bf16 (row), b 16x8 bf16 (col), d 16x8 f32
-__device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4],
-                                          uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
 
 __device__ __forceinline__ float group_max(float x) {   // over a quad
   x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
@@ -94,18 +91,21 @@ __device__ __forceinline__ float group_sum(float x) {
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
-// Fragment layouts of mma.m16n8k16 (PTX ISA), g = lane / 4, t = lane % 4:
-//   A regs: (row g, cols 2t..2t+1), (g+8, 2t..), (g, 2t+8..), (g+8, 2t+8..)
-//   B regs: (rows 2t..2t+1, col g), (rows 2t+8.., col g)
-//   C:      c0,c1 at (row g, cols 2t, 2t+1); c2,c3 at (row g+8, same cols)
-template <int D>
+// natural-log log-sum-exp of a row from its base-2 running max and sum; a
+// row with no key of its segment (max -inf, sum 0) gets -inf
+__device__ __forceinline__ float row_lse(float m2, float l) {
+  return m2 == -INFINITY ? -INFINITY : (m2 + log2f(l)) * LN2;
+}
+
+// (fragment layouts of mma.m16n8k16: mma_bf16.cuh)
+template <int D, bool LSE>
 __global__ void __launch_bounds__(THREADS)
 flash_fwd_bf16(const __nv_bfloat16* __restrict__ q,
                const __nv_bfloat16* __restrict__ k,
                const __nv_bfloat16* __restrict__ v,
                const int* __restrict__ seg_q, const int* __restrict__ seg_kv,
-               __nv_bfloat16* __restrict__ o, int H, int S, int q_tiles,
-               float scale_log2) {
+               __nv_bfloat16* __restrict__ o, float* __restrict__ lse, int H,
+               int S, int q_tiles, float scale_log2) {
   static_assert(D % 16 == 0, "head dim must be a multiple of 16");
   constexpr int KLD = D + 8;       // K tile stride (bf16): conflict-free B loads
   constexpr int VLD = BKV + 8;     // transposed V tile stride
@@ -243,6 +243,10 @@ flash_fwd_bf16(const __nv_bfloat16* __restrict__ q,
   l1 = group_sum(l1);
   const float inv0 = l0 > 0.f ? 1.f / l0 : 0.f;
   const float inv1 = l1 > 0.f ? 1.f / l1 : 0.f;
+  if (LSE && t == 0) {
+    if (r0 < S) lse[(size_t)bh * S + r0] = row_lse(m0, l0);
+    if (r1 < S) lse[(size_t)bh * S + r1] = row_lse(m1, l1);
+  }
   __nv_bfloat16* oh = o + head;
 #pragma unroll
   for (int n = 0; n < NT_O; ++n) {
@@ -257,12 +261,13 @@ flash_fwd_bf16(const __nv_bfloat16* __restrict__ q,
 }
 
 // f32: one thread a query row, plain FMA, the same online softmax.
-template <int D>
+template <int D, bool LSE>
 __global__ void __launch_bounds__(BQ)
 flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
               const float* __restrict__ v, const int* __restrict__ seg_q,
-              const int* __restrict__ seg_kv, float* __restrict__ o, int H,
-              int S, int q_tiles, float scale_log2) {
+              const int* __restrict__ seg_kv, float* __restrict__ o,
+              float* __restrict__ lse, int H, int S, int q_tiles,
+              float scale_log2) {
   __shared__ float ks[BKV][D];
   __shared__ float vs[BKV][D];
   __shared__ int segk[BKV];
@@ -310,27 +315,43 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
     }
   }
   if (r >= S) return;
+  if (LSE) lse[bh * (size_t)S + r] = row_lse(m, l);
   const float inv = l > 0.f ? 1.f / l : 0.f;
 #pragma unroll
   for (int d = 0; d < D; ++d) o[head + (size_t)r * D + d] = acc[d] * inv;
 }
 
-template <int D>
-cudaError_t launch(int dtype, const void* q, const void* k, const void* v,
-                   const int* seg_q, const int* seg_kv, void* o, int H, int S,
-                   unsigned blocks, int q_tiles, float scale_log2,
-                   cudaStream_t s) {
+// LSE is a template flag: without it the kernels compile as they did
+// before the lse output existed (the serve path's code is unchanged)
+template <int D, bool LSE>
+void launch_as(int dtype, const void* q, const void* k, const void* v,
+               const int* seg_q, const int* seg_kv, void* o, float* lse,
+               int H, int S, unsigned blocks, int q_tiles, float scale_log2,
+               cudaStream_t s) {
   if (dtype == 2)
-    flash_fwd_bf16<D><<<blocks, THREADS, 0, s>>>(
+    flash_fwd_bf16<D, LSE><<<blocks, THREADS, 0, s>>>(
         static_cast<const __nv_bfloat16*>(q),
         static_cast<const __nv_bfloat16*>(k),
         static_cast<const __nv_bfloat16*>(v), seg_q, seg_kv,
-        static_cast<__nv_bfloat16*>(o), H, S, q_tiles, scale_log2);
+        static_cast<__nv_bfloat16*>(o), lse, H, S, q_tiles, scale_log2);
   else
-    flash_fwd_f32<D><<<blocks, BQ, 0, s>>>(
+    flash_fwd_f32<D, LSE><<<blocks, BQ, 0, s>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
         static_cast<const float*>(v), seg_q, seg_kv, static_cast<float*>(o),
-        H, S, q_tiles, scale_log2);
+        lse, H, S, q_tiles, scale_log2);
+}
+
+template <int D>
+cudaError_t launch(int dtype, const void* q, const void* k, const void* v,
+                   const int* seg_q, const int* seg_kv, void* o, float* lse,
+                   int H, int S, unsigned blocks, int q_tiles,
+                   float scale_log2, cudaStream_t s) {
+  if (lse != nullptr)
+    launch_as<D, true>(dtype, q, k, v, seg_q, seg_kv, o, lse, H, S, blocks,
+                       q_tiles, scale_log2, s);
+  else
+    launch_as<D, false>(dtype, q, k, v, seg_q, seg_kv, o, lse, H, S, blocks,
+                        q_tiles, scale_log2, s);
   return cudaGetLastError();
 }
 
@@ -338,12 +359,13 @@ cudaError_t launch(int dtype, const void* q, const void* k, const void* v,
 
 // C entry point (loaded with ctypes). dtype: 1 float32, 2 bfloat16.
 // q, k, v, o [B, H, S, D] contiguous on one device, D in {16, 32, 64};
-// seg_q, seg_kv [B, S] int32. Returns a cudaError_t (0 on success).
+// seg_q, seg_kv [B, S] int32; lse [B, H, S] f32 or null (then nothing
+// else changes). Returns a cudaError_t (0 on success).
 extern "C" int flash_attention_launch(int dtype, const void* q, const void* k,
                                       const void* v, const int* seg_q,
-                                      const int* seg_kv, void* o, int B,
-                                      int H, int S, int D, float sm_scale,
-                                      void* stream) {
+                                      const int* seg_kv, void* o, float* lse,
+                                      int B, int H, int S, int D,
+                                      float sm_scale, void* stream) {
   if ((dtype != 1 && dtype != 2) || B <= 0 || H <= 0 || S <= 0)
     return (int)cudaErrorInvalidValue;
   const int q_tiles = (S + BQ - 1) / BQ;
@@ -354,14 +376,14 @@ extern "C" int flash_attention_launch(int dtype, const void* q, const void* k,
   const unsigned nb = (unsigned)blocks;
   switch (D) {
     case 16:
-      return (int)launch<16>(dtype, q, k, v, seg_q, seg_kv, o, H, S, nb,
-                             q_tiles, scale_log2, s);
+      return (int)launch<16>(dtype, q, k, v, seg_q, seg_kv, o, lse, H, S,
+                             nb, q_tiles, scale_log2, s);
     case 32:
-      return (int)launch<32>(dtype, q, k, v, seg_q, seg_kv, o, H, S, nb,
-                             q_tiles, scale_log2, s);
+      return (int)launch<32>(dtype, q, k, v, seg_q, seg_kv, o, lse, H, S,
+                             nb, q_tiles, scale_log2, s);
     case 64:
-      return (int)launch<64>(dtype, q, k, v, seg_q, seg_kv, o, H, S, nb,
-                             q_tiles, scale_log2, s);
+      return (int)launch<64>(dtype, q, k, v, seg_q, seg_kv, o, lse, H, S,
+                             nb, q_tiles, scale_log2, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from rag_foundation_tpu_torch.ops.topk import exact_topk
+from rag_foundation_tpu_torch.utils.device import resolve_device
 
 _BLOCK = 1024  # capacity granularity
 
@@ -31,12 +32,12 @@ class VectorSegment:
     growth swaps the buffer a concurrent reader may be scanning).
     """
 
-    def __init__(self, dim: int, *, device: str | torch.device = "cpu",
+    def __init__(self, dim: int, *, device: str | torch.device = "cuda",
                  dtype: torch.dtype = torch.float32, capacity: int = _BLOCK):
         self._lock = threading.RLock()
         self.dim = dim
         self.dtype = dtype
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         capacity = _round_up(capacity, _BLOCK)
         self._buf = torch.zeros((capacity, dim), dtype=dtype,
                                 device=self.device)
@@ -170,7 +171,7 @@ class VectorSegment:
             }
 
     @classmethod
-    def from_state(cls, state: dict, *, device: str | torch.device = "cpu",
+    def from_state(cls, state: dict, *, device: str | torch.device = "cuda",
                    dtype: torch.dtype = torch.float32) -> "VectorSegment":
         seg = cls(int(state["dim"]), device=device, dtype=dtype,
                   capacity=max(_BLOCK, len(state["ids"])))

@@ -1,12 +1,12 @@
-"""MiniLM-class sentence encoder: the serve path of the JAX encoder.
+"""MiniLM-class sentence encoder: serving and contrastive training.
 
-Counterpart of ``rag_foundation_tpu/models/encoder.py`` (its config,
-parameters, forward pass, host-facing ``MiniLMEncoder`` and checkpoint
-functions; the contrastive training step is not ported yet). Parameters
-are a plain dict with the JAX tree's names and layouts (``tok_emb``,
-``pos_emb``, ``ln_f``, ``blocks[i]`` with ``qkv [h, 3h]`` etc.), so a
-JAX checkpoint loads as it is and ``params_from_jax`` carries a JAX
-parameter tree across.
+Counterpart of ``rag_foundation_tpu/models/encoder.py``: its config,
+parameters, forward pass, host-facing ``MiniLMEncoder``, checkpoint
+functions and the contrastive training step (``contrastive_loss``,
+``make_train_step``). Parameters are a plain dict with the JAX tree's
+names and layouts (``tok_emb``, ``pos_emb``, ``ln_f``, ``blocks[i]`` with
+``qkv [h, 3h]`` etc.), so a JAX checkpoint loads as it is and
+``params_from_jax`` carries a JAX parameter tree across.
 
 Numerics follow the JAX function: parameters and activations in the
 config's dtype (bf16 by default), layernorm statistics in f32 (eps 1e-6),
@@ -17,12 +17,19 @@ to the f32 product before one rounding; bf16 results may differ by a
 rounding of the product).
 
 Attention goes through ``ops.flash_attention.flash_attention`` at every
-sequence length: the hand-written kernel for CUDA tensors, the plain
-version (f32 softmax with the segment mask) for CPU tensors. Pad tokens
-get segment 0 and real tokens segment 1, as in the JAX flash path, so a
-real token never attends to a pad; a pad query attends to pads only,
-where JAX's einsum path lets it see the real tokens. Pad rows are never
-pooled, so the embeddings agree.
+sequence length: the hand-written kernels for CUDA tensors (forward, and
+under autograd the two backward kernels), the plain versions for CPU
+tensors. Pad tokens get segment 0 and real tokens segment 1, as in the
+JAX flash path, so a real token never attends to a pad; a pad query
+attends to pads only, where JAX's einsum path lets it see the real
+tokens. Pad rows are never pooled, so the embeddings and the gradients
+agree.
+
+Training differs from JAX in idiom only: gradients come from
+``loss.backward()`` through ``F.embedding``, the ``addmm`` dense layers,
+the f32 layernorms and ``FlashAttention``; the optimizer
+(``models/optim.py``) updates the parameter tensors in place and holds
+its state, where JAX threads a new tree and an ``opt_state``.
 """
 
 from __future__ import annotations
@@ -33,6 +40,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from rag_foundation_tpu_torch.models.optim import (OptimizerFactory,
+                                                   clip_by_global_norm_)
 from rag_foundation_tpu_torch.models.tokenizer import (PAD_ID,
                                                        TOKENIZER_VERSION,
                                                        Tokenizer)
@@ -126,13 +135,14 @@ def init_params(generator: torch.Generator, cfg: EncoderConfig) -> dict:
     return _tree(cfg, dense, const)
 
 
-def params_from_jax(tree: dict, device: str | torch.device = "cpu",
+def params_from_jax(tree: dict, device: str | torch.device = "cuda",
                     dtype: torch.dtype | None = None) -> dict:
     """The port's parameters from a JAX parameter tree given as numpy
     arrays (``jax.tree_util.tree_map(np.asarray, params)``; bf16 arrives
     as ml_dtypes bfloat16). ``dtype`` casts every weight but the
     layernorm parameters (f32, as in JAX); None keeps each array's
-    dtype."""
+    dtype. The card unless the caller asks for the CPU."""
+    device = resolve_device(device)
 
     def leaf(key, arr):
         arr = np.asarray(arr)
@@ -206,6 +216,60 @@ def encode_tokens(params: dict, ids: torch.Tensor, cfg: EncoderConfig,
     pooled = (x.float() * m).sum(dim=1) / m.sum(dim=1).clamp_min(1.0)
     norm = pooled.norm(dim=-1, keepdim=True)
     return pooled / norm.clamp_min(1e-9)
+
+
+# -- contrastive training step (in-batch negatives) --------------------------
+
+def contrastive_loss(params: dict, q_ids: torch.Tensor, d_ids: torch.Tensor,
+                     cfg: EncoderConfig, temperature: float = 0.05,
+                     symmetric: bool = False,
+                     attention: Attention = flash_attention) -> torch.Tensor:
+    """InfoNCE with in-batch negatives: align query i with doc i.
+    ``symmetric`` adds the doc->query direction. A 0-d f32 tensor."""
+    q = encode_tokens(params, q_ids, cfg, attention)
+    d = encode_tokens(params, d_ids, cfg, attention)
+    logits = (q @ d.T) / temperature
+    labels = torch.arange(q.shape[0], device=logits.device)
+    loss = F.cross_entropy(logits, labels)
+    if symmetric:
+        loss = 0.5 * (loss + F.cross_entropy(logits.T, labels))
+    return loss
+
+
+def make_train_step(cfg: EncoderConfig, optimizer: OptimizerFactory, *,
+                    max_grad_norm: float | None = None, **loss_kwargs):
+    """A ``(params, q_ids, d_ids) -> loss`` step that updates ``params`` in
+    place: gradients of ``contrastive_loss(..., **loss_kwargs)``, clipped
+    to ``max_grad_norm`` by ``clip_by_global_norm_`` when it is given
+    (optax's ``chain(clip_by_global_norm, ...)``), then one step of the
+    optimizer that ``optimizer`` builds over the leaves at the first call
+    and keeps (it holds the state JAX threads as ``opt_state``). The
+    optimizer updates each leaf in its own dtype: JAX's ``p +
+    u.astype(p.dtype)``. Returns the loss, detached, on the device (no
+    host sync)."""
+    state: dict = {}
+
+    def step(params: dict, q_ids: torch.Tensor,
+             d_ids: torch.Tensor) -> torch.Tensor:
+        leaves = list(_leaves(params).values())
+        if "opt" not in state:
+            for p in leaves:
+                p.requires_grad_(True)
+            state["ids"] = [id(p) for p in leaves]
+            state["opt"] = optimizer(leaves)
+        elif state["ids"] != [id(p) for p in leaves]:
+            raise ValueError("a train step updates the parameters it was "
+                             "first called with; make a new step for others")
+        opt = state["opt"]
+        opt.zero_grad(set_to_none=True)
+        loss = contrastive_loss(params, q_ids, d_ids, cfg, **loss_kwargs)
+        loss.backward()
+        if max_grad_norm is not None:
+            clip_by_global_norm_(leaves, max_grad_norm)
+        opt.step()
+        return loss.detach()
+
+    return step
 
 
 # -- host-facing encoder ------------------------------------------------------
@@ -292,10 +356,12 @@ def checkpoint_config(path: str, **overrides) -> EncoderConfig | None:
 
 
 def load_params(path: str, cfg: EncoderConfig,
-                device: str | torch.device = "cpu") -> dict:
+                device: str | torch.device = "cuda") -> dict:
     """Parameters of ``cfg``'s layout from a JAX-format checkpoint, cast
-    to the layout's dtypes. Raises, as the JAX loader does, on another
-    tokenizer version, a missing key or a shape of another config."""
+    to the layout's dtypes, on ``device`` (the card unless the caller asks
+    for the CPU). Raises, as the JAX loader does, on another tokenizer
+    version, a missing key or a shape of another config."""
+    device = resolve_device(device)
     template = _tree(cfg, lambda fan_in, shape: (shape, cfg.tdtype),
                      lambda value, shape, dtype: (shape, dtype))
     with np.load(path) as z:

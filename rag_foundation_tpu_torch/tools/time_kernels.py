@@ -23,7 +23,12 @@ the rows. Then the encoder's attention (``flash_attention``, H=12, D=32,
 bf16) at the batch and sequence buckets MiniLM encodes at (B 1, 64, 256;
 S 16, 128, 512), every token real and with chunks of half the bucket
 (pads past them), beside ``scaled_dot_product_attention`` with the same
-boolean mask. ``--only`` picks sections.
+boolean mask. Then the attention backward (``attention_bwd``:
+``flash_attention_bwd_dkv`` and ``flash_attention_bwd_dq``, bf16, H=12,
+D=32) at the trainer's batch and buckets (B 256 and 1; S 32, 128, 512),
+all real and half real, each beside the backward of
+``scaled_dot_product_attention`` with the same boolean mask (the gradient
+of k and v, or of q). ``--only`` picks sections.
 """
 
 from __future__ import annotations
@@ -199,7 +204,40 @@ def time_attention(torch, g) -> None:
                       f"{lib:.4f} ms)", flush=True)
 
 
-SECTIONS = ("pq", "flat", "exact", "attention")
+def time_attention_bwd(torch, g) -> None:
+    import torch.nn.functional as F
+    from rag_foundation_tpu_torch.ops import flash_attention as fa
+    h, d = 12, 32
+    for b in (256, 1):
+        for s in (32, 128, 512):
+            q, k, v, do = (torch.randn((b, h, s, d), generator=g,
+                                       device="cuda").bfloat16()
+                           for _ in range(4))
+            for name, real in (("all real", s), ("half real", s // 2)):
+                seg = (torch.arange(s, device="cuda") < real).int() \
+                    .expand(b, s).contiguous()
+                mask = (seg[:, :, None] == seg[:, None, :])[:, None]
+                out, lse = fa.flash_attention_forward(
+                    q, k, v, seg, seg, d ** -0.5, with_lse=True)
+                di = (out.float() * do.float()).sum(dim=-1)
+                args = (q, k, v, seg, seg, lse, do, di, d ** -0.5)
+                t_kv = _ms(lambda: fa.flash_attention_bwd_dkv(*args), reps=20)
+                t_q = _ms(lambda: fa.flash_attention_bwd_dq(*args), reps=20)
+                ql, kl, vl = (x.clone().requires_grad_(True)
+                              for x in (q, k, v))
+                ref = F.scaled_dot_product_attention(
+                    ql, kl, vl, attn_mask=mask, scale=d ** -0.5)
+                lib_kv = _ms(lambda: torch.autograd.grad(
+                    ref, (kl, vl), do, retain_graph=True), reps=20)
+                lib_q = _ms(lambda: torch.autograd.grad(
+                    ref, (ql,), do, retain_graph=True), reps=20)
+                print(f"flash_attention_bwd bf16 B={b} H={h} S={s} D={d} "
+                      f"{name}: dkv {t_kv:.4f} ms, dq {t_q:.4f} ms "
+                      f"(scaled_dot_product_attention backward: k, v "
+                      f"{lib_kv:.4f} ms, q {lib_q:.4f} ms)", flush=True)
+
+
+SECTIONS = ("pq", "flat", "exact", "attention", "attention_bwd")
 
 
 def main() -> None:
@@ -231,6 +269,8 @@ def main() -> None:
         time_exact(torch, g, args.exact_rows)
     if "attention" in args.only:
         time_attention(torch, g)
+    if "attention_bwd" in args.only:
+        time_attention_bwd(torch, g)
 
 
 if __name__ == "__main__":

@@ -21,7 +21,19 @@ the plain version computes in f32 and rounds its output to the input
 dtype; the bf16 kernel also rounds each softmax weight to bf16 before
 the P.V product, so the two differ by at most three bf16 roundings of a
 convex combination of v: 3 * 2^-9 * max|v| (``BF16_ATTN_TOL``); in f32
-both sum in f32 in another order: 1e-5 * max|v|.
+both sum in f32 in another order: 1e-5 * max|v|. The backward kernels
+(``flash_attention_bwd_dkv``, ``flash_attention_bwd_dq``) against their
+plain versions on the same ``lse`` and ``di``: each output is a sum of
+products a.b (p.dO for dV, ds.q for dK, ds.k for dQ); the bf16 kernel
+rounds each p and ds to bf16 before its product (2^-9 relative a term)
+and its output to bf16 (2^-9), the plain version only its output. ds =
+p (dO.v - di) * scale cancels, so its f32 error is relative to
+|a| = p (sum|dO||v| + |di|) * scale, not to |ds|: an element differs by
+at most 2^-8 * (sum|a||b| + |plain|) (``BWD_TOL``); in f32, exp2 against
+exp and sums in another order: 1e-5 of the same. ``FlashAttention`` against autograd
+of the plain forward (which keeps o and the weights in f32): the
+relative norm error of each gradient within 2^-6 in bf16 (three roundings
+of 2^-9 a term, o's included through di) and 1e-5 in f32.
 """
 
 import numpy as np
@@ -29,6 +41,7 @@ import pytest
 import torch
 
 from rag_foundation_tpu_torch.models import encoder as tenc
+from rag_foundation_tpu_torch.models import optim
 from rag_foundation_tpu_torch.ops import block_topk as block_topk_mod
 from rag_foundation_tpu_torch.ops import flash_attention as fa
 from rag_foundation_tpu_torch.ops import cuda_lib
@@ -48,6 +61,8 @@ from rag_foundation_tpu_torch.ops.pq_scan import (pack_codes, pq_list_scan,
 
 BF16_ATTN_TOL = 3 * 2 ** -9     # times max|v|, see the module docstring
 F32_ATTN_TOL = 1e-5
+BWD_TOL = {torch.bfloat16: 2 ** -8, torch.float32: 1e-5}
+APPLY_TOL = {torch.bfloat16: 2 ** -6, torch.float32: 1e-5}
 
 
 @pytest.fixture()
@@ -391,3 +406,120 @@ def test_minilm_encoder_on_card_launches_the_kernel(card):
     ref = ref.cpu().numpy()
     assert out.shape == (4, 64) and np.isfinite(out).all()
     assert (out * ref).sum(axis=1).min() >= 0.999
+
+
+def _bwd_case(b, h, s, d, dtype, device, seed):
+    """Inputs of the backward kernels: the plain forward's lse and di."""
+    q, k, v, seg = _attn_inputs(b, h, s, d, dtype, device, seed=seed)
+    g = torch.Generator(device=device).manual_seed(seed)
+    do = torch.randn((b, h, s, d), generator=g, device=device).to(dtype)
+    out, lse = fa.flash_attention_reference(q, k, v, seg, seg, d ** -0.5,
+                                            with_lse=True)
+    di = (out.float() * do.float()).sum(dim=-1)
+    return q, k, v, seg, lse, do, di
+
+
+def _bwd_bounds(q, k, v, seg, lse, do, di, scale):
+    """sum |a||b| of each output's products, with ds's magnitude before
+    its cancellation: (dq, dk, dv)."""
+    p, _ = fa.backward_terms_reference(q, k, v, seg, seg, lse, do, di,
+                                       scale)
+    dp = torch.einsum("bhqd,bhkd->bhqk", do.float().abs(), v.float().abs())
+    ds = p * (dp + di.abs()[..., None]) * scale
+    return (torch.einsum("bhqk,bhkd->bhqd", ds, k.float().abs()),
+            torch.einsum("bhqk,bhqd->bhkd", ds, q.float().abs()),
+            torch.einsum("bhqk,bhqd->bhkd", p, do.float().abs()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,h,s,d", [(4, 3, 16, 32), (5, 2, 32, 32),
+                                     (4, 12, 100, 32), (3, 4, 128, 32),
+                                     (6, 12, 512, 32), (3, 2, 77, 16),
+                                     (3, 2, 200, 64)])
+def test_flash_attention_bwd_kernels_match_plain_versions_on_card(
+        card, dtype, b, h, s, d):
+    q, k, v, seg, lse, do, di = _bwd_case(b, h, s, d, dtype, card, s + d)
+    scale = d ** -0.5
+    n_dkv, n_dq = fa.BWD_DKV_LAUNCHES.count, fa.BWD_DQ_LAUNCHES.count
+    dk, dv = fa.flash_attention_bwd_dkv(q, k, v, seg, seg, lse, do, di,
+                                        scale)
+    dq = fa.flash_attention_bwd_dq(q, k, v, seg, seg, lse, do, di, scale)
+    torch.cuda.synchronize()
+    assert (fa.BWD_DKV_LAUNCHES.count, fa.BWD_DQ_LAUNCHES.count) == \
+        (n_dkv + 1, n_dq + 1)
+    rk, rv = fa.flash_attention_bwd_dkv_reference(q, k, v, seg, seg, lse, do,
+                                                  di, scale)
+    rq = fa.flash_attention_bwd_dq_reference(q, k, v, seg, seg, lse, do, di,
+                                             scale)
+    for got, want, bound in zip((dq, dk, dv), (rq, rk, rv),
+                                _bwd_bounds(q, k, v, seg, lse, do, di,
+                                            scale)):
+        assert got.dtype == dtype and bool(torch.isfinite(got).all())
+        excess = (got.float() - want.float()).abs() \
+            - BWD_TOL[dtype] * (bound + want.float().abs())
+        assert float(excess.max()) <= 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,h,s,d", [(4, 12, 100, 32), (6, 12, 512, 32),
+                                     (3, 2, 77, 16), (3, 2, 200, 64)])
+def test_flash_attention_autograd_on_card(card, dtype, b, h, s, d):
+    q, k, v, seg, lse, do, _ = _bwd_case(b, h, s, d, dtype, card, s)
+    # the forward kernel's lse against the plain one
+    _, klse = fa.flash_attention_forward(q, k, v, seg, seg, d ** -0.5,
+                                         with_lse=True)
+    torch.testing.assert_close(klse, lse, rtol=0, atol=1e-4)
+    grads = []
+    for fn in (fa.flash_attention, fa.flash_attention_reference):
+        t = [x.clone().requires_grad_(True) for x in (q, k, v)]
+        fn(*t, seg, seg, d ** -0.5).backward(do)
+        grads.append([x.grad.float() for x in t])
+    for got, want in zip(*grads):
+        assert bool(torch.isfinite(got).all())
+        err = float((got - want).norm() / want.norm())
+        assert err <= APPLY_TOL[dtype], err
+
+
+@pytest.mark.cuda
+def test_flash_attention_bwd_cuda_checks(card, monkeypatch):
+    q, k, v, seg, lse, do, di = _bwd_case(2, 2, 64, 32, torch.bfloat16,
+                                          card, 0)
+    for fn in (fa.flash_attention_bwd_dkv, fa.flash_attention_bwd_dq):
+        with pytest.raises(ValueError, match="one device"):
+            fn(q, k, v, seg, seg, lse.cpu(), do, di, 1.0)
+        with pytest.raises(ValueError, match="do"):
+            fn(q, k, v, seg, seg, lse, do.float(), di, 1.0)
+    q48, k48, v48, seg48, lse48, do48, di48 = _bwd_case(
+        2, 2, 64, 48, torch.bfloat16, card, 0)
+    with pytest.raises(ValueError, match="head dim"):
+        fa.flash_attention_bwd_dq(q48, k48, v48, seg48, seg48, lse48, do48,
+                                  di48, 1.0)
+
+    def missing(name):
+        raise RuntimeError("kernel library unavailable")
+
+    monkeypatch.setattr(cuda_lib, "load", missing)
+    with pytest.raises(RuntimeError, match="unavailable"):
+        fa.flash_attention_bwd_dkv(q, k, v, seg, seg, lse, do, di, 1.0)
+
+
+@pytest.mark.cuda
+def test_minilm_train_step_on_card_launches_the_kernels(card):
+    cfg = tenc.EncoderConfig(vocab_size=512, hidden=64, layers=2, heads=2,
+                             ffn=128, max_len=64)
+    params = tenc.init_params(torch.Generator(device="cuda").manual_seed(3),
+                              cfg)
+    step = tenc.make_train_step(cfg, optim.adamw(1e-3), max_grad_norm=1.0,
+                                symmetric=True)
+    g = torch.Generator(device="cuda").manual_seed(0)
+    q_ids = torch.randint(1, 512, (8, 16), generator=g, device="cuda")
+    d_ids = torch.randint(1, 512, (8, 64), generator=g, device="cuda")
+    d_ids[:, 40:] = 0
+    counters = (fa.LAUNCHES, fa.BWD_DKV_LAUNCHES, fa.BWD_DQ_LAUNCHES)
+    before = [c.count for c in counters]
+    losses = [float(step(params, q_ids, d_ids)) for _ in range(3)]
+    assert [c.count - n for c, n in zip(counters, before)] == \
+        [3 * 2 * cfg.layers] * 3
+    assert all(np.isfinite(losses)) and losses[-1] < losses[0]

@@ -18,6 +18,8 @@ the flash test does, running the library's Pallas kernel in TPU interpret
 mode.
 """
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -53,7 +55,8 @@ def _cfgs(heads=4, max_len=32, dtype="float32"):
 
 def _params(jcfg, seed=0):
     p = jenc.init_params(jax.random.key(seed), jcfg)
-    return p, tenc.params_from_jax(jax.tree_util.tree_map(np.asarray, p))
+    return p, tenc.params_from_jax(jax.tree_util.tree_map(np.asarray, p),
+                                   device="cpu")
 
 
 def _ids(cfg, texts=TEXTS):
@@ -150,7 +153,8 @@ def test_checkpoints_both_ways(dtype, tmp_path):
     jpath = str(tmp_path / "jax.npz")
     jenc.save_params(jp, jpath, jcfg)
     assert tenc.checkpoint_config(jpath) == jenc.checkpoint_config(jpath)
-    loaded, want = tenc._leaves(tenc.load_params(jpath, tcfg)), \
+    loaded, want = tenc._leaves(tenc.load_params(jpath, tcfg,
+                                                         device="cpu")), \
         tenc._leaves(tp)
     assert loaded.keys() == want.keys()
     for k, a in loaded.items():
@@ -185,15 +189,15 @@ def test_checkpoint_checks_raise_as_jax_does(tmp_path):
                         if k != "['blocks'][1]['fc2']"}
     old = {k: v for k, v in arrays.items() if k != "__tok_version"}
     cases["tokenizer v1"] = old           # pre-version checkpoint: v1
+    port_load = functools.partial(tenc.load_params, device="cpu")
     for match, arrs in cases.items():
         p = str(tmp_path / f"{len(match)}.npz")
         np.savez(p, **arrs)
-        for load, cfg in ((jenc.load_params, jcfg),
-                          (tenc.load_params, tcfg)):
+        for load, cfg in ((jenc.load_params, jcfg), (port_load, tcfg)):
             with pytest.raises(ValueError, match=match):
                 load(p, cfg)
     for load, cfg in ((jenc.load_params, jcfg._replace(hidden=32)),
-                      (tenc.load_params, tcfg._replace(hidden=32))):
+                      (port_load, tcfg._replace(hidden=32))):
         with pytest.raises(ValueError, match="shape"):
             load(path, cfg)
     np.savez(str(tmp_path / "nocfg.npz"),
@@ -206,12 +210,12 @@ def test_params_from_jax_dtype_and_device():
     jcfg, _ = _cfgs(dtype="bfloat16")
     jp = jenc.init_params(jax.random.key(0), jcfg)
     tree = jax.tree_util.tree_map(np.asarray, jp)
-    tp = tenc.params_from_jax(tree)
+    tp = tenc.params_from_jax(tree, device="cpu")
     assert tp["tok_emb"].dtype == torch.bfloat16
     assert tp["ln_f"]["g"].dtype == torch.float32
     np.testing.assert_array_equal(tp["tok_emb"].float().numpy(),
                                   np.asarray(jp["tok_emb"], np.float32))
-    t32 = tenc.params_from_jax(tree, dtype=torch.float32)
+    t32 = tenc.params_from_jax(tree, device="cpu", dtype=torch.float32)
     assert t32["blocks"][0]["qkv"].dtype == torch.float32
     assert t32["blocks"][0]["ln1"]["b"].dtype == torch.float32
 
@@ -275,3 +279,27 @@ def test_hybrid_encoder_matches_jax():
                                    atol=1e-5)
     with pytest.raises(ValueError, match="w_mini"):
         HybridEncoder(96, port.mini, w_mini=1.0)
+
+
+def test_entry_points_default_to_the_card(tmp_path):
+    """``VectorSegment``, ``VectorSegment.from_state``, ``load_params`` and
+    ``params_from_jax`` ask for the card unless the caller says
+    ``device="cpu"``: without one they raise ``resolve_device``'s error
+    (no silent fallback to the CPU)."""
+    from rag_foundation_tpu_torch.engine.segments import VectorSegment
+    jcfg, tcfg = _cfgs()
+    jp = jenc.init_params(jax.random.key(0), jcfg)
+    tree = jax.tree_util.tree_map(np.asarray, jp)
+    path = str(tmp_path / "ckpt.npz")
+    jenc.save_params(jp, path, jcfg)
+    state = VectorSegment(8, device="cpu").state()
+    calls = [lambda: VectorSegment(8).device,
+             lambda: VectorSegment.from_state(state).device,
+             lambda: tenc.load_params(path, tcfg)["tok_emb"].device,
+             lambda: tenc.params_from_jax(tree)["tok_emb"].device]
+    for call in calls:
+        if torch.cuda.is_available():
+            assert call().type == "cuda"
+        else:
+            with pytest.raises(RuntimeError, match="no CUDA card"):
+                call()
