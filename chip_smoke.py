@@ -18,19 +18,27 @@ Phases (each one fails the run: non-zero exit, no result line):
    tolerance), the ADC list scan (int8 LUT unpacked and packed exact,
    bf16 LUT within a stated tolerance, dead rows, a dead sub-block, a
    dispatch with empty tails) and the gather-and-rescore (exact, negative
-   ids, a table whose row count is not a multiple of 8).
+   ids, a table whose row count is not a multiple of 8); then both list
+   scans on edge cases: 0, 1, 8, 9, 16 and 17 live slots of qcap 32,
+   sub-blocks of 0, 1 and 128 live rows, p from 1 to 8, packed codes and
+   the bf16 LUT, f32 and bf16 flat lists; and the ADC scan on lists of 29
+   sub-blocks at nlist 4, which it splits between blocks.
 3. The main path through the entry points a user calls: the port's
    ``Engine`` (ivf_flat_int8, d=768, nlist=4096, nprobe=32, p=3) behind
    ``EngineRpcServer``, driven only through ``RemoteEngine``: ingest real
    documents (enough to build an int8 body), pad the store to ``--rows``
    on the device, single and concurrent searches, a Q=1024 batch,
-   citations, recall against the exact scan and the recall audit.
-   Kernel launch counters are zeroed just before and read just after.
+   citations, recall against the exact scan and the recall audit, the
+   engine's Prometheus text over RPC (``metrics_text``, parsed here: one
+   batch-size observation a sequential search), and an in-process
+   Q=1024 search of stored rows. Kernel launch counters are zeroed just
+   before and read just after.
 4. Restart: a fresh ``Engine`` on the same ``data_dir`` reloads the saved
    int8 body verbatim and gives the same hits.
 5. The kernel against its plain version on the main path's Q=1024
    dispatch, with times: kernel, plain version, a library yardstick, and
-   the bound.
+   the bound; then that search split by stage on the card (coarse +
+   dispatch, list scan, regather and top-k).
 6. The ``ivf_pq`` main path, after the int8 store is released: a second
    ``Engine`` (ivf_pq, d=768, m=192 unpacked 4-bit codes, device refine,
    nlist=4096, nprobe=32) behind ``EngineRpcServer``: the same documents
@@ -44,7 +52,9 @@ Phases (each one fails the run: non-zero exit, no result line):
 7. Restart of the ``ivf_pq`` store on its ``data_dir``: the saved body
    (codes, ids, codebooks, refine) and archive reload verbatim.
 8. The two kernels against their plain versions on the PQ path's own
-   Q=1024 dispatch, with times and bounds.
+   Q=1024 dispatch, with times and bounds; then that search split by
+   stage on the card (coarse + dispatch, LUT build and gather, list scan,
+   regather and ADC top-C, re-rank).
 9. After the PQ store is released: ``fused_topk`` and ``block_topk``
    against their plain versions at a small size (f32 and bf16, unaligned
    Q and N, a valid count below N as a device tensor, k above the live
@@ -370,6 +380,181 @@ def phase_small_pq_kernels(pq_scan, gather, torch):
             fail(f"gather_rescore_int8 N={n} d={d}: kernel != plain version")
         log(f"kernel check gather_rescore_int8 N={n} (N % 8 = {n % 8}) "
             f"d={d} Q={q_n} C={c}, negative ids: bit-identical")
+
+
+# live slots of the edge-case lists (qcap 32): none, one, a full n-tile of
+# 8, one past it, a full pass of 16, one past it
+EDGE_LIVE = (0, 1, 8, 9, 16, 17)
+# lists of 29 sub-blocks at nlist 4: the ADC scan gives each list several
+# blocks (the walk of a list split between blocks)
+SPLIT_LIVE = (0, 8, 9, 17)
+
+
+def edge_rows(torch, g, cap_len=512, live=EDGE_LIVE):
+    """Row ids and a dispatch of one list per ``live`` entry: a sub-block
+    of no live row, one of a single live row, one of 128 and the rest
+    about 30% dead; list l has its first live[l] slots live."""
+    nlist = len(live)
+    ids = torch.arange(nlist * cap_len, dtype=torch.int32,
+                       device="cuda").view(nlist, cap_len)
+    lone = torch.arange(nlist, device="cuda")
+    one = ids[lone, 128 + 37 + lone].clone()
+    ids[:, :256] = -1
+    ids[lone, 128 + 37 + lone] = one
+    tail = ids[:, 384:]
+    tail[torch.rand(tail.shape, generator=g, device="cuda") < 0.3] = -1
+    disp = torch.full((nlist, 32), -1, dtype=torch.int32, device="cuda")
+    for l, n in enumerate(live):
+        disp[l, :n] = l
+    return ids, disp
+
+
+def phase_edge_kernels(ivf_scan, pq_scan, torch):
+    """Both list scans against their plain versions on the edge cases
+    (``edge_rows``), p from 1 to 8, with and without the dispatch."""
+    g = torch.Generator(device="cuda").manual_seed(3)
+    ids, disp = edge_rows(torch, g)
+    nlist, cap_len = ids.shape
+    for kind, d in (("int8", 768), ("int8", 48), ("f32", 768),
+                    ("bf16", 768)):
+        q = torch.randn((nlist, 32, d), generator=g, device="cuda")
+        rows = torch.randn((nlist, cap_len, d), generator=g, device="cuda")
+        q /= q.norm(dim=-1, keepdim=True)
+        rows /= rows.norm(dim=-1, keepdim=True)
+        s = 1.0 / 127.0
+        if kind == "int8":
+            q = torch.clamp(torch.round(q / s), -127, 127).to(torch.int8)
+            rows = torch.clamp(torch.round(rows / s), -127, 127).to(
+                torch.int8)
+        elif kind == "bf16":
+            q, rows = q.bfloat16(), rows.bfloat16()
+        scale = s * s if kind == "int8" else 1.0
+        err = 0.0
+        for p in range(1, 9):
+            for dispatch in (disp, None):
+                kv, ki = ivf_scan.ivf_list_scan(q, rows, ids, dispatch, p=p,
+                                                scale=scale)
+                torch.cuda.synchronize()
+                rv, ri = ivf_scan.ivf_list_scan_reference(
+                    q, rows, ids, dispatch, p=p, scale=scale)
+                err = max(err, check_scan(
+                    kv, ki, rv, ri, kind == "int8", q, rows,
+                    f"ivf_list_scan {kind} d={d} edge p={p}"))
+        log(f"kernel check ivf_list_scan {kind} d={d} edge cases (live "
+            f"slots {EDGE_LIVE} of qcap 32; sub-blocks of 0, 1, 128 live "
+            f"rows; p 1-8): "
+            + ("bit-identical" if kind == "int8" else
+               f"max_abs_err={err:.3g} (tol {F32_TOL})"))
+    m = 192
+    codes = torch.randint(0, 16, (nlist, cap_len, m), generator=g,
+                          device="cuda", dtype=torch.uint8)
+    lut8 = torch.randint(-127, 128, (nlist, 32, 16 * m), generator=g,
+                         device="cuda", dtype=torch.int8)
+    lutbf = (torch.randn((nlist, 32, 16 * m), generator=g, device="cuda")
+             .clamp(-1, 1).bfloat16())
+    for name, lut, packed in (("int8", lut8, False), ("int8", lut8, True),
+                              ("bf16", lutbf, False)):
+        c = pq_scan.pack_codes(codes).contiguous() if packed else codes
+        err = 0.0
+        for p in range(1, 9):
+            for dispatch in (disp, None):
+                kv, ki = pq_scan.pq_list_scan(lut, c, ids, dispatch, p=p)
+                torch.cuda.synchronize()
+                rv, ri = pq_scan.pq_list_scan_reference(lut, c, ids,
+                                                        dispatch, p=p)
+                err = max(err, check_pq_scan(
+                    kv, ki, rv, ri, name == "int8",
+                    f"pq_list_scan {name} LUT "
+                    f"{'packed' if packed else 'unpacked'} edge p={p}"))
+        log(f"kernel check pq_list_scan {name} LUT "
+            f"{'packed' if packed else 'unpacked'} m={m} edge cases (live "
+            f"slots {EDGE_LIVE} of qcap 32; sub-blocks of 0, 1, 128 live "
+            f"rows; p 1-8): "
+            + ("bit-identical" if name == "int8" else
+               f"max_abs_err={err:.3g} (tol {BF16_LUT_TOL})"))
+    cap_len = 3712
+    ids, disp = edge_rows(torch, g, cap_len, SPLIT_LIVE)
+    codes = torch.randint(0, 16, (len(SPLIT_LIVE), cap_len, m), generator=g,
+                          device="cuda", dtype=torch.uint8)
+    lut8 = torch.randint(-127, 128, (len(SPLIT_LIVE), 32, 16 * m),
+                         generator=g, device="cuda", dtype=torch.int8)
+    for packed in (False, True):
+        c = pq_scan.pack_codes(codes).contiguous() if packed else codes
+        for p in range(1, 9):
+            for dispatch in (disp, None):
+                kv, ki = pq_scan.pq_list_scan(lut8, c, ids, dispatch, p=p)
+                torch.cuda.synchronize()
+                rv, ri = pq_scan.pq_list_scan_reference(lut8, c, ids,
+                                                        dispatch, p=p)
+                check_pq_scan(kv, ki, rv, ri, True,
+                              f"pq_list_scan int8 LUT split lists p={p}")
+        log(f"kernel check pq_list_scan int8 LUT "
+            f"{'packed' if packed else 'unpacked'} m={m}, lists split "
+            f"between blocks (nlist {len(SPLIT_LIVE)}, cap_len {cap_len}, "
+            f"live slots {SPLIT_LIVE} of qcap 32; p 1-8): bit-identical")
+
+
+def prom_samples(text: str) -> dict:
+    """``{"name{labels}": value}`` of Prometheus text, parsed by hand (the
+    card machine has no prometheus_client)."""
+    out = {}
+    for line in text.splitlines():
+        if line and not line.startswith("#"):
+            key, _, value = line.rpartition(" ")
+            out[key] = float(value)
+    return out
+
+
+def stage_split(torch, fn, marks, names, card, what, reps=5) -> None:
+    """One line of a search's device time by stage, from CUDA events
+    recorded in one call of ``fn``: ``marks`` are (module, function name,
+    "before" | "after") triples of the functions ``fn`` calls, in this
+    order, each once; for the call each is wrapped to record an event as
+    it is entered or as it returns. The stages are the spans between the
+    call's start, the marks and its end (``names``, one more than the
+    marks). Of ``reps`` calls after a warm one, the call of the median
+    total is shown."""
+    events = []
+
+    def record():
+        e = torch.cuda.Event(enable_timing=True)
+        e.record()
+        events.append(e)
+
+    def wrap(f, when):
+        def marked(*a, **kw):
+            if when == "before":
+                record()
+            out = f(*a, **kw)
+            if when == "after":
+                record()
+            return out
+        return marked
+
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in marks]
+    runs = []
+    try:
+        for mod, name, when in marks:
+            setattr(mod, name, wrap(getattr(mod, name), when))
+        for _ in range(reps + 1):
+            events.clear()
+            record()
+            fn()
+            record()
+            torch.cuda.synchronize()
+            if len(events) != len(marks) + 2:
+                fail(f"{what}: {len(events) - 2} stage marks, expected "
+                     f"{len(marks)}")
+            runs.append([a.elapsed_time(b)
+                         for a, b in zip(events, events[1:])])
+    finally:
+        for mod, name, f in saved:
+            setattr(mod, name, f)
+    parts = sorted(runs[1:], key=sum)[reps // 2]
+    total = sum(parts)
+    text = "; ".join(f"{name} {t:.3f} ms ({t / total:.1%})"
+                     for name, t in zip(names, parts))
+    log(f"{what}: {total:.3f} ms on the card = {text} | {card}")
 
 
 def check_pq_scan(kv, ki, rv, ri, exact, what) -> float:
@@ -1016,6 +1201,14 @@ def pq_phases(args, card, rng, sampled, mods) -> list[dict]:
         log(f"ivf_pq StoreIndex.search Q=1024 in process: "
             f"{dwall * 1e3:.2f} ms = {1024 / dwall:,.0f} QPS | {card}")
         probe_rows, _ = seg.sample_live_rows(1024, seed=args.seed + 1)
+        seg.search(probe_rows, 10)
+        t0 = time.perf_counter()
+        for _ in range(3):
+            seg.search(probe_rows, 10)
+        swall = (time.perf_counter() - t0) / 3
+        log(f"ivf_pq StoreIndex.search Q=1024 stored rows in process (host "
+            f"clock, int8 transport, device refine, tail merge): "
+            f"{swall * 1e3:.2f} ms = {1024 / swall:,.0f} QPS | {card}")
     finally:
         remote.close()
         server.shutdown()
@@ -1091,6 +1284,16 @@ def pq_phases(args, card, rng, sampled, mods) -> list[dict]:
         f"{scan_plain_ms:.3f} ms (one run), no single library call, bound "
         f"{scan_bound_ms:.3f} ms ({scan_by}) | {card}")
     del lut_disp
+    # the same Q=1024 search split by stage, as StoreIndex runs it
+    stage_split(
+        torch, lambda: tpq.ivfpq_search(body, q8, fetch, nprobe=32, p=p,
+                                        q_scale=q_scale),
+        [(tpq, "route", "after"), (tpq, "scan_inputs", "after"),
+         (tpq, "pq_list_scan", "after"), (tpq, "_refine_rerank", "before")],
+        ["coarse + dispatch", "LUT build and gather", "list scan",
+         "regather and ADC top-C", "re-rank"], card,
+        "ivf_pq search of Q=1024 stored rows (ivfpq_search, split by CUDA "
+        "events between its stages in one call)")
 
     q32, _, rows, _ = tpq.adc_top_rows(body, q8, fetch, nprobe=32, p=p,
                                        q_scale=q_scale)
@@ -1927,10 +2130,11 @@ def main() -> None:
     if not torch.cuda.is_available():
         fail("torch sees no CUDA card")
     sys.path.insert(0, str(ROOT))
+    from rag_foundation_tpu_torch.engine import ivf as tivf
     from rag_foundation_tpu_torch.engine import ivfpq as tpq
     from rag_foundation_tpu_torch.engine.api import Engine, EngineConfig
     from rag_foundation_tpu_torch.engine.archive import HostArchive
-    from rag_foundation_tpu_torch.engine.ivf import scan_inputs
+    from rag_foundation_tpu_torch.engine.ivf import ivf_search, scan_inputs
     from rag_foundation_tpu_torch.engine.profile import search_profile
     from rag_foundation_tpu_torch.engine.rpc import (EngineRpcServer,
                                                      RemoteEngine)
@@ -1963,6 +2167,7 @@ def main() -> None:
     # -- phase 2: kernels vs plain versions, small size ---------------------
     phase_small_kernels(ivf_scan, torch)
     phase_small_pq_kernels(pq_scan, gather, torch)
+    phase_edge_kernels(ivf_scan, pq_scan, torch)
 
     # -- phase 3: the main path through the RPC entry point -----------------
     data_dir = tempfile.mkdtemp(prefix="ragtpu-chip-smoke-")
@@ -2024,6 +2229,7 @@ def main() -> None:
 
         # single searches (Q=1: the small-batch path at nlist=4096)
         lat = []
+        prom0 = prom_samples(remote.metrics_text())
         for i in sampled * 3:
             t0 = time.perf_counter()
             hits = remote.search([key], fact_query(i), k=5)
@@ -2031,6 +2237,20 @@ def main() -> None:
             if not hits or hits[0].doc_id != f"doc-{i}":
                 fail(f"padded store: top hit for project {i} is "
                      f"{hits[0].doc_id if hits else None}")
+        prom1 = prom_samples(remote.metrics_text())
+        sent = {k: prom1.get(f"engine_search_batch_size_{k}", 0.0)
+                - prom0.get(f"engine_search_batch_size_{k}", 0.0)
+                for k in ("count", "sum")}
+        stages = sorted(k for k in prom1 if k.startswith(
+            "engine_query_stage_seconds_count"))
+        log(f"metrics_text over RPC: engine_search_batch_size_count +"
+            f"{sent['count']:.0f}, _sum +{sent['sum']:.0f} over "
+            f"{len(lat)} sequential searches; stage series {stages}")
+        if sent["count"] != len(lat) or sent["sum"] != len(lat):
+            fail(f"metrics_text: batch-size histogram moved by {sent}, "
+                 f"{len(lat)} searches sent")
+        if len(stages) != 3:
+            fail(f"metrics_text: stage series {stages}")
         p50, p99 = np.percentile(lat, 50), np.percentile(lat, 99)
         log(f"single search over RPC: p50 {p50:.3f} ms p99 {p99:.3f} ms "
             f"({len(lat)} searches; a lone request waits out the "
@@ -2120,6 +2340,14 @@ def main() -> None:
 
         # phase 5 input: a batch of 1024 stored rows (uniform traffic)
         probe_rows, _ = seg.sample_live_rows(1024, seed=args.seed + 1)
+        seg.search(probe_rows, 10)
+        t0 = time.perf_counter()
+        for _ in range(5):
+            seg.search(probe_rows, 10)
+        swall = (time.perf_counter() - t0) / 5
+        log(f"StoreIndex.search Q=1024 stored rows in process (host "
+            f"clock, int8 transport, tail merge): {swall * 1e3:.2f} ms = "
+            f"{1024 / swall:,.0f} QPS | {card}")
     finally:
         remote.close()
         server.shutdown()
@@ -2182,6 +2410,17 @@ def main() -> None:
         f"plain {plain_ms:.3f} ms, torch.bmm+topk (f32, every slot, "
         f"{lib_chunks} list chunks) {library_ms:.3f} ms, bound "
         f"{bound_ms:.3f} ms ({bound_by}) | {card}")
+    # the same Q=1024 search split by stage, as StoreIndex runs it (int8
+    # transport with the body's scale, k=10 -> fetch 16)
+    qj = torch.as_tensor(np.clip(np.round(probe_rows / np.float32(
+        body.scale)), -127, 127).astype(np.int8), device="cuda")
+    stage_split(
+        torch, lambda: ivf_search(body, qj, 16, nprobe=32, p=p),
+        [(tivf, "scan_inputs", "after"), (tivf, "ivf_list_scan", "after")],
+        ["coarse + dispatch", "list scan", "regather and top-k"], card,
+        "ivf_flat_int8 search of Q=1024 stored rows (ivf_search, split by "
+        "CUDA events between its stages in one call)")
+    del qj
     shutil.rmtree(data_dir, ignore_errors=True)
     # release the int8 store before the ivf_pq phases (the servers'
     # handler threads, which hold their engine, end once their clients'

@@ -20,31 +20,46 @@
 //   them). Dead rows are never read either: their score is -inf from
 //   row_ids alone, so only the ids of a dead row cross the bus.
 //
-// Design (simple, correct first): one 128-thread block per (list,
-// sub-block). Thread t owns row t of the sub-block. The block walks the
-// feature dimension in 128-byte chunks: the 128 row chunks and the chunks
-// of a tile of QT query slots are staged in shared memory with coalesced
-// 16-byte loads, then each thread accumulates QT dots for its row (4
-// __dp4a per 16 bytes for int8, FMA for f32/bf16; query reads are
-// shared-memory broadcasts). Scores go to shared memory; each warp then
-// runs p passes of a warp-wide argmax (value desc, column asc) for its
-// query slots. Query tiles larger than QT loop, re-reading the rows.
+// int8 lists (the engine's ivf_flat_int8 tier) take `ivf_scan_s8`, a
+// design for Hopper:
 //
-// Bound on an H100 (3.35 TB/s HBM, 1,979 int8 TOP/s): the kernel reads
-// the live rows of every list that has a query once per batch, plus
-// every row id of those lists, and does 2*qcap ops per row byte, so at
-// the engine's qcap (8..32) it is memory-bound. What this
-// design leaves on the table: no tensor cores (wgmma s8 tiles), no TMA
-// ring to keep more bytes in flight, no reuse of the staged rows across
-// query tiles beyond L2, and a shared-memory broadcast per query chunk
-// that caps the dp4a rate. Those are later work.
+//   Bound on an H100 (3.35 TB/s HBM, 1,979 int8 TOP/s): per batch the
+//   kernel must read the live rows of every list that has a query once,
+//   every row id of those lists, the live query slots, and write the
+//   outputs; its products are 2 * live slots * d a row byte, far below the
+//   card's int8 ridge (about 590 operations a byte), so bytes bound it.
+//   Design: a block of four warps owns a list (or every gridDim.x-th of its
+//   sub-blocks at small nlist) and walks its sub-blocks. It stages the
+//   list's query tile (16 slots) ONCE, then streams (sub-block, 128-byte
+//   K chunk) tiles of 128 rows through a ring of four shared-memory stages
+//   filled by 16-byte `cp.async`, three tiles in flight while it computes
+//   the fourth (about 48 KB in flight a block, two blocks an SM). Dead rows
+//   are zero-filled by `cp.async` with a source size of 0: their bytes are
+//   never read, which a TMA box could not skip (a box reads the about 13%
+//   dead rows the store interleaves through every sub-block). The scores
+//   are int8 tensor-core products (`mma.sync` m16n8k32, rows as A through
+//   `ldmatrix`, the query tile as B) into int32 accumulators in registers,
+//   each warp 32 rows x 16 slots; only the n-tiles of 8 slots that hold a
+//   live slot are computed, so a list with at most 8 live slots does half
+//   the products. Row ids are loaded a sub-block ahead. After the last
+//   chunk of a sub-block the scores (float(int32 dot) * scale, -inf for
+//   dead rows) go to shared memory and each warp runs the top-p of its
+//   slots, four interleaved (topp_keys.cuh), while the next sub-block's
+//   tiles are already in flight.
+//
+// f32 and bf16 lists take `ivf_scan_kernel` (one 128-thread block per
+// (list, sub-block), thread t owns row t, FMA with the query chunk
+// broadcast from shared memory): f32 keeps exact f32 FMA (TF32 tensor
+// cores would change its results); bf16 may move to bf16 `mma` later.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "mma_s8.cuh"
 #include "subblock_topp.cuh"
+#include "topp_keys.cuh"
 
 namespace {
 
@@ -187,6 +202,213 @@ ivf_scan_kernel(const unsigned char* __restrict__ qdisp,
   }
 }
 
+// ---- int8 lists: tensor cores fed by a cp.async ring ------------------------
+constexpr int S8_WARPS = 4;
+constexpr int S8_THREADS = S8_WARPS * 32;            // 128: 32 rows a warp
+constexpr int S8_STAGES = 4;                         // ring depth
+constexpr int S8_QT = 16;                            // query slots a pass
+constexpr int S8_STAGE_BYTES = SUB * ROW_STRIDE;     // one 128 x 128-byte tile
+constexpr int S8_LIVE_BUFS = 4;                      // sub-blocks' row flags
+static_assert(S8_THREADS == SUB, "fill_dead strides by SUB threads");
+
+// Shared memory of ivf_scan_s8 for rows of `row_bytes` bytes.
+__host__ __device__ inline size_t s8_smem_bytes(int row_bytes) {
+  const int qstride = ((row_bytes + 31) & ~31) + 16;
+  return (size_t)S8_STAGES * S8_STAGE_BYTES + (size_t)S8_QT * qstride +
+         (size_t)S8_QT * SUB * 4 + (size_t)S8_LIVE_BUFS * SUB;
+}
+
+__global__ void __launch_bounds__(S8_THREADS, 2)
+ivf_scan_s8(const signed char* __restrict__ qdisp,
+            const signed char* __restrict__ lists,
+            const int* __restrict__ row_ids, const int* __restrict__ live_n,
+            float* __restrict__ out_vals, int* __restrict__ out_idx, int qcap,
+            int cap_len, int row_bytes, int p, float scale) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int kpad = (row_bytes + 31) & ~31;        // K in whole mma steps
+  const int qstride = kpad + 16;                  // odd 16-byte units: no
+  unsigned char* rows_s = smem;                   // ldmatrix conflicts
+  unsigned char* q_s = smem + S8_STAGES * S8_STAGE_BYTES;
+  float* score_s = reinterpret_cast<float*>(q_s + S8_QT * qstride);
+  unsigned char* live_s = reinterpret_cast<unsigned char*>(score_s + S8_QT * SUB);
+
+  const int l = blockIdx.y;
+  const int nsub = cap_len / SUB;
+  const int width = nsub * p;
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const int g = lane >> 2, tig = lane & 3;
+  const int G = gridDim.x;
+  const int nown = (nsub - (int)blockIdx.x + G - 1) / G;   // sub-blocks owned
+  const int nlive = live_n == nullptr ? qcap : min(qcap, live_n[l]);
+
+  // dead tail of the dispatch: (-inf, -1), nothing read
+  if (nlive < qcap)
+    for (int k = 0; k < nown; ++k)
+      scan::fill_dead(out_vals, out_idx, l, qcap, width, nsub,
+                      blockIdx.x + k * G, p, nlive, qcap, t);
+  if (nlive == 0 || nown <= 0) return;
+
+  const int nkc = (row_bytes + CHUNK - 1) / CHUNK;   // K chunks a row
+  const int units = nown * nkc;                      // (sub-block, chunk)
+  const size_t list0 = (size_t)l * cap_len;
+  const signed char* q_g = qdisp + (size_t)l * qcap * row_bytes;
+  // copy assignment: 16-byte column c16 of rows r0 + 16 i, i < 8
+  const int c16 = t & 7, r0 = t >> 3;
+  const int lj = lane >> 3, lr = lane & 7;           // ldmatrix addressing
+
+  for (int q0 = 0; q0 < nlive; q0 += S8_QT) {
+    const int nq = min(S8_QT, nlive - q0);
+    const int nt = (nq + 7) >> 3;                    // live n-tiles: 1 or 2
+    __syncthreads();   // the previous pass is done with every buffer
+    // the query tile, once a pass: nq slots, zero-filled to 16 x kpad
+    for (int i = t; i < S8_QT * (kpad / 16); i += S8_THREADS) {
+      const int j = i / (kpad / 16), c = i - j * (kpad / 16);
+      const bool ok = j < nq && c * 16 < row_bytes;
+      s8::cp_async16(q_s + j * qstride + c * 16,
+                     ok ? (const void*)(q_g + (size_t)(q0 + j) * row_bytes +
+                                        c * 16)
+                        : (const void*)q_g,
+                     ok ? 16 : 0);
+    }
+    s8::cp_async_commit();
+
+    unsigned live_bits = 0;   // this thread's copy rows of the sub-block
+    int ids_next[8];          // their ids in the next sub-block, loaded a
+    auto load_ids = [&](int k) {   // sub-block ahead
+      if (k >= nown) return;
+      const size_t row0 = list0 + (size_t)(blockIdx.x + k * G) * SUB;
+#pragma unroll
+      for (int i = 0; i < 8; ++i) ids_next[i] = row_ids[row0 + r0 + 16 * i];
+    };
+    load_ids(0);
+    auto issue = [&](int u) {
+      const int k = u / nkc, kc = u - k * nkc;
+      const size_t row0 = list0 + (size_t)(blockIdx.x + k * G) * SUB;
+      unsigned char* st = rows_s + (u % S8_STAGES) * S8_STAGE_BYTES;
+      if (kc == 0) {
+        live_bits = 0;
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          const int r = r0 + 16 * i;
+          const bool lv = ids_next[i] >= 0;
+          live_bits |= (unsigned)lv << i;
+          if (c16 == 0) live_s[(k % S8_LIVE_BUFS) * SUB + r] = lv;
+        }
+        load_ids(k + 1);
+      }
+      const int col = kc * CHUNK + c16 * 16;
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const int r = r0 + 16 * i;
+        // dead rows and the K padding are zero-filled, never read
+        const bool ok = col < row_bytes && ((live_bits >> i) & 1u);
+        s8::cp_async16(st + r * ROW_STRIDE + c16 * 16,
+                       ok ? (const void*)(lists + (row0 + r) * row_bytes + col)
+                          : (const void*)lists,
+                       ok ? 16 : 0);
+      }
+    };
+
+    int acc[2][2][4];   // [row group of 16][n-tile of 8 slots][fragment]
+#pragma unroll
+    for (int a = 0; a < 2; ++a)
+#pragma unroll
+      for (int b = 0; b < 2; ++b)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[a][b][e] = 0;
+
+#pragma unroll
+    for (int s = 0; s < S8_STAGES - 1; ++s) {
+      if (s < units) issue(s);
+      s8::cp_async_commit();
+    }
+    for (int u = 0; u < units; ++u) {
+      s8::cp_async_wait<S8_STAGES - 2>();   // unit u (and the tile) landed
+      __syncthreads();                      // ... for every thread; stage
+      if (u + S8_STAGES - 1 < units)        // (u-1) % S is free again
+        issue(u + S8_STAGES - 1);
+      s8::cp_async_commit();
+
+      const int k = u / nkc, kc = u - k * nkc;
+      const unsigned char* st = rows_s + (u % S8_STAGES) * S8_STAGE_BYTES;
+      const int ksteps = min(CHUNK, kpad - kc * CHUNK) / 32;
+      for (int ks = 0; ks < ksteps; ++ks) {
+        // B: slots (lj >> 1) * 8 + lr, bytes (lj & 1) * 16 of this k-step
+        unsigned b[2][2];
+        const unsigned char* qp = q_s + ((lj >> 1) * 8 + lr) * qstride +
+                                  kc * CHUNK + ks * 32 + (lj & 1) * 16;
+        if (nt == 2) {
+          unsigned r[4];
+          s8::ldmatrix_x4(r, qp);
+          b[0][0] = r[0]; b[0][1] = r[1]; b[1][0] = r[2]; b[1][1] = r[3];
+        } else {
+          unsigned r[2];
+          s8::ldmatrix_x2(r, qp);
+          b[0][0] = r[0]; b[0][1] = r[1]; b[1][0] = 0u; b[1][1] = 0u;
+        }
+#pragma unroll
+        for (int grp = 0; grp < 2; ++grp) {
+          // A: rows warp*32 + grp*16 + (lj & 1) * 8 + lr, bytes (lj >> 1) * 16
+          unsigned a[4];
+          s8::ldmatrix_x4(a, st + (warp * 32 + grp * 16 + (lj & 1) * 8 + lr) *
+                                      ROW_STRIDE + ks * 32 + (lj >> 1) * 16);
+          s8::mma_s8(acc[grp][0], a, b[0][0], b[0][1]);
+          if (nt == 2) s8::mma_s8(acc[grp][1], a, b[1][0], b[1][1]);
+        }
+      }
+
+      if (kc == nkc - 1) {   // the sub-block is scored: top-p
+        const int sb = blockIdx.x + k * G;
+        const unsigned char* lv = live_s + (k % S8_LIVE_BUFS) * SUB;
+#pragma unroll
+        for (int grp = 0; grp < 2; ++grp)
+#pragma unroll
+          for (int n = 0; n < 2; ++n)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int row = warp * 32 + grp * 16 + g + (e >= 2 ? 8 : 0);
+              const int slot = n * 8 + tig * 2 + (e & 1);
+              if (n < nt && slot < nq)
+                score_s[slot * SUB + row] =
+                    lv[row] ? __int2float_rn(acc[grp][n][e]) * scale
+                            : -INFINITY;
+              acc[grp][n][e] = 0;
+            }
+        __syncthreads();
+        const int row0 = (int)(list0 + (size_t)sb * SUB);
+        // this warp's slots warp, warp + 4, ... interleaved (topp_keys.cuh)
+        keys::warp_topp_slots(score_s, -INFINITY, warp, nq, S8_WARPS, lane,
+                              p, nsub, sb, row0, 1.0f,
+                              out_vals + ((size_t)l * qcap + q0) * width,
+                              out_idx + ((size_t)l * qcap + q0) * width,
+                              width);
+      }
+    }
+  }
+}
+
+cudaError_t launch_s8(const void* qdisp, const void* lists, const int* row_ids,
+                      const int* live_n, float* vals, int* idx, int nlist,
+                      int qcap, int cap_len, int row_bytes, int p, float scale,
+                      cudaStream_t stream) {
+  const size_t smem = s8_smem_bytes(row_bytes);
+  auto kernel = ivf_scan_s8;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  // blocks a list: one at the engine's nlist; at small nlist enough to
+  // give every SM two
+  const int nsub = cap_len / SUB;
+  int groups = (264 + nlist - 1) / nlist;
+  groups = groups > nsub ? nsub : groups;
+  const dim3 grid(groups, nlist);
+  kernel<<<grid, S8_THREADS, smem, stream>>>(
+      static_cast<const signed char*>(qdisp),
+      static_cast<const signed char*>(lists), row_ids, live_n, vals, idx,
+      qcap, cap_len, row_bytes, p, scale);
+  return cudaGetLastError();
+}
+
 template <int KIND>
 cudaError_t launch_kind(const void* qdisp, const void* lists, const int* row_ids,
                         const int* live_n, float* vals, int* idx, int nlist,
@@ -228,9 +450,14 @@ extern "C" int ivf_list_scan_launch(int dtype, const void* qdisp,
   const auto s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   switch (dtype) {
-    case 0:
-      err = launch_kind<0>(qdisp, lists, row_ids, live_n, vals, idx, nlist, qcap,
-                           cap_len, (int)row_bytes, p, scale, s);
+    case 0:   // the tensor-core kernel while its tiles fit shared memory
+              // and a lane can keep each pass's winner (p <= 32)
+      err = s8_smem_bytes((int)row_bytes) <= 227 * 1024 && p <= 32
+                ? launch_s8(qdisp, lists, row_ids, live_n, vals, idx, nlist,
+                            qcap, cap_len, (int)row_bytes, p, scale, s)
+                : launch_kind<0>(qdisp, lists, row_ids, live_n, vals, idx,
+                                 nlist, qcap, cap_len, (int)row_bytes, p,
+                                 scale, s);
       break;
     case 1:
       err = launch_kind<1>(qdisp, lists, row_ids, live_n, vals, idx, nlist, qcap,

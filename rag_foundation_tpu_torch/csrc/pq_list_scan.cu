@@ -24,49 +24,66 @@
 //   with no live slot is never read. Other dead slots are computed
 //   unmasked, as on the TPU.
 //
-// What the TPU did and why this does not: the Pallas kernel expands the
-// codes to a one-hot [rows, K*m] matrix and multiplies it with the LUT on
-// the matrix unit, because a TPU has no gather. A GPU has one: shared
-// memory. So the sum is m table lookups a (slot, row) pair, 1/32 of the
-// one-hot product's operations.
+// What the TPU did: it expands the codes to a one-hot [rows, K*m] matrix
+// and multiplies it with the LUT on the matrix unit, because a TPU has no
+// gather.
 //
 // Bound on an H100: per batch the kernel must read the live rows' codes
 // (m_bytes + 4 id bytes a row) and the live slots' LUTs once and write the
-// outputs; it does live slots x live rows x m lookups, each a read of one
-// LUT entry from shared memory. At the engine's shapes (m = 192, about 8
-// live slots a list of about 2,400 rows) the two terms are of one size:
-// the bytes over the HBM rate a little above the lookups over the
-// shared-memory rate.
+// outputs; it does live slots x live rows x m lookups. At the engine's
+// shapes (m = 192, about 8 live slots a list of about 2,400 rows) the
+// bytes (0.66 ms at 3.35 TB/s) a little above the lookups at the shared-
+// memory rate; what holds a kernel back is issued instructions.
 //
-// Design: one 128-thread block per (list, group of sub-blocks); thread t
-// owns row t of a sub-block. A tile of 8 query slots' LUTs is staged in
-// shared memory TRANSPOSED to [k][pos][slot] (slot innermost), so ONE 8-
-// or 16-byte shared load at (code, pos) fetches the entry of every slot of
-// the tile: the lookups per row drop eightfold. Each K slab is padded by
-// 16 bytes so that rows with different codes hit different banks. int8
-// entries are stored biased by +128 as unsigned bytes and accumulated four
-// slots to a register pair in 16-bit lanes (two PRMT and two IADD per four
-// lookups; 255 * 256 < 2^16, flushed to int32 every 256 positions; the
-// bias m*128 comes off at the end). The codes of the sub-block pass
-// through shared memory in chunks of 16 words a row, word-transposed
-// ([word][row], stride 129), so a thread's reads and the staging writes
-// are both conflict-free and the global reads coalesce; the scores reuse
-// that buffer. What the kernel waits for is latency, not bandwidth, so the
-// block is kept small (about 33 KB of shared memory with an int8 LUT: six
-// blocks an SM); a list with more than 8 live slots takes a second pass
-// over its codes. The selection is the warp top-p shared with
-// ivf_list_scan.cu. A block keeps its LUT tile across its sub-blocks, so
-// the LUT is staged gridDim.x times a list, not once a sub-block. What is
-// left on the table: tensor cores (the one-hot product as an int8 mma
-// would trade 32x the operations for a much higher rate), TMA staging, and
-// overlapping a chunk's staging with the previous chunk's lookups.
+// int8 LUTs with m_bytes % 4 == 0 and m < 256 (the engine's tier) take
+// `pq_scan_v2`, a design for Hopper:
+// - Only live rows take a lane. A warp owns whole 128-row sub-blocks and
+//   compacts their live rows (ballot/popc over row_ids); their scores go
+//   back to the rows' own positions of the sub-block, dead positions
+//   marked, so the top-p (and which row wins a tie) is unchanged.
+// - One pass over the codes for up to 16 live slots: a block of 12 warps
+//   stages its list's LUT tile once (8 slots when at most 8 are live); a
+//   list with more than 16 takes further passes.
+// - Asynchronous staging: each warp streams 32-byte chunks of its live
+//   rows' codes through its own two-stage ring with `cp.async` (16 bytes,
+//   or 4 when m_bytes % 16 != 0): the next chunk is in flight while it
+//   computes the current one, and no block barrier sits on the load path.
+//   A warp's first chunk goes in flight before the block stages the LUTs.
+// - Tensor cores where they cut instructions: lists with more than 8 live
+//   slots (two n-tiles) take the TPU's one-hot product, `mma.sync`
+//   m16n8k32 u8 x s8 -> s32. A is the one-hot of 16 rows' codes, k = (code,
+//   position) for 8 codes x 4 positions a k-step: one byte permutation
+//   (`prmt`) a register, selecting from a table with a 1 at the lane's code
+//   by the four codes as nibbles (the nibbles' sign bit selects codes 8-15),
+//   so the sum is the score, exact in int32 (packed codes compare bytes
+//   instead: 0x80 a match, 128x the score). B is the LUT tile, planes of
+//   four positions whose words are the K-major LUT's own, loaded once a
+//   word and reused by every 16-row group.
+// - Lists with at most 8 live slots take a shared-memory lookup, which
+//   issues fewer instructions there: one 8-byte cell of 8 slots' u8
+//   entries (biased by +128, transposed to [k][pos][slot]) a (row,
+//   position), added in 16-bit lanes (flushed to int32 after every chunk:
+//   at most 64 lookups, 255 * 64 < 2^16).
+// - The scores are integers below 2^15 in magnitude: they wait in shared
+//   memory as int16, and the top-p packs score and position into one key
+//   (topp_keys.cuh): one warp maximum a pass, four slots interleaved.
+// Timed in turns on one card against this choice by live slots, the
+// lookup alone lost ten pairs of ten, the one-hot product alone six of six
+// (PERF.md).
+// bf16 LUTs, m_bytes % 4 != 0 and m >= 256 take `pq_scan_kernel`: one
+// 128-thread block per (list, group of sub-blocks), thread t owns row t, a
+// tile of 8 slots' LUTs transposed to [k][pos][slot] so one 8- or 16-byte
+// shared load fetches every slot's entry, codes staged word-transposed
+// (f32 sums in position order).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "mma_s8.cuh"
 #include "subblock_topp.cuh"
+#include "topp_keys.cuh"
 
 namespace {
 
@@ -304,6 +321,551 @@ pq_scan_kernel(const unsigned char* __restrict__ lut_disp,
   }
 }
 
+// ---- int8 LUT, m_bytes % 4 == 0: compacted rows, one pass, cp.async -------
+enum { ROUTE_MMA = 0, ROUTE_LOOKUP = 1 };   // of one pass
+constexpr int V2_WARPS = 12;              // most warps a block
+constexpr int V2_QT = 16;                 // query slots a pass
+constexpr int V2_CHUNK = 32;              // code bytes of a row a stage
+constexpr int V2_CROW = V2_CHUNK + 16;    // staged row stride: rows g and
+                                          // g + 8 (mma) or 8 rows of 16-byte
+                                          // reads (lookup) hit other banks
+constexpr int V2_STAGE = SUB * V2_CROW;   // also holds 16 x 128 int16 scores
+constexpr int V2_WARP_BYTES = 2 * V2_STAGE + 2 * SUB;   // ring + 2 maps
+constexpr short V2_DEAD = -32768;         // the score of a dead row
+static_assert(V2_STAGE >= V2_QT * SUB * 2, "scores reuse a stage");
+
+// mma route: the LUT tile as planes of four positions, one a word of the
+// K-major LUT, [m/4][16 slots][16 codes + 4 pad]: a lane's B fragments are
+// at compile-time offsets from one pointer a plane, and the 32 lanes' loads
+// (8 slots x 4 codes) hit 32 banks (slot stride 20 words)
+constexpr int MMA_SLOT_WORDS = 20;
+constexpr int MMA_PLANE_WORDS = V2_QT * MMA_SLOT_WORDS;
+
+__host__ __device__ inline size_t v2_lut_bytes(int route, int m) {
+  if (route == ROUTE_MMA)
+    return (size_t)(m / 4) * MMA_PLANE_WORDS * 4;
+  return (size_t)K * (m * V2_QT + 16);   // [k][pos][16 slots] + pad
+}
+
+// the LUT region of a launch: either route's tile fits
+__host__ __device__ inline size_t v2_lut_region(int m) {
+  const size_t a = v2_lut_bytes(ROUTE_MMA, m), b = v2_lut_bytes(ROUTE_LOOKUP, m);
+  return a > b ? a : b;
+}
+
+// The one-hot of 4 unpacked codes (one byte each, < 16) against code c by
+// byte permutation: `sel` holds the four codes as the nibbles of its low
+// 16 bits, `tab` is the table (x, y) with byte (c & 7) = 1. A nibble below
+// 8 selects a byte of the table, one of 8 and above replicates the sign of
+// byte (nibble & 7), which is 0: so selecting with sel gives 1 where the
+// code is c < 8, and with sel ^ 0x8888 where it is c >= 8.
+__device__ __forceinline__ unsigned prmt(unsigned x, unsigned y, unsigned s) {
+  unsigned d;   // PTX prmt, default mode: a selector nibble's bit 3 is used
+  asm("prmt.b32 %0, %1, %2, %3;" : "=r"(d) : "r"(x), "r"(y), "r"(s));
+  return d;
+}
+
+__device__ __forceinline__ unsigned code_nibbles(unsigned w) {
+  return __byte_perm(w | (w >> 4), 0u, 0x0020);   // c0 | c1<<4 | c2<<8 | c3<<12
+}
+
+// bytes of `w` equal to the matching byte of `pat` -> 0x80, others -> 0
+// (bytes < 128): three integer instructions for four one-hot entries
+__device__ __forceinline__ unsigned eq_bytes(unsigned w, unsigned pat) {
+  const unsigned x = (w ^ pat) | 0x80808080u;
+  return ~(x - 0x01010101u) & 0x80808080u;
+}
+
+// 16-bit-lane sums of NT*8 biased u8 LUT entries (the lookup route)
+template <int NT> struct Lanes {
+  unsigned even[2 * NT], odd[2 * NT];
+  __device__ __forceinline__ void zero() {
+#pragma unroll
+    for (int i = 0; i < 2 * NT; ++i) even[i] = odd[i] = 0;
+  }
+  __device__ __forceinline__ void add(const unsigned char* e) {
+    unsigned v[2 * NT];
+    if constexpr (NT == 1) {
+      const uint2 x = *reinterpret_cast<const uint2*>(e);
+      v[0] = x.x; v[1] = x.y;
+    } else {
+      const uint4 x = *reinterpret_cast<const uint4*>(e);
+      v[0] = x.x; v[1] = x.y; v[2] = x.z; v[3] = x.w;
+    }
+#pragma unroll
+    for (int i = 0; i < 2 * NT; ++i) {
+      even[i] += __byte_perm(v[i], 0u, 0x4240);   // [b0, 0, b2, 0]
+      odd[i] += __byte_perm(v[i], 0u, 0x4341);    // [b1, 0, b3, 0]
+    }
+  }
+  __device__ __forceinline__ void flush(int* acc) {
+#pragma unroll
+    for (int i = 0; i < 2 * NT; ++i) {
+      acc[4 * i + 0] += (int)(even[i] & 0xffffu);
+      acc[4 * i + 2] += (int)(even[i] >> 16);
+      acc[4 * i + 1] += (int)(odd[i] & 0xffffu);
+      acc[4 * i + 3] += (int)(odd[i] >> 16);
+      even[i] = odd[i] = 0;
+    }
+  }
+};
+
+// mma route, one staged chunk of NG 16-row groups: for each word of four
+// positions, the B fragments of the LUT tile, then every group's A
+// fragments (one-hot of its codes) and products.
+template <int NT, bool PACKED, int NG>
+__device__ __forceinline__ void mma_unit(int* acc, const unsigned char* st,
+                                         const unsigned* lut_w, int cb0,
+                                         int nb, int m_bytes,
+                                         const unsigned (&pat)[4], int g,
+                                         int tig) {
+  constexpr int H = PACKED ? 2 : 1;   // packed: low, then high nibbles
+  for (int w = 0; w < nb / 4; ++w) {
+    unsigned b[H][2][NT][2];
+#pragma unroll
+    for (int half = 0; half < H; ++half) {
+      const int pw = (cb0 + 4 * w + half * m_bytes) >> 2;   // LUT word
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) {
+          const unsigned* bp = lut_w + pw * MMA_PLANE_WORDS +
+                               (nt * 8 + g) * MMA_SLOT_WORDS + tig + 8 * h;
+          b[half][h][nt][0] = bp[0];
+          b[half][h][nt][1] = bp[4];
+        }
+    }
+    unsigned w0[NG], w1[NG];   // rows g and g + 8 of each group
+#pragma unroll
+    for (int grp = 0; grp < NG; ++grp) {
+      w0[grp] = *reinterpret_cast<const unsigned*>(
+          st + (grp * 16 + g) * V2_CROW + 4 * w);
+      w1[grp] = *reinterpret_cast<const unsigned*>(
+          st + (grp * 16 + g + 8) * V2_CROW + 4 * w);
+    }
+    if constexpr (!PACKED) {
+      // tables of this lane's codes tig and 4 + tig (and 8 + ..., 12 + ...)
+      const unsigned t0x = 1u << (8 * tig), t0y = 0u;
+      const unsigned t1x = 0u, t1y = 1u << (8 * tig);
+#pragma unroll
+      for (int grp = 0; grp < NG; ++grp) {
+        const unsigned s0 = code_nibbles(w0[grp]), s1 = code_nibbles(w1[grp]);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const unsigned f = h ? 0x8888u : 0u;   // codes 8.. for h = 1
+          const unsigned av[4] = {prmt(t0x, t0y, s0 ^ f),
+                                  prmt(t0x, t0y, s1 ^ f),
+                                  prmt(t1x, t1y, s0 ^ f),
+                                  prmt(t1x, t1y, s1 ^ f)};
+#pragma unroll
+          for (int nt = 0; nt < NT; ++nt)
+            s8::mma_u8s8(
+                *reinterpret_cast<int(*)[4]>(acc + (grp * NT + nt) * 4), av,
+                b[0][h][nt][0], b[0][h][nt][1]);
+        }
+      }
+    } else {
+      // packed: a word holds 8 codes, low nibbles then high; byte compares
+#pragma unroll
+      for (int grp = 0; grp < NG; ++grp)
+#pragma unroll
+        for (int half = 0; half < H; ++half) {
+          const unsigned c0 = (half ? w0[grp] >> 4 : w0[grp]) & 0x0f0f0f0fu;
+          const unsigned c1 = (half ? w1[grp] >> 4 : w1[grp]) & 0x0f0f0f0fu;
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const unsigned av[4] = {eq_bytes(c0, pat[2 * h]),
+                                    eq_bytes(c1, pat[2 * h]),
+                                    eq_bytes(c0, pat[2 * h + 1]),
+                                    eq_bytes(c1, pat[2 * h + 1])};
+#pragma unroll
+            for (int nt = 0; nt < NT; ++nt)
+              s8::mma_u8s8(
+                  *reinterpret_cast<int(*)[4]>(acc + (grp * NT + nt) * 4),
+                  av, b[half][h][nt][0], b[half][h][nt][1]);
+          }
+        }
+    }
+  }
+}
+
+// lookup route, one staged chunk of NR 32-row passes: a lane scores row
+// rp * 32 + lane of each pass, 16 positions a 16-byte load of its codes.
+template <int NT, bool PACKED, int NR>
+__device__ __forceinline__ void lookup_unit(int* acc, const unsigned char* st,
+                                            const unsigned char* lut_s,
+                                            int slab, int cell, int cb0,
+                                            int nb, int m_bytes, int lane) {
+  Lanes<NT> lanes[NR];
+#pragma unroll
+  for (int rp = 0; rp < NR; ++rp) lanes[rp].zero();
+  for (int x = 0; x < nb; x += 16) {
+    unsigned words[NR][4];
+#pragma unroll
+    for (int rp = 0; rp < NR; ++rp) {
+      const uint4 v = *reinterpret_cast<const uint4*>(
+          st + (rp * 32 + lane) * V2_CROW + x);
+      words[rp][0] = v.x; words[rp][1] = v.y;
+      words[rp][2] = v.z; words[rp][3] = v.w;
+    }
+#pragma unroll
+    for (int wi = 0; wi < 4; ++wi) {
+      if (x + 4 * wi >= nb) break;
+#pragma unroll
+      for (int bb = 0; bb < 4; ++bb) {
+        const int pos = cb0 + x + 4 * wi + bb;
+#pragma unroll
+        for (int rp = 0; rp < NR; ++rp) {
+          const unsigned code = (words[rp][wi] >> (8 * bb)) & 0xffu;
+          lanes[rp].add(lut_s + (code & 15u) * slab + pos * cell);
+          if constexpr (PACKED)
+            lanes[rp].add(lut_s + (code >> 4) * slab + (m_bytes + pos) * cell);
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int rp = 0; rp < NR; ++rp)
+    lanes[rp].flush(acc + rp * 8 * NT);   // at most 128 lookups a lane
+}
+
+struct V2Args {
+  const signed char* lut_g;     // this list's LUTs [qcap, 16*m]
+  const unsigned char* codes;
+  const int* row_ids;
+  float* out_vals;
+  int* out_idx;
+  int l, qcap, cap_len, m, m_bytes, p;
+};
+
+// One pass over the list for slots [q0, q0 + nq), nq <= 8 * NT.
+template <int ROUTE, int NT, bool PACKED>
+__device__ __forceinline__ void v2_pass(const V2Args& a, int q0, int nq,
+                                        unsigned char* smem, int nw) {
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const int g = lane >> 2, tig = lane & 3;
+  const int m = a.m, m_bytes = a.m_bytes, km = K * a.m;
+  const int nsub = a.cap_len / SUB, width = nsub * a.p;
+  unsigned char* lut_s = smem;
+  unsigned char* wbase =
+      smem + v2_lut_region(m) + (size_t)warp * V2_WARP_BYTES;
+  unsigned char* maps = wbase + 2 * V2_STAGE;   // [2][SUB] compact -> row
+  const int cell = 8 * NT, slab = m * cell + 16;
+
+  // -- this warp's sub-blocks, compacted, through a two-stage ring ----------
+  const int wstride = gridDim.x * nw;
+  const int nchunks = (m_bytes + V2_CHUNK - 1) / V2_CHUNK;
+  const size_t list0 = (size_t)a.l * a.cap_len;
+
+  // the live rows of sub-block sb, compacted into map; with none, the
+  // pass's outputs of sb are (-inf, -1). Returns the live count.
+  auto prepare = [&](int sb, unsigned char* map, unsigned (&bal)[4]) -> int {
+    const size_t row0 = list0 + (size_t)sb * SUB;
+    bool lv[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) lv[i] = a.row_ids[row0 + lane + 32 * i] >= 0;
+    int n = 0;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      bal[i] = __ballot_sync(0xffffffffu, lv[i]);
+      if (lv[i])
+        map[n + __popc(bal[i] & ((1u << lane) - 1u))] =
+            (unsigned char)(lane + 32 * i);
+      n += __popc(bal[i]);
+    }
+    if (n == 0)
+      for (int i = lane; i < nq * a.p; i += 32) {
+        const int j = q0 + i / a.p, pass = i % a.p;
+        const size_t o = ((size_t)a.l * a.qcap + j) * width +
+                         (size_t)pass * nsub + sb;
+        a.out_vals[o] = -INFINITY;
+        a.out_idx[o] = -1;
+      }
+    __syncwarp();
+    return n;
+  };
+  auto advance = [&](int sb, unsigned char* map, int& n,
+                     unsigned (&bal)[4]) -> int {
+    for (; sb < nsub; sb += wstride)
+      if ((n = prepare(sb, map, bal)) > 0) return sb;
+    return -1;
+  };
+  // chunk c of sub-block sb's n live rows into a stage, row r at r*V2_CROW
+  auto issue = [&](int sb, int c, unsigned char* st, const unsigned char* map,
+                   int n) {
+    const unsigned char* src0 =
+        a.codes + (list0 + (size_t)sb * SUB) * m_bytes + c * V2_CHUNK;
+    const int nb = min(V2_CHUNK, m_bytes - c * V2_CHUNK);
+    if ((m_bytes & 15) == 0) {
+      const int np = nb / 16;
+      if (np == 2) {
+        const int j = lane & 1;
+        for (int r = lane >> 1; r < n; r += 16)
+          s8::cp_async16(st + r * V2_CROW + j * 16,
+                         src0 + (size_t)map[r] * m_bytes + j * 16, 16);
+      } else {
+        for (int i = lane; i < n * np; i += 32) {
+          const int r = i / np, j = i - r * np;
+          s8::cp_async16(st + r * V2_CROW + j * 16,
+                         src0 + (size_t)map[r] * m_bytes + j * 16, 16);
+        }
+      }
+    } else {
+      const int np = nb / 4;
+      for (int i = lane; i < n * np; i += 32) {
+        const int r = i / np, j = i - r * np;
+        s8::cp_async4(st + r * V2_CROW + j * 4,
+                      src0 + (size_t)map[r] * m_bytes + j * 4, 4);
+      }
+    }
+  };
+
+  // accumulators: mma [row group of 16][n-tile][fragment] (128 x the sum);
+  // lookup [32-row pass][slot] (biased sums)
+  constexpr int NACC = ROUTE == ROUTE_MMA ? 8 * NT * 4 : 4 * 8 * NT;
+  int acc[NACC];
+#pragma unroll
+  for (int i = 0; i < NACC; ++i) acc[i] = 0;
+  unsigned pat[4];   // mma: code 4q + tig in every byte
+#pragma unroll
+  for (int q = 0; q < 4; ++q) pat[q] = (unsigned)(4 * q + tig) * 0x01010101u;
+  const unsigned* lut_w = reinterpret_cast<const unsigned*>(lut_s);
+
+  unsigned bal[4], bal_next[4];
+  int n = 0;
+  int sb = advance((int)blockIdx.x * nw + warp, maps, n, bal);
+  int c = 0, mp = 0, buf = 0;
+  if (sb >= 0) issue(sb, 0, wbase, maps, n);
+  s8::cp_async_commit();
+  // -- the LUT tile, once a pass (the warps' first chunks already in
+  // flight) ---------------------------------------------------------------
+  if constexpr (ROUTE == ROUTE_MMA) {
+    // words (slot j, code c, positions 4w..4w+3) = the K-major LUT's own
+    // words, at plane w, slot j, code c; slots past nq zero-filled
+    const int mw = m / 4;
+    for (int i = t; i < 8 * NT * K * mw; i += blockDim.x) {
+      const int w = i % mw, jc = i / mw, c = jc & (K - 1), j = jc / K;
+      const bool ok = j < nq;
+      s8::cp_async4(lut_s + ((size_t)w * MMA_PLANE_WORDS +
+                             j * MMA_SLOT_WORDS + c) * 4,
+                    ok ? (const void*)(a.lut_g + (size_t)(q0 + j) * km +
+                                       c * m + 4 * w)
+                       : (const void*)a.lut_g,
+                    ok ? 4 : 0);
+    }
+    s8::cp_async_commit();
+    s8::cp_async_wait<0>();
+  } else {
+    // cells [k][pos][8*NT slots] of u8 entries biased by +128. With 8
+    // slots the raw LUTs are first copied whole (16-byte cp.async, all in
+    // flight) behind the cells and transposed from there
+    const unsigned char* raw = nullptr;
+    if constexpr (NT == 1) {
+      unsigned char* r = lut_s + ((K * slab + 15) & ~15);
+      for (int i = t; i < 8 * km / 16; i += blockDim.x) {
+        const int j = i / (km / 16), o = (i - j * (km / 16)) * 16;
+        const bool ok = j < nq;
+        s8::cp_async16(r + j * km + o,
+                       ok ? (const void*)(a.lut_g + (size_t)(q0 + j) * km + o)
+                          : (const void*)a.lut_g,
+                       ok ? 16 : 0);
+      }
+      s8::cp_async_commit();
+      s8::cp_async_wait<0>();
+      __syncthreads();
+      raw = r;
+    }
+    for (int e = t; e < km; e += blockDim.x) {
+      const int k = e / m, pos = e - k * m;
+      unsigned w[2 * NT];
+#pragma unroll
+      for (int i = 0; i < 2 * NT; ++i) {
+        unsigned word = 0;
+#pragma unroll
+        for (int b = 0; b < 4; ++b) {
+          const int j = 4 * i + b;
+          int v;
+          if constexpr (NT == 1)
+            v = (signed char)raw[j * km + e];
+          else
+            v = j < nq ? (int)a.lut_g[(size_t)(q0 + j) * km + e] : 0;
+          word |= (unsigned)(v + 128) << (8 * b);
+        }
+        w[i] = word;
+      }
+      unsigned char* dst = lut_s + k * slab + pos * cell;
+      if constexpr (NT == 1)
+        *reinterpret_cast<uint2*>(dst) = make_uint2(w[0], w[1]);
+      else
+        *reinterpret_cast<uint4*>(dst) = make_uint4(w[0], w[1], w[2], w[3]);
+    }
+  }
+  __syncthreads();
+
+  while (sb >= 0) {
+    // the next unit goes in flight before this one is computed
+    int nsb = sb, nc = c + 1, nn = n, nmp = mp;
+    if (nc == nchunks) {
+      nc = 0;
+      nmp = mp ^ 1;
+      nsb = advance(sb + wstride, maps + nmp * SUB, nn, bal_next);
+    }
+    if (nsb >= 0)
+      issue(nsb, nc, wbase + (buf ^ 1) * V2_STAGE, maps + nmp * SUB, nn);
+    s8::cp_async_commit();
+    s8::cp_async_wait<1>();
+    __syncwarp();
+
+    const unsigned char* st = wbase + buf * V2_STAGE;
+    const unsigned char* map = maps + mp * SUB;
+    const int cb0 = c * V2_CHUNK;
+    const int nb = min(V2_CHUNK, m_bytes - cb0);
+    if constexpr (ROUTE == ROUTE_MMA) {
+      // a compile-time count of 16-row groups: no branch between them, so
+      // their loads and products interleave
+      switch ((n + 15) >> 4) {
+#define PQ_MMA_CASE(NG)                                                    \
+  case NG:                                                                 \
+    mma_unit<NT, PACKED, NG>(acc, st, lut_w, cb0, nb, m_bytes, pat,      \
+                             g, tig);                                      \
+    break;
+        PQ_MMA_CASE(1) PQ_MMA_CASE(2) PQ_MMA_CASE(3) PQ_MMA_CASE(4)
+        PQ_MMA_CASE(5) PQ_MMA_CASE(6) PQ_MMA_CASE(7) PQ_MMA_CASE(8)
+#undef PQ_MMA_CASE
+      }
+    } else {
+      switch ((n + 31) >> 5) {
+#define PQ_LOOKUP_CASE(NR)                                                 \
+  case NR:                                                                 \
+    lookup_unit<NT, PACKED, NR>(acc, st, lut_s, slab, cell, cb0, nb,       \
+                                m_bytes, lane);                            \
+    break;
+        PQ_LOOKUP_CASE(1) PQ_LOOKUP_CASE(2) PQ_LOOKUP_CASE(3)
+        PQ_LOOKUP_CASE(4)
+#undef PQ_LOOKUP_CASE
+      }
+    }
+
+    if (c == nchunks - 1) {
+      // the stage just consumed holds the sub-block's scores
+      __syncwarp();
+      short* sc = reinterpret_cast<short*>(wbase + buf * V2_STAGE);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        if (!((bal[i] >> lane) & 1u))
+          for (int j = 0; j < nq; ++j) sc[j * SUB + lane + 32 * i] = V2_DEAD;
+      if constexpr (ROUTE == ROUTE_MMA) {
+#pragma unroll
+        for (int grp = 0; grp < 8; ++grp)
+#pragma unroll
+          for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int r = grp * 16 + g + (e >= 2 ? 8 : 0);
+              const int j = nt * 8 + tig * 2 + (e & 1);
+              int& v = acc[(grp * NT + nt) * 4 + e];
+              if (r < n && j < nq)
+                sc[j * SUB + map[r]] = (short)(PACKED ? v >> 7 : v);
+              v = 0;
+            }
+      } else {
+#pragma unroll
+        for (int rp = 0; rp < 4; ++rp) {
+          const int r = rp * 32 + lane;
+#pragma unroll
+          for (int j = 0; j < 8 * NT; ++j) {
+            int& v = acc[rp * 8 * NT + j];
+            if (r < n && j < nq)
+              sc[j * SUB + map[r]] = (short)(v - 128 * m);
+            v = 0;
+          }
+        }
+      }
+      __syncwarp();
+      // the scores are integers: one warp maximum a pass (topp_keys.cuh)
+      keys::warp_topp_slots(sc, V2_DEAD, 0, nq, 1, lane, a.p, nsub, sb,
+                            (int)(list0 + (size_t)sb * SUB), 1.0f,
+                            a.out_vals + ((size_t)a.l * a.qcap + q0) * width,
+                            a.out_idx + ((size_t)a.l * a.qcap + q0) * width,
+                            width);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) bal[i] = bal_next[i];
+    }
+    __syncwarp();
+    sb = nsb; c = nc; n = nn; mp = nmp; buf ^= 1;
+  }
+  s8::cp_async_wait<0>();
+}
+
+template <bool PACKED>
+__global__ void __launch_bounds__(V2_WARPS * 32, 1)
+pq_scan_v2(const signed char* __restrict__ lut_disp,
+           const unsigned char* __restrict__ codes,
+           const int* __restrict__ row_ids, const int* __restrict__ live_n,
+           float* __restrict__ out_vals, int* __restrict__ out_idx, int qcap,
+           int cap_len, int m, int m_bytes, int p) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int l = blockIdx.y;
+  const int nw = blockDim.x >> 5;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nsub = cap_len / SUB, width = nsub * p;
+  const int nlive = live_n == nullptr ? qcap : min(qcap, live_n[l]);
+  // dead tail of the dispatch: (-inf, -1), nothing read
+  if (nlive < qcap)
+    for (int sb = blockIdx.x * nw + warp; sb < nsub; sb += gridDim.x * nw)
+      for (int i = lane; i < (qcap - nlive) * p; i += 32) {
+        const int j = nlive + i / p, pass = i % p;
+        const size_t o = ((size_t)l * qcap + j) * width + (size_t)pass * nsub + sb;
+        out_vals[o] = -INFINITY;
+        out_idx[o] = -1;
+      }
+  if (nlive == 0) return;
+  const V2Args a{lut_disp + (size_t)l * qcap * K * m, codes, row_ids,
+                 out_vals, out_idx, l, qcap, cap_len, m, m_bytes, p};
+  for (int q0 = 0; q0 < nlive; q0 += V2_QT) {
+    const int nq = min(V2_QT, nlive - q0);
+    __syncthreads();   // the previous pass is done with the LUT tile
+    // by slots: the lookup for one n-tile of 8 slots, where it issues
+    // fewer instructions, the one-hot product for two
+    if (nq <= 8)
+      v2_pass<ROUTE_LOOKUP, 1, PACKED>(a, q0, nq, smem, nw);
+    else
+      v2_pass<ROUTE_MMA, 2, PACKED>(a, q0, nq, smem, nw);
+  }
+}
+
+// Launches the compacted kernel; cudaErrorNotSupported when one warp's
+// buffers and the LUT tile do not fit shared memory.
+cudaError_t launch_v2(const void* lut_disp, const void* codes,
+                      const int* row_ids, const int* live_n, float* vals,
+                      int* idx, int nlist, int qcap, int cap_len, int m,
+                      int m_bytes, int packed, int p, cudaStream_t stream) {
+  // int16 scores; a lane keeps each pass's winner
+  if (m >= 256 || p > 32) return cudaErrorNotSupported;
+  const size_t lut = v2_lut_region(m);
+  const size_t limit = 227 * 1024;
+  if (lut + V2_WARP_BYTES > limit) return cudaErrorNotSupported;
+  const int nsub = cap_len / SUB;
+  int nw = (int)((limit - lut) / V2_WARP_BYTES);
+  nw = nw > V2_WARPS ? V2_WARPS : nw;
+  nw = nw > nsub ? nsub : nw;
+  const size_t smem = lut + (size_t)nw * V2_WARP_BYTES;
+  // blocks a list: one at the engine's nlist, more at small nlist
+  int groups = (132 + nlist - 1) / nlist;
+  const int most = (nsub + nw - 1) / nw;
+  groups = groups > most ? most : groups;
+  const dim3 grid(groups, nlist);
+  const auto* lut8 = static_cast<const signed char*>(lut_disp);
+  const auto* c8 = static_cast<const unsigned char*>(codes);
+  auto kernel = packed ? pq_scan_v2<true> : pq_scan_v2<false>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, nw * 32, smem, stream>>>(lut8, c8, row_ids, live_n, vals, idx,
+                                          qcap, cap_len, m, m_bytes, p);
+  return cudaGetLastError();
+}
+
 template <int KIND>
 cudaError_t launch(const void* lut_disp, const void* codes, const int* row_ids,
                    const int* live_n, float* vals, int* idx, int nlist,
@@ -350,6 +912,12 @@ extern "C" int pq_list_scan_launch(int lut_dtype, int packed,
       m_bytes != (packed ? m / 2 : m) || (packed && (m & 1)))
     return (int)cudaErrorInvalidValue;
   const auto s = static_cast<cudaStream_t>(stream);
+  if (lut_dtype == 0 && (m_bytes & 3) == 0) {
+    const cudaError_t err = launch_v2(lut_disp, codes, row_ids, live_n, vals,
+                                      idx, nlist, qcap, cap_len, m, m_bytes,
+                                      packed, p, s);
+    if (err != cudaErrorNotSupported) return (int)err;
+  }
   const cudaError_t err =
       lut_dtype == 2
           ? launch<2>(lut_disp, codes, row_ids, live_n, vals, idx, nlist, qcap,

@@ -10,8 +10,9 @@ the other.
 Ported: the ``hash``, ``minilm`` and ``hybrid`` encoders and the
 ``exact``, ``ivf_flat``, ``ivf_flat_int8`` and ``ivf_pq`` index modes on
 one device (``EngineConfig.device``, the card by default; the MiniLM
-encoder runs there too). Not ported yet: mesh sharding, the generative
-decoder, the Prometheus metrics and the reader's ``textnorm`` pinning.
+encoder runs there too), and the engine's Prometheus series
+(``engine/metrics.py``, ``Engine.metrics``). Not ported yet: mesh
+sharding, the generative decoder and the reader's ``textnorm`` pinning.
 
 Thread model: the RPC server calls in from many threads; each store
 serializes mutation under its own lock, searches read the latest
@@ -32,6 +33,7 @@ import torch
 
 from rag_foundation_tpu_torch.engine.chunker import chunk_text
 from rag_foundation_tpu_torch.engine.index import StoreIndex
+from rag_foundation_tpu_torch.engine.metrics import EngineMetrics
 from rag_foundation_tpu_torch.models.hash_encoder import HashingEncoder
 from rag_foundation_tpu_torch.utils.device import resolve_device
 
@@ -185,6 +187,7 @@ class Engine:
         self._stores: dict[str, _Store] = {}
         self._pad_counts: dict[str, int] = {}   # bench pads (pad_store)
         self._registry_lock = threading.Lock()
+        self.metrics = EngineMetrics()
         if self.config.data_dir:
             self._load_all()
 
@@ -375,7 +378,8 @@ class Engine:
         """Batched core: one encode + one scan per store for Q queries."""
         from rag_foundation_tpu_torch.utils.profiling import (StageTimer,
                                                               maybe_trace)
-        timer = StageTimer()
+        timer = StageTimer(histogram=self.metrics.query_stage_seconds)
+        self.metrics.search_batch_size.observe(len(queries))
         with timer.stage("embed"):
             # query-side encode (stopword-stripped lexical channel) when
             # the encoder distinguishes it (MiniLM does not)
@@ -593,6 +597,9 @@ class Engine:
         recall = float(np.mean([
             len(set(a[a >= 0]) & set(b[b >= 0])) / k_eff
             for a, b in zip(np.asarray(approx_ids), exact_ids)]))
+        self.metrics.recall_at_k.labels(store=store_key,
+                                        k=str(k_eff)).set(recall)
+        self.metrics.update_device_memory(self.device)
         return {"recall": recall, "sample": int(len(queries)),
                 "k": k_eff}
 

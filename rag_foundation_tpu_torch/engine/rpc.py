@@ -225,11 +225,10 @@ class EngineRpcServer:
         return self.engine.prewarm_generator()
 
     def _op_metrics_text(self, req):
-        """The port keeps no Prometheus registry yet: the per-stage
-        search profile, one ``stage seconds calls`` line each."""
-        from rag_foundation_tpu_torch.engine.profile import search_profile
-        return "".join(f"{name} {v['s']} {v['n']}\n" for name, v in
-                       sorted(search_profile.snapshot().items()))
+        """The engine's Prometheus text (batch-size histogram, per-stage
+        query latency, recall audit, device memory): the engine process
+        has no HTTP listener, so observability rides the RPC socket."""
+        return self.engine.metrics.render()
 
 
 # ---------------------------------------------------------------------------

@@ -55,6 +55,10 @@ class VectorSegment:
     def count(self) -> int:
         return self._count
 
+    @property
+    def live_count(self) -> int:
+        return self._count - len(self._dead)
+
     def _grow_to(self, need: int) -> None:
         new_cap = self.capacity
         while new_cap < need:
@@ -91,8 +95,12 @@ class VectorSegment:
             self._dead |= ids
             self._live_mask_dev = None
 
-    def _compact_locked(self) -> None:
+    def compact(self) -> None:
         """Physically drop tombstoned rows (copy-on-compact)."""
+        with self._lock:
+            self._compact_locked()
+
+    def _compact_locked(self) -> None:
         if not self._dead:
             return
         ids_host = self._ids[: self._count]

@@ -13,7 +13,9 @@ processes connect with ``RAGTPU_ENGINE_RPC_MODE=connect``.
 
 The engine runs on the card; ``RAGTPU_ENGINE_PLATFORM=cpu`` runs it on
 the CPU instead. Without a card and without that variable it exits with
-an error.
+an error. It also exits, before it opens the socket, when
+``RAGTPU_ENGINE_GENERATOR_CKPT`` is set: the generative decoder is not
+ported yet.
 """
 
 from __future__ import annotations
@@ -72,6 +74,13 @@ def config_from_env(env: dict[str, str] | None = None
     """``(EngineConfig, rpc socket path, allow_pad)`` from ``RAGTPU_*``
     variables."""
     env = dict(os.environ if env is None else env)
+    if env.get(_PREFIX + "ENGINE_GENERATOR_CKPT"):
+        # the JAX engine process prewarms the decoder at startup; the
+        # port has none, so it refuses here rather than fail the first chat
+        raise ValueError(
+            f"{_PREFIX}ENGINE_GENERATOR_CKPT is set, but the generative "
+            f"decoder is not ported yet: unset {_PREFIX}ENGINE_GENERATOR_CKPT"
+            f" (the extractive span_reader needs no decoder)")
     kw = {f: _get(env, name, typ, default)
           for f, name, typ, default in _FIELDS}
     kw["encoder_ckpt"] = kw["encoder_ckpt"] or None
@@ -93,7 +102,10 @@ def main() -> None:  # pragma: no cover — production entrypoint
 
     logging.basicConfig(level=logging.INFO, format="%(message)s")
     log = logging.getLogger("engine_main")
-    cfg, socket_path, allow_pad = config_from_env()
+    try:
+        cfg, socket_path, allow_pad = config_from_env()
+    except ValueError as e:
+        raise SystemExit(f"engine_main: {e}") from None
     engine = Engine(cfg)
     server = EngineRpcServer(engine, socket_path,
                              allow_pad=allow_pad).start()

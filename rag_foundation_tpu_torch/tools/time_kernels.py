@@ -1,7 +1,8 @@
 """Time the kernels on synthetic data of the shapes their paths give them.
 
     python -m rag_foundation_tpu_torch.tools.time_kernels
-    python -m rag_foundation_tpu_torch.tools.time_kernels \\
+    python -m rag_foundation_tpu_torch.tools.time_kernels --only pq flat \\
+        --other-pq path/to/another/pq_list_scan.cu \\
         --other-flat path/to/another/ivf_list_scan.cu
 
 Needs a CUDA card and ``nvcc``. Inputs: 4096 lists whose 2,441 live rows
@@ -11,12 +12,18 @@ batch of uniform traffic), int8 values from a seeded generator. It prints
 the card's name and power limit, then one line a variant: the ADC scan
 (``pq_list_scan``: qcap 16 and 8, with the dispatch and with every slot
 live, p 8 and 1, bf16 LUT, packed codes) and the flat scan
-(``ivf_list_scan``, p 3). With ``--other-flat`` it also builds that
-source (another version of the flat kernel with the same C entry point;
-headers are taken from its own directory) and times the two in turns
-(other, this, this, other), so that two versions are compared within one
-run on one card. Last come the exact-scan kernels on ``--exact-rows`` x 768
-normal rows and 1024 queries: ``block_topk`` (p 2 and 10, its kernel alone
+(``ivf_list_scan``, p 3), each time beside its bound (the formulas of
+``chip_smoke.py``'s ``pq_scan_bound`` and ``scan_bound``). With
+``--other-pq`` or ``--other-flat`` it also builds that source (another
+version of the kernel with the same C entry point; headers are taken
+from its own directory), checks that the two give bit-identical outputs
+on the main path's shape (int8, qcap 16, a Poisson(8) dispatch; p 8 for
+the ADC scan, 3 for the flat one) and times them in turns (other, this,
+this, other; five rounds of two pairs each, and the number of pairs
+this version won), so that two versions are compared within one run on
+one card.
+Last come the exact-scan kernels on ``--exact-rows`` x 768 normal rows and
+1024 queries: ``block_topk`` (p 2 and 10, its kernel alone
 and with the stage-2 merge), ``fused_topk`` (the default split of the rows
 and a few others, k 10 and 64), in bf16, and both in f32 on an eighth of
 the rows. Then the encoder's attention (``flash_attention``, H=12, D=32,
@@ -74,7 +81,79 @@ def _dispatch(torch, g, nlist: int, qcap: int):
     return disp, int(n_live.sum())
 
 
-def time_pq(torch, g, nlist: int, live_rows: int) -> None:
+# the published H100 SXM peaks of chip_smoke.py
+HBM_BYTES_S = 3.35e12
+INT8_OPS_S = 1.979e15
+SMEM_BYTES_S = 132 * 128 * 1.98e9
+
+
+def _live_counts(ids, live_n):
+    live_rows = (ids >= 0).sum(dim=1).double()
+    read = live_n > 0
+    return live_rows, read, int(read.sum()) * ids.shape[1]
+
+
+def pq_bound_ms(ids, live_n, qcap, p, m, m_bytes, lut_esize) -> str:
+    """``chip_smoke.pq_scan_bound``: the live rows' codes, the ids of the
+    lists read, the live slots' LUTs and the outputs over the HBM rate, or
+    one shared-memory read a lookup, whichever is longer."""
+    live_rows, read, ids_read = _live_counts(ids, live_n)
+    out_elems = ids.shape[0] * qcap * (ids.shape[1] // 128) * p
+    nbytes = float(live_rows[read].sum()) * m_bytes + ids_read * 4 \
+        + int(live_n.sum()) * 16 * m * lut_esize + ids.shape[0] * 4 \
+        + out_elems * 8
+    lookups = m * float((live_n.double() * live_rows).sum())
+    t_b, t_o = nbytes / HBM_BYTES_S, lookups * lut_esize / SMEM_BYTES_S
+    by = "bytes" if t_b >= t_o else "lookups"
+    return f"{max(t_b, t_o) * 1e3:.3f} ms ({by})"
+
+
+def flat_bound_ms(ids, live_n, qcap, p, d) -> str:
+    """``chip_smoke.scan_bound`` for int8: the live query rows, the live
+    rows of the lists read, their ids and the outputs over the HBM rate,
+    or the int8 products at the peak rate, whichever is longer."""
+    live_rows, read, ids_read = _live_counts(ids, live_n)
+    out_elems = ids.shape[0] * qcap * (ids.shape[1] // 128) * p
+    nbytes = (int(live_n.sum()) + float(live_rows[read].sum())) * d \
+        + ids_read * 4 + ids.shape[0] * 4 + out_elems * 8
+    ops = 2.0 * d * float((live_n.double() * live_rows).sum())
+    t_b, t_o = nbytes / HBM_BYTES_S, ops / INT8_OPS_S
+    by = "bytes" if t_b >= t_o else "operations"
+    return f"{max(t_b, t_o) * 1e3:.3f} ms ({by})"
+
+
+def _other_fn(src: str, entry: str, argtypes, tmp: str):
+    """The C entry point of another version of a kernel source."""
+    from rag_foundation_tpu_torch.ops import cuda_lib
+    lib_path = str(Path(tmp) / f"lib{entry}.so")
+    subprocess.run([cuda_lib._nvcc(), *cuda_lib.NVCC_FLAGS[:-2],
+                    "-o", lib_path, src], check=True)
+    fn = getattr(ctypes.CDLL(lib_path), entry)
+    fn.argtypes = argtypes
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _turns(torch, name, other, this, bound) -> None:
+    """Bit-identity, then other/this/this/other five times: ten pairs,
+    (other, this) and (this, other) in each round."""
+    ov, oi = other()
+    tv, ti = this()
+    torch.cuda.synchronize()
+    same = torch.equal(ov, tv) and torch.equal(oi, ti)
+    print(f"{name}: outputs {'bit-identical' if same else 'DIFFER'}; bound "
+          f"{bound}", flush=True)
+    won = 0
+    for _ in range(5):
+        t = [_ms(other), _ms(this), _ms(this), _ms(other)]
+        won += (t[1] < t[0]) + (t[2] < t[3])
+        print(f"  other {t[0]:.3f} this {t[1]:.3f} this {t[2]:.3f} other "
+              f"{t[3]:.3f} ms", flush=True)
+    print(f"  this faster in {won} of 10 pairs", flush=True)
+
+
+def time_pq(torch, g, nlist: int, live_rows: int,
+            other_src: str | None) -> None:
     from rag_foundation_tpu_torch.ops import pq_scan
     cap_len, m = 3712, 192
     codes = torch.randint(0, 16, (nlist, cap_len, m), generator=g,
@@ -84,27 +163,64 @@ def time_pq(torch, g, nlist: int, live_rows: int) -> None:
         lut = torch.randint(-127, 128, (nlist, qcap, 16 * m), generator=g,
                             device="cuda", dtype=torch.int8)
         disp, live = _dispatch(torch, g, nlist, qcap)
-        for name, d, slots in ((f"Poisson(8) dispatch", disp, live),
+        if other_src is not None and qcap == 16:
+            _pq_turns(torch, other_src, lut, codes, ids, disp, live, m)
+        every = torch.full((nlist,), qcap, dtype=torch.int32, device="cuda")
+        for name, d, slots in (("Poisson(8) dispatch", disp, live),
                                ("every slot live", None, nlist * qcap)):
+            live_n = every if d is None else pq_scan.live_slots(d)
             for p in (8, 1):
                 t = _ms(lambda: pq_scan.pq_list_scan(lut, codes, ids, d,
                                                      p=p))
                 print(f"pq_list_scan int8 LUT qcap={qcap} {name} "
-                      f"({slots} live slots) p={p}: {t:.3f} ms", flush=True)
+                      f"({slots} live slots) p={p}: {t:.3f} ms, bound "
+                      f"{pq_bound_ms(ids, live_n, qcap, p, m, m, 1)}",
+                      flush=True)
         lutb = torch.randn((nlist, qcap, 16 * m), generator=g,
                            device="cuda").bfloat16()
         t = _ms(lambda: pq_scan.pq_list_scan(lutb, codes, ids, None, p=8))
         print(f"pq_list_scan bf16 LUT qcap={qcap} every slot live p=8: "
-              f"{t:.3f} ms", flush=True)
+              f"{t:.3f} ms, bound "
+              f"{pq_bound_ms(ids, every, qcap, 8, m, m, 2)}", flush=True)
     packed = pq_scan.pack_codes(codes).contiguous()
     t = _ms(lambda: pq_scan.pq_list_scan(lut, packed, ids, None, p=8))
     print(f"pq_list_scan int8 LUT qcap=8 packed codes every slot live p=8: "
           f"{t:.3f} ms", flush=True)
 
 
+def _pq_turns(torch, other_src, lut, codes, ids, disp, live, m) -> None:
+    from rag_foundation_tpu_torch.ops import pq_scan
+    nlist, qcap, _ = lut.shape
+    cap_len, p = ids.shape[1], 8
+    live_n = pq_scan.live_slots(disp)
+    w = (cap_len // 128) * p
+    ov = torch.empty((nlist, qcap, w), dtype=torch.float32, device="cuda")
+    oi = torch.empty((nlist, qcap, w), dtype=torch.int32, device="cuda")
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    with tempfile.TemporaryDirectory() as tmp:
+        fn = _other_fn(other_src, "pq_list_scan_launch",
+                       [ci, ci, vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci,
+                        ci, vp], tmp)
+
+        def other():
+            rc = fn(0, 0, lut.data_ptr(), codes.data_ptr(), ids.data_ptr(),
+                    live_n.data_ptr(), ov.data_ptr(), oi.data_ptr(), nlist,
+                    qcap, cap_len, m, m, p,
+                    torch.cuda.current_stream().cuda_stream)
+            if rc != 0:
+                raise RuntimeError(f"other kernel: CUDA error {rc}")
+            return ov, oi
+
+        _turns(torch, f"pq_list_scan int8 LUT qcap={qcap} Poisson(8) "
+               f"dispatch ({live} live slots) p={p}, other = {other_src}",
+               other, lambda: pq_scan.pq_list_scan(lut, codes, ids, disp,
+                                                   p=p),
+               pq_bound_ms(ids, live_n, qcap, p, m, m, 1))
+
+
 def time_flat(torch, g, nlist: int, live_rows: int,
               other_src: str | None) -> None:
-    from rag_foundation_tpu_torch.ops import cuda_lib, ivf_scan
+    from rag_foundation_tpu_torch.ops import ivf_scan
     qcap, cap_len, d, p = 16, 2816, 768, 3
     lists = torch.randint(-127, 128, (nlist, cap_len, d), generator=g,
                           device="cuda", dtype=torch.int8)
@@ -112,28 +228,25 @@ def time_flat(torch, g, nlist: int, live_rows: int,
                       device="cuda", dtype=torch.int8)
     ids = _lists(torch, g, nlist, cap_len, live_rows)
     disp, live = _dispatch(torch, g, nlist, qcap)
+    live_n = ivf_scan.live_slots(disp)
+    bound = flat_bound_ms(ids, live_n, qcap, p, d)
+    name = (f"ivf_list_scan int8 qcap={qcap} Poisson(8) dispatch ({live} "
+            f"live slots) p={p}")
 
     def this():
         return ivf_scan.ivf_list_scan(q, lists, ids, disp, p=p, scale=1e-4)
 
     if other_src is None:
-        print(f"ivf_list_scan int8 qcap={qcap} Poisson(8) dispatch ({live} "
-              f"live slots) p={p}: {_ms(this):.3f} ms", flush=True)
+        print(f"{name}: {_ms(this):.3f} ms, bound {bound}", flush=True)
         return
+    w = (cap_len // 128) * p
+    ov = torch.empty((nlist, qcap, w), dtype=torch.float32, device="cuda")
+    oi = torch.empty((nlist, qcap, w), dtype=torch.int32, device="cuda")
+    vp, ci = ctypes.c_void_p, ctypes.c_int
     with tempfile.TemporaryDirectory() as tmp:
-        lib_path = str(Path(tmp) / "libother.so")
-        subprocess.run([cuda_lib._nvcc(), *cuda_lib.NVCC_FLAGS[:-2], "-o",
-                        lib_path, other_src], check=True)
-        fn = ctypes.CDLL(lib_path).ivf_list_scan_launch
-        vp, ci = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [ci, vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci,
-                       ctypes.c_float, vp]
-        fn.restype = ci
-        live_n = ivf_scan.live_slots(disp)
-        w = (cap_len // 128) * p
-        ov = torch.empty((nlist, qcap, w), dtype=torch.float32,
-                         device="cuda")
-        oi = torch.empty((nlist, qcap, w), dtype=torch.int32, device="cuda")
+        fn = _other_fn(other_src, "ivf_list_scan_launch",
+                       [ci, vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci,
+                        ctypes.c_float, vp], tmp)
 
         def other():
             rc = fn(0, q.data_ptr(), lists.data_ptr(), ids.data_ptr(),
@@ -142,17 +255,9 @@ def time_flat(torch, g, nlist: int, live_rows: int,
                     torch.cuda.current_stream().cuda_stream)
             if rc != 0:
                 raise RuntimeError(f"other kernel: CUDA error {rc}")
+            return ov, oi
 
-        other()
-        tv, ti = this()
-        torch.cuda.synchronize()
-        same = torch.equal(ov, tv) and torch.equal(oi, ti)
-        print(f"ivf_list_scan int8 qcap={qcap} Poisson(8) dispatch ({live} "
-              f"live slots) p={p}: outputs "
-              f"{'bit-identical' if same else 'DIFFER'}", flush=True)
-        for _ in range(3):
-            print(f"  other {_ms(other):.3f} this {_ms(this):.3f} this "
-                  f"{_ms(this):.3f} other {_ms(other):.3f} ms", flush=True)
+        _turns(torch, f"{name}, other = {other_src}", other, this, bound)
 
 
 def time_exact(torch, g, rows: int) -> None:
@@ -237,6 +342,44 @@ def time_attention_bwd(torch, g) -> None:
                       f"{lib_kv:.4f} ms, q {lib_q:.4f} ms)", flush=True)
 
 
+def sass_loops(name: str) -> None:
+    """The inner loops of ``csrc/<name>.cu``'s kernels as compiled: for
+    each kernel, each loop (a backward branch) that holds a tensor-core
+    product or a shared-memory load, its instruction count and the counts
+    of its most frequent opcodes (``cuobjdump -sass`` of the built
+    library)."""
+    import re
+    from collections import Counter
+    from rag_foundation_tpu_torch.ops import cuda_lib
+    cuda_lib.load(name)
+    tool = Path(cuda_lib._nvcc()).with_name("cuobjdump")
+    out = subprocess.run([str(tool), "-sass",
+                          str(cuda_lib.library_path(name))],
+                         capture_output=True, text=True, check=True).stdout
+    for body in out.split("Function : ")[1:]:
+        head = body.split("\n", 1)[0]
+        named = re.search(r"((?:pq|ivf)_scan_\w+?)(I\w*?E)?EvP", head)
+        fn = "".join(named.groups("")) if named else head.strip()
+        seen = set()
+        ins = [(int(m.group(1), 16), m.group(2).strip()) for m in re.finditer(
+            r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", body)]
+        at = {a: i for i, (a, _) in enumerate(ins)}
+        for i, (a, text) in enumerate(ins):
+            br = re.search(r"BRA[^0-9]*0x([0-9a-f]+)", text)
+            if not br or int(br.group(1), 16) not in at \
+                    or int(br.group(1), 16) >= a:
+                continue
+            loop = [t for _, t in ins[at[int(br.group(1), 16)]:i + 1]]
+            ops = Counter((t.split()[1] if t.startswith("@") else
+                           t.split()[0]).split(".")[0] for t in loop)
+            top = ", ".join(f"{k} {v}" for k, v in ops.most_common(7))
+            if (ops["IMMA"] or ops["LDS"]) and len(loop) < 1000 \
+                    and top not in seen:
+                seen.add(top)
+                print(f"{name} {fn}: loop of {len(loop)} instructions: "
+                      f"{top}", flush=True)
+
+
 SECTIONS = ("pq", "flat", "exact", "attention", "attention_bwd")
 
 
@@ -247,6 +390,10 @@ def main() -> None:
                     help="live rows a list (10M rows over 4096 lists)")
     ap.add_argument("--other-flat", default=None,
                     help="another ivf_list_scan.cu to time in turns")
+    ap.add_argument("--other-pq", default=None,
+                    help="another pq_list_scan.cu to time in turns")
+    ap.add_argument("--sass", action="store_true",
+                    help="print the list scans' inner loops as compiled")
     ap.add_argument("--exact-rows", type=int, default=1_000_000,
                     help="corpus rows of the exact-scan kernels (bf16)")
     ap.add_argument("--only", nargs="+", choices=SECTIONS, default=SECTIONS,
@@ -261,8 +408,11 @@ def main() -> None:
                          text=True, timeout=60, check=True)
     print(out.stdout.strip().splitlines()[0], flush=True)
     g = torch.Generator(device="cuda").manual_seed(args.seed)
+    if args.sass:
+        sass_loops("pq_list_scan")
+        sass_loops("ivf_list_scan")
     if "pq" in args.only:
-        time_pq(torch, g, args.nlist, args.live_rows)
+        time_pq(torch, g, args.nlist, args.live_rows, args.other_pq)
     if "flat" in args.only:
         time_flat(torch, g, args.nlist, args.live_rows, args.other_flat)
     if "exact" in args.only:

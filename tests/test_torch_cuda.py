@@ -177,6 +177,125 @@ def test_pq_kernel_matches_plain_version_on_card(card, lut, packed, m, qcap):
             assert torch.all((kv[off] - rv[off]).abs() <= 1e-4)
 
 
+# -- edge cases of the redesigned list scans: live slots 0, 1, 8, 9, 16 and
+# 17 of qcap 32 (one list each), sub-blocks of 0, 1 and 128 live rows
+# beside a 30%-dead one, p from 1 to 8
+
+EDGE_LIVE = (0, 1, 8, 9, 16, 17)
+# lists of 29 sub-blocks at nlist 4: the ADC scan gives each list several
+# blocks (the walk of a list split between blocks)
+SPLIT_LIVE = (0, 8, 9, 17)
+
+
+def _edge_rows(card, cap_len=512, seed=0, live=EDGE_LIVE):
+    rng = np.random.default_rng(seed)
+    nlist = len(live)
+    ids = np.arange(nlist * cap_len, dtype=np.int32).reshape(nlist, cap_len)
+    ids[:, :128] = -1                       # a sub-block of no live row
+    one = ids[np.arange(nlist), 128 + 37 + np.arange(nlist)].copy()
+    ids[:, 128:256] = -1                    # ... of one live row
+    ids[np.arange(nlist), 128 + 37 + np.arange(nlist)] = one
+    # 256:384 all live; the rest about 30% dead
+    tail = ids[:, 384:]
+    tail[rng.random(tail.shape) < 0.3] = -1
+    disp = np.full((nlist, 32), -1, np.int32)
+    for l, n in enumerate(live):
+        disp[l, :n] = l
+    return (torch.as_tensor(ids, device=card),
+            torch.as_tensor(disp, device=card))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,d", [("int8", 768), ("int8", 48),
+                                    ("f32", 96), ("bf16", 256)])
+@pytest.mark.parametrize("p", [1, 2, 5, 8])
+def test_flat_kernel_edge_cases_on_card(card, kind, d, p):
+    ids, disp = _edge_rows(card, seed=d + p)
+    q, lists, _ = _inputs("int8" if kind == "int8" else "f32",
+                          nlist=len(EDGE_LIVE), qcap=32, d=d, cap_len=512,
+                          seed=p)
+    tq, tl = torch.as_tensor(q, device=card), torch.as_tensor(lists,
+                                                                device=card)
+    if kind == "bf16":
+        tq, tl = tq.bfloat16(), tl.bfloat16()
+    for dispatch in (disp, None):
+        kv, ki = ivf_list_scan(tq, tl, ids, dispatch, p=p, scale=1e-4)
+        torch.cuda.synchronize()
+        rv, ri = ivf_list_scan_reference(tq, tl, ids, dispatch, p=p,
+                                         scale=1e-4)
+        if kind == "int8":
+            assert torch.equal(kv, rv) and torch.equal(ki, ri)
+        else:
+            assert torch.equal(torch.isfinite(kv), torch.isfinite(rv))
+            torch.testing.assert_close(kv, rv, rtol=1e-5, atol=1e-5)
+            assert torch.equal(ki, ri)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lut,packed", [("int8", False), ("int8", True),
+                                        ("bf16", False)])
+@pytest.mark.parametrize("p", [1, 2, 5, 8])
+def test_pq_kernel_edge_cases_on_card(card, lut, packed, p):
+    m = 192
+    ids, disp = _edge_rows(card, seed=m + p)
+    l, codes, _ = _pq_inputs(card, lut, packed, m, 32,
+                             nlist=len(EDGE_LIVE), cap_len=512, seed=p)
+    for dispatch in (disp, None):
+        kv, ki = pq_list_scan(l, codes, ids, dispatch, p=p)
+        torch.cuda.synchronize()
+        rv, ri = pq_list_scan_reference(l, codes, ids, dispatch, p=p)
+        if lut == "int8":
+            assert torch.equal(kv, rv) and torch.equal(ki, ri)
+        else:
+            fin = torch.isfinite(rv)
+            assert torch.equal(torch.isfinite(kv), fin)
+            torch.testing.assert_close(kv[fin], rv[fin], rtol=1e-5,
+                                       atol=1e-4)
+            off = ki != ri
+            assert torch.all((kv[off] - rv[off]).abs() <= 1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("packed", [False, True])
+@pytest.mark.parametrize("p", [1, 3, 8])
+def test_pq_kernel_split_lists_on_card(card, packed, p):
+    """nlist 4, cap_len 3712: several blocks a list, each staging the LUT
+    tile, walking its share of the sub-blocks and filling its share of the
+    dispatch's dead tail."""
+    m, cap_len = 192, 3712
+    ids, disp = _edge_rows(card, cap_len=cap_len, seed=p, live=SPLIT_LIVE)
+    l, codes, _ = _pq_inputs(card, "int8", packed, m, 32,
+                             nlist=len(SPLIT_LIVE), cap_len=cap_len, seed=p)
+    for dispatch in (disp, None):
+        kv, ki = pq_list_scan(l, codes, ids, dispatch, p=p)
+        torch.cuda.synchronize()
+        rv, ri = pq_list_scan_reference(l, codes, ids, dispatch, p=p)
+        assert torch.equal(kv, rv) and torch.equal(ki, ri)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["flat", "pq"])
+def test_list_scans_past_the_redesigns_limits_on_card(card, kernel):
+    """p > 32 (and, for the ADC scan, m >= 256) leave the redesigned int8
+    kernels for the per-sub-block ones: the same outputs."""
+    ids, disp = _edge_rows(card, seed=7)
+    if kernel == "flat":
+        q, lists, _ = _inputs("int8", nlist=len(EDGE_LIVE), qcap=32, d=256,
+                              cap_len=512, seed=7)
+        args = (torch.as_tensor(q, device=card),
+                torch.as_tensor(lists, device=card), ids, disp)
+        kv, ki = ivf_list_scan(*args, p=40, scale=1e-4)
+        rv, ri = ivf_list_scan_reference(*args, p=40, scale=1e-4)
+        assert torch.equal(kv, rv) and torch.equal(ki, ri)
+        return
+    for m, p in ((24, 40), (256, 3)):
+        l, codes, _ = _pq_inputs(card, "int8", False, m, 32,
+                                 nlist=len(EDGE_LIVE), cap_len=512, seed=m)
+        kv, ki = pq_list_scan(l, codes, ids, disp, p=p)
+        rv, ri = pq_list_scan_reference(l, codes, ids, disp, p=p)
+        assert torch.equal(kv, rv) and torch.equal(ki, ri)
+
+
 @pytest.mark.cuda
 def test_pq_kernel_cuda_checks(card, monkeypatch):
     l, codes, ids = _pq_inputs(card, "int8", False, 24, 8)
