@@ -93,10 +93,13 @@ Phases (each one fails the run: non-zero exit, no result line):
 
 14. The attention backward kernels (``flash_attention_bwd_dkv``,
     ``flash_attention_bwd_dq``) against their plain versions on the card,
-    bf16 and f32, H=12, D=32, S in {16, 32, 100, 128, 512} and one D=64
-    case, with pads, an all-pad row and a row of one token; the forward
-    kernel's ``lse`` against a masked logsumexp; ``FlashAttention``'s
-    gradients against autograd of the plain forward.
+    bf16 and f32, H=12, S in {1, 8, 16, 32, 33, 64, 65, 100, 128, 256,
+    512, 200}, D 16, 32 and 64, with pads, an all-pad row and a row of one
+    token; the forward kernel's ``lse`` against a masked logsumexp;
+    ``FlashAttention``'s gradients against autograd of the plain forward;
+    then the backward kernels again on other segment layouts: three packed
+    segments a row, ids 0-4 in no order, a row whose keys' ids differ from
+    its queries', and a row whose queries see no key.
 15. Encoder training at full width: a corpus from the recipe's own
     ``scripts/build_text_corpus.py`` (``--corpus-passages``), then the
     port's trainer (``tools.train_encoder.train_ict``, ICT mode: batch 256,
@@ -108,9 +111,11 @@ Phases (each one fails the run: non-zero exit, no result line):
     ``Engine`` through ``encoder_ckpt``; one step's gradients with the
     kernels against the plain attention (worst cosine a leaf); a few steps
     at d_len 512 with peak device memory; the two backward kernels timed on
-    the steps' own layer-0 inputs (d side, S=128 and S=512) beside their
-    plain versions, ``scaled_dot_product_attention``'s backward and their
-    bounds.
+    the steps' own layer-0 inputs (q side S=32, d side S=128, and S=512)
+    beside their plain versions, ``scaled_dot_product_attention``'s
+    backward, their bounds, the exponential floor and the share of 16x16
+    blocks with no same-segment pair. ``--lengths-out`` writes those rows'
+    lengths for ``time_kernels --lengths``.
 
 ``--long-docs`` sets the number of long documents of phase 13. The line
 before last is the kernels' JSON (eight entries); the last line is
@@ -133,14 +138,6 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 
-# published H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and dense
-# operations/s per input type
-HBM_BYTES_S = 3.35e12
-PEAK_OPS_S = {"int8": 1.979e15, "bf16": 0.989e15, "f32": 67e12}
-# shared memory: 128 bytes per SM per clock, 132 SMs at the 1.98 GHz boost
-# clock (NVIDIA's Hopper architecture paper and data sheet): the rate at which a
-# table-lookup kernel can read its table entries
-SMEM_BYTES_S = 132 * 128 * 1.98e9
 # f32/bf16 scores of unit vectors: summation-order error is at most
 # d * 2**-24 * sum|q_i r_i| <= 768 * 6e-8 = 4.6e-5 (bf16 products are exact
 # in f32), so kernel and plain version agree within this
@@ -160,13 +157,15 @@ LONG_BATCH = 256       # chunks an encode: the ingest pipeline's batch
 # the attention backward kernels against their plain versions on the same
 # lse and di: each output is a sum of products a.b (p.dO for dV, ds.q for
 # dK, ds.k for dQ). The bf16 kernels round each p and ds to bf16 before
-# the product (2^-9 relative a term) and the output to bf16 (2^-9); the
-# plain version rounds only its output. ds = p (dO.v - di) * scale
-# cancels, so its f32 error is relative to |a| = p (sum|dO||v| + |di|) *
-# scale, not to |ds|: an element differs by at most 2^-8 * (sum|a||b| +
-# |plain|). f32: exp2 against exp, sums in another order, 1e-5 of the
-# same
-ATTN_BWD_TOL = {"bf16": 2 ** -8, "f32": 1e-5}
+# the product and their output to bf16; the plain version rounds only its
+# output. A rounding to bf16 (8 significant bits) is off by up to 2^-8 of
+# its value. ds = p (dO.v - di) * scale cancels, so its error is relative
+# to |a| = p (sum|dO||v| + |di|) * scale, not to |ds|: an element differs
+# by at most 2^-8 * sum|a||b| plus the two outputs' roundings, 2^-8 *
+# 2 |plain| (an ideal kernel with these roundings alone reaches past one:
+# tests/test_torch_flash_attention_bwd.py). f32: exp2 against exp, sums in
+# another order, 1e-5 of sum|a||b| + |plain|. (relative, |plain| count)
+ATTN_BWD_TOL = {"bf16": (2 ** -8, 2), "f32": (1e-5, 1)}
 # FlashAttention's gradients against autograd of the plain forward, which
 # keeps o and the weights in f32: in bf16 three roundings of 2^-9 a term
 # (P for P.V in the forward, which moves o and so di; P and dS in the
@@ -228,36 +227,15 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     torch.cuda.synchronize()
     a = torch.cuda.Event(enable_timing=True)
     b = torch.cuda.Event(enable_timing=True)
+    # the calls queue behind a spin of the card (100 us a call), so that a
+    # short kernel is timed on the card and not its host launch overhead
+    torch.cuda._sleep(reps * 200_000)
     a.record()
     for _ in range(reps):
         fn()
     b.record()
     torch.cuda.synchronize()
     return a.elapsed_time(b) / reps
-
-
-def scan_bound(row_ids, live_n, qcap, p, esize, d, kind
-               ) -> tuple[float, str, dict]:
-    """(ms, "bytes" | "operations", counts): least time for one list scan
-    with ``live_n[l]`` live query slots in list ``l``. The function needs
-    the live query rows, the live rows of every list with a query (a dead
-    row scores -inf from its id alone) and every id of those lists, read
-    once, and writes every output (f32 value + int32 index) once; its
-    operations are each live slot's dot with each live row of its list
-    at the type's peak."""
-    live_rows = (row_ids >= 0).sum(dim=1).double()
-    read = live_n > 0
-    nlist, cap_len = row_ids.shape
-    c = {"lists_read": int(read.sum()), "live_slots": int(live_n.sum()),
-         "rows_needed": int(live_rows[read].sum()),
-         "rows_in_lists_read": int(read.sum()) * cap_len}
-    out_elems = nlist * qcap * (cap_len // 128) * p
-    nbytes = (c["live_slots"] + c["rows_needed"]) * d * esize \
-        + c["rows_in_lists_read"] * 4 + nlist * 4 + out_elems * 8
-    ops = 2.0 * d * float((live_n.double() * live_rows).sum())
-    t_bytes, t_ops = nbytes / HBM_BYTES_S, ops / PEAK_OPS_S[kind]
-    return max(t_bytes, t_ops) * 1e3, \
-        "bytes" if t_bytes >= t_ops else "operations", c
 
 
 def check_scan(kv, ki, rv, ri, exact, q, lists, what):
@@ -577,43 +555,6 @@ def check_pq_scan(kv, ki, rv, ri, exact, what) -> float:
     return err
 
 
-def pq_scan_bound(row_ids, live_n, qcap, p, m, m_bytes, lut_esize
-                  ) -> tuple[float, str, dict]:
-    """(ms, "bytes" | "operations", counts): least time for one ADC list
-    scan with ``live_n[l]`` live query slots in list ``l``. Bytes: the
-    codes of the live rows of every list with a query, every id of those
-    lists, the LUTs of the live slots and the per-list slot counts read
-    once, every output (f32 value + int32 index) written once.
-    Operations: one table lookup per (live slot, live row, subquantizer),
-    each a read of one LUT entry from shared memory, at the card's
-    shared-memory bandwidth (``SMEM_BYTES_S``)."""
-    live_rows = (row_ids >= 0).sum(dim=1).double()
-    read = live_n > 0
-    nlist, cap_len = row_ids.shape
-    c = {"lists_read": int(read.sum()), "live_slots": int(live_n.sum()),
-         "rows_needed": int(live_rows[read].sum()),
-         "rows_in_lists_read": int(read.sum()) * cap_len}
-    out_elems = nlist * qcap * (cap_len // 128) * p
-    nbytes = c["rows_needed"] * m_bytes + c["rows_in_lists_read"] * 4 \
-        + c["live_slots"] * 16 * m * lut_esize + nlist * 4 + out_elems * 8
-    c["lookups"] = int(m * float((live_n.double() * live_rows).sum()))
-    t_bytes = nbytes / HBM_BYTES_S
-    t_ops = c["lookups"] * lut_esize / SMEM_BYTES_S
-    return max(t_bytes, t_ops) * 1e3, \
-        "bytes" if t_bytes >= t_ops else "operations", c
-
-
-def gather_bound(q_n, c, d) -> tuple[float, str]:
-    """(ms, "bytes" | "operations"): Q*C rows of d int8 bytes, the query
-    rows and the ids read once, the f32 scores written once; 2*Q*C*d int8
-    operations."""
-    nbytes = q_n * c * d + q_n * d + q_n * c * 4 + q_n * c * 4
-    t_bytes = nbytes / HBM_BYTES_S
-    t_ops = 2.0 * q_n * c * d / PEAK_OPS_S["int8"]
-    return max(t_bytes, t_ops) * 1e3, \
-        "bytes" if t_bytes >= t_ops else "operations"
-
-
 def library_ms_of(qdisp, lists, p):
     """Time of ``torch.bmm`` (f32) + ``torch.topk`` for the same scores
     and per-sub-block top-p, every slot computed. The f32 copy of the
@@ -708,19 +649,6 @@ def pq_recall_with_ties(seg, gather, qv, served, exact, k=10) -> float:
         return recall_at(served, exact, k)
     return float(np.mean((s_served >= s_exact.min(axis=1, keepdims=True))
                          .sum(axis=1) / k))
-
-
-def topk_bound(q_n, n_live, d, k, esize, kind) -> tuple[float, str]:
-    """(ms, "bytes" | "operations"): least time for one exact top-k of
-    ``q_n`` queries over ``n_live`` live rows: the live rows and the
-    queries read once (a row past the valid count is not read), the
-    ``[Q, k]`` values and ids written once; ``2*Q*N*d`` operations at the
-    type's peak."""
-    nbytes = (n_live + q_n) * d * esize + q_n * k * 8
-    t_bytes = nbytes / HBM_BYTES_S
-    t_ops = 2.0 * q_n * n_live * d / PEAK_OPS_S[kind]
-    return max(t_bytes, t_ops) * 1e3, \
-        "bytes" if t_bytes >= t_ops else "operations"
 
 
 def check_topk(kv, ki, rv, ri, q, c, tol, what) -> tuple[float, int]:
@@ -830,6 +758,7 @@ def exact_phases(args, card) -> list[dict]:
     of the ``kernels`` line."""
     import numpy as np
     import torch
+    from rag_foundation_tpu_torch.utils import roofline
     from rag_foundation_tpu_torch.engine import ivf as tivf
     from rag_foundation_tpu_torch.engine.index import StoreIndex
     from rag_foundation_tpu_torch.ops import block_topk as bt
@@ -870,7 +799,7 @@ def exact_phases(args, card) -> list[dict]:
     corpus, queries = exact_scan.make_corpus(n, d, q_n, args.seed,
                                              torch.device("cuda"))
     tol = exact_scan.score_tolerance(queries, corpus)
-    bound_ms, bound_by = topk_bound(q_n, n, d, k, 2, "bf16")
+    bound_ms, bound_by = roofline.topk_bound(q_n, n, d, k, 2, "bf16")
     library_ms = cuda_ms(lambda: library_topk(torch, queries, corpus, k),
                          reps=5)
     entries = []
@@ -992,6 +921,7 @@ def pq_phases(args, card, rng, sampled, mods) -> list[dict]:
     of the ``kernels`` line."""
     import numpy as np
     import torch
+    from rag_foundation_tpu_torch.utils import roofline
     (Engine, EngineConfig, EngineRpcServer, RemoteEngine, search_profile,
      HostArchive, tpq, pq_scan, gather, quantize) = mods
     data_dir = tempfile.mkdtemp(prefix="ragtpu-chip-smoke-pq-")
@@ -1273,7 +1203,7 @@ def pq_phases(args, card, rng, sampled, mods) -> list[dict]:
     scan_ms = cuda_ms(lambda: pq_scan.pq_list_scan(
         lut_disp, body.codes, body.row_ids, dispatch, p=p), reps=5,
         warmup=1)
-    scan_bound_ms, scan_by, c = pq_scan_bound(body.row_ids, live_n, qcap, p,
+    scan_bound_ms, scan_by, c = roofline.pq_scan_bound(body.row_ids, live_n, qcap, p,
                                               body.m, m_bytes, 1)
     log(f"pq_list_scan int8 LUT main path, Q=1024 stored rows: "
         f"nlist={nlist} qcap={qcap} (dropped {int(dropped)}) "
@@ -1310,7 +1240,7 @@ def pq_phases(args, card, rng, sampled, mods) -> list[dict]:
         body.refine, rows, qq), reps=20)
     gather_plain_ms = cuda_ms(lambda: gather.gather_rescore_int8_reference(
         body.refine, rows, qq), reps=3, warmup=1)
-    gather_bound_ms, gather_by = gather_bound(q_n, cands, 768)
+    gather_bound_ms, gather_by = roofline.gather_bound(q_n, cands, 768)
     log(f"gather_rescore_int8 main path, Q={q_n} C={cands} d=768 over a "
         f"refine table of {body.refine.shape[0]} rows: bit-identical; "
         f"kernel {gather_ms:.4f} ms, plain {gather_plain_ms:.3f} ms, no "
@@ -1405,28 +1335,12 @@ def phase_small_attention(fa, torch):
             + ", ".join(report))
 
 
-def attention_bound(seg_q, seg_kv, h, d, esize) -> tuple[float, str, dict]:
-    """(ms, "bytes" | "operations", counts): q, k, v read once and the
-    output written once (``esize`` bytes an element), the segment ids read
-    once; 4*d operations a head for every (query, key) pair of one
-    segment (2*d for the score, 2*d for its share of P.V) at the bf16
-    peak: the pairs these segments need, not all S^2."""
-    b, s = seg_q.shape
-    pairs = int((seg_q[:, :, None] == seg_kv[:, None, :]).sum())
-    nbytes = 4 * b * h * s * d * esize + 2 * b * s * 4
-    ops = 4.0 * h * d * pairs
-    t_bytes, t_ops = nbytes / HBM_BYTES_S, ops / PEAK_OPS_S["bf16"]
-    return max(t_bytes, t_ops) * 1e3, \
-        "bytes" if t_bytes >= t_ops else "operations", \
-        {"pairs": pairs, "dense_pairs": b * s * s, "bytes": nbytes,
-         "operations": ops}
-
-
 def encoder_phases(args, card, rng, sampled, mods) -> dict:
     """Phase 13: the MiniLM encoder path. Returns the flash_attention
     entry of the ``kernels`` line."""
     import numpy as np
     import torch
+    from rag_foundation_tpu_torch.utils import roofline
     import torch.nn.functional as F
     from rag_foundation_tpu_torch.models import encoder as tenc
     from rag_foundation_tpu_torch.ops import flash_attention as fa
@@ -1622,14 +1536,14 @@ def encoder_phases(args, card, rng, sampled, mods) -> dict:
     mask = (sq[:, :, None] == skv[:, None, :])[:, None]
     library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
         q, k, v, attn_mask=mask, scale=scale), reps=20)
-    bound_ms, bound_by, c = attention_bound(sq, skv, h, d, 2)
+    bound_ms, bound_by, c = roofline.attention_bound(sq, skv, h, d, 2)
     log(f"flash_attention bf16 main path (layer 0 of a batch of long "
         f"chunks), B={b} H={h} S={s} D={d}, {c['pairs']} of "
         f"{c['dense_pairs']} (query, key) pairs share a segment: "
         f"max_abs_err={err:.3g} (tol {tol:.3g}); kernel {ms:.4f} ms, plain "
         f"{plain_ms:.3f} ms, scaled_dot_product_attention (bool mask) "
         f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}; dense "
-        f"S^2 operations {4.0 * b * h * s * s * d / PEAK_OPS_S['bf16'] * 1e3:.4f}"
+        f"S^2 operations {4.0 * b * h * s * s * d / roofline.PEAK_OPS_S['bf16'] * 1e3:.4f}"
         f" ms) | {card}")
     del long_e, enc, q, k, v, sq, skv, mask
     shutil.rmtree(tmp, ignore_errors=True)
@@ -1648,28 +1562,18 @@ def encoder_phases(args, card, rng, sampled, mods) -> dict:
 
 def bwd_check(torch, got, want, bound, kind, what) -> float:
     """Max |kernel - plain| of a backward output; fails beyond
-    ``ATTN_BWD_TOL[kind] * (bound + |plain|)`` in any element (``bound``
-    is sum |a||b| of the output's products)."""
+    ``rel * (bound + n * |plain|)`` in any element, (rel, n) =
+    ``ATTN_BWD_TOL[kind]`` (``bound`` is sum |a||b| of the output's
+    products)."""
     if got.dtype != want.dtype or not bool(torch.isfinite(got).all()):
         fail(f"{what}: dtype {got.dtype} or non-finite output")
+    rel, n = ATTN_BWD_TOL[kind]
     diff = (got.float() - want.float()).abs()
-    excess = diff - ATTN_BWD_TOL[kind] * (bound + want.float().abs())
+    excess = diff - rel * (bound + n * want.float().abs())
     if float(excess.max()) > 0.0:
         fail(f"{what}: |kernel - plain| beyond the tolerance by "
              f"{float(excess.max())}")
     return float(diff.max())
-
-
-def bwd_bounds(torch, fa, q, k, v, sq, skv, lse, do, di, scale):
-    """sum |a||b| of each output's products, with ds's magnitude before
-    its cancellation (see ATTN_BWD_TOL): (dq, dk, dv)."""
-    p, _ = fa.backward_terms_reference(q, k, v, sq, skv, lse, do, di, scale)
-    dp = torch.einsum("bhqd,bhkd->bhqk", do.float().abs(), v.float().abs())
-    ds = p * (dp + di.abs()[..., None]) * scale
-    del dp
-    return (torch.einsum("bhqk,bhkd->bhqd", ds, k.float().abs()),
-            torch.einsum("bhqk,bhqd->bhkd", ds, q.float().abs()),
-            torch.einsum("bhqk,bhqd->bhkd", p, do.float().abs()))
 
 
 def check_bwd_kernels(torch, fa, q, k, v, sq, skv, lse, do, di, scale, kind,
@@ -1683,7 +1587,8 @@ def check_bwd_kernels(torch, fa, q, k, v, sq, skv, lse, do, di, scale, kind,
                                                   di, scale)
     rq = fa.flash_attention_bwd_dq_reference(q, k, v, sq, skv, lse, do, di,
                                              scale)
-    bq, bk, bv = bwd_bounds(torch, fa, q, k, v, sq, skv, lse, do, di, scale)
+    bq, bk, bv = fa.backward_error_bounds(q, k, v, sq, skv, lse, do, di,
+                                          scale)
     err_kv = max(bwd_check(torch, dk, rk, bk, kind, f"{what} dK"),
                  bwd_check(torch, dv, rv, bv, kind, f"{what} dV"))
     err_q = bwd_check(torch, dq, rq, bq, kind, f"{what} dQ")
@@ -1697,9 +1602,7 @@ def phase_small_attention_bwd(fa, torch):
     g = torch.Generator(device="cuda").manual_seed(14)
     for dtype, kind in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
         report = []
-        for b, h, s, d in ((8, 12, 16, 32), (8, 12, 32, 32),
-                           (8, 12, 100, 32), (8, 12, 128, 32),
-                           (24, 12, 512, 32), (4, 4, 200, 64)):
+        for b, h, s, d in BWD_SHAPES:
             q, k, v, seg = attention_inputs(torch, g, b, h, s, d, dtype)
             do = torch.randn((b, h, s, d), generator=g,
                              device="cuda").to(dtype)
@@ -1731,8 +1634,11 @@ def phase_small_attention_bwd(fa, torch):
                 t = [x.clone().requires_grad_(True) for x in (q, k, v)]
                 fn(*t, seg, seg, scale).backward(do)
                 grads.append([x.grad.float() for x in t])
-            rel = max(float((a - r).norm() / r.norm())
-                      for a, r in zip(*grads))
+            # a gradient that is exactly 0 (dQ and dK at S=1, where the one
+            # weight is constant) is held to the largest one's norm
+            norms = [float(r.norm()) for r in grads[1]]
+            rel = max(float((a - r).norm()) / (n if n > 0 else max(norms))
+                      for a, r, n in zip(*grads, norms))
             if rel > APPLY_TOL[kind]:
                 fail(f"FlashAttention {kind} S={s}: gradient relative norm "
                      f"error {rel} > {APPLY_TOL[kind]}")
@@ -1742,37 +1648,75 @@ def phase_small_attention_bwd(fa, torch):
             del q, k, v, seg, do, out, lse, ref_out, ref_lse, di, grads
         log(f"kernel check flash_attention_bwd_dkv/_dq {kind} (random "
             f"lengths, an all-pad row, a one-token row; max_abs_err, "
-            f"within {ATTN_BWD_TOL[kind]:.3g} x (sum|a||b| + |plain|)), "
+            f"within {ATTN_BWD_TOL[kind][0]:.3g} x (sum|a||b| + "
+            f"{ATTN_BWD_TOL[kind][1]} |plain|)), "
             f"lse vs logsumexp (tol {LSE_TOL}), FlashAttention vs autograd "
             f"of the plain forward (tol {APPLY_TOL[kind]:.3g}): "
             + "; ".join(report))
+        # other segment layouts: the kernels on the plain forward's lse
+        report = []
+        for pattern in SEG_PATTERNS:
+            errs = [0.0, 0.0]
+            for b, h, s, d in BWD_SHAPES:
+                q, k, v, seg = attention_inputs(torch, g, b, h, s, d, dtype)
+                sq, skv = segment_pattern(torch, g, seg, pattern)
+                do = torch.randn((b, h, s, d), generator=g,
+                                 device="cuda").to(dtype)
+                ref_out, ref_lse = fa.flash_attention_reference(
+                    q, k, v, sq, skv, d ** -0.5, with_lse=True)
+                di = (ref_out.float() * do.float()).sum(dim=-1)
+                errs = [max(a, e) for a, e in zip(errs, check_bwd_kernels(
+                    torch, fa, q, k, v, sq, skv, ref_lse, do, di, d ** -0.5,
+                    kind, f"flash_attention_bwd {kind} {pattern} S={s} "
+                          f"D={d}"))]
+                del q, k, v, seg, sq, skv, do, ref_out, ref_lse, di
+            report.append(f"{pattern}: dK/dV {errs[0]:.3g}, dQ {errs[1]:.3g}")
+        log(f"kernel check flash_attention_bwd_dkv/_dq {kind}, other segment "
+            f"layouts (S {', '.join(str(x[2]) for x in BWD_SHAPES)}; "
+            f"max_abs_err within the same tolerance): " + "; ".join(report))
     torch.cuda.empty_cache()
 
 
-def attention_bwd_bound(seg_q, seg_kv, h, d, esize, outputs, ops_per_pair
-                        ) -> tuple[float, str, dict]:
-    """(ms, "bytes" | "operations", counts) of one backward kernel: q, k, v,
-    dO read and ``outputs`` gradients written once (``esize`` bytes an
-    element), lse and di read once (f32), the segment ids read once;
-    ``ops_per_pair * d`` operations a head for every (query, key) pair of
-    one segment at the bf16 peak."""
-    b, s = seg_q.shape
-    pairs = int((seg_q[:, :, None] == seg_kv[:, None, :]).sum())
-    nbytes = (4 + outputs) * b * h * s * d * esize + 2 * b * h * s * 4 \
-        + 2 * b * s * 4
-    ops = float(ops_per_pair) * h * d * pairs
-    t_bytes, t_ops = nbytes / HBM_BYTES_S, ops / PEAK_OPS_S["bf16"]
-    return max(t_bytes, t_ops) * 1e3, \
-        "bytes" if t_bytes >= t_ops else "operations", \
-        {"pairs": pairs, "dense_pairs": b * s * s, "bytes": nbytes,
-         "operations": ops}
+# phase 14's shapes (B, H, S, D): the trainer's buckets, the ragged edges
+# of the kernels' 16-, 32- and 64-row tiles, and each head dim
+BWD_SHAPES = ((8, 12, 1, 32), (8, 12, 8, 16), (8, 12, 16, 32),
+              (8, 12, 32, 32), (8, 12, 33, 32), (8, 12, 64, 64),
+              (8, 12, 65, 32), (8, 12, 100, 32), (8, 12, 128, 32),
+              (8, 12, 256, 32), (24, 12, 512, 32), (4, 4, 200, 64))
+SEG_PATTERNS = ("packed", "random", "kv_differs", "no_key")
+
+
+def segment_pattern(torch, g, seg, pattern):
+    """(seg_q, seg_kv) [B, S] int32 from the real-then-pad ``seg``:
+    "packed" three segments a row end to end (ids 1, 2, 3) before the
+    pads; "random" ids 0-4 a token in no order; "kv_differs" random ids,
+    row 0's keys drawn apart from its queries; "no_key" random ids, row
+    0's keys in a segment none of its queries has (lse -inf, every p 0)."""
+    b, s = seg.shape
+    if pattern == "packed":
+        cuts = torch.randint(0, s + 1, (b, 2), generator=g,
+                             device="cuda").sort(dim=1).values
+        pos = torch.arange(s, device="cuda")[None, :]
+        ids = (1 + (pos >= cuts[:, :1]).int() + (pos >= cuts[:, 1:]).int())
+        out = (ids * seg).int().contiguous()
+        return out, out
+    sq = torch.randint(0, 5, (b, s), generator=g, device="cuda",
+                       dtype=torch.int32)
+    skv = sq.clone()
+    if pattern == "kv_differs":
+        skv[0] = torch.randint(0, 5, (s,), generator=g, device="cuda",
+                               dtype=torch.int32)
+    elif pattern == "no_key":
+        skv[0] = 7
+    return sq, skv
 
 
 def time_attention_bwd(torch, F, fa, cap, card, what) -> dict:
     """Both backward kernels on captured layer-0 inputs ``cap`` = (q, k, v,
     seg_q, seg_kv, scale, dO): checked against their plain versions, timed
     beside them, beside scaled_dot_product_attention's backward with the
-    boolean mask (timed only) and beside their bounds."""
+    boolean mask (timed only), their bounds and the exponential floor."""
+    from rag_foundation_tpu_torch.utils import roofline
     q, k, v, sq, skv, scale, do = cap
     b, h, s, d = q.shape
     out, lse = fa.flash_attention_forward(q, k, v, sq, skv, scale,
@@ -1786,6 +1730,7 @@ def time_attention_bwd(torch, F, fa, cap, card, what) -> dict:
     ql, kl, vl = (x.detach().clone().requires_grad_(True) for x in (q, k, v))
     sdpa = F.scaled_dot_product_attention(ql, kl, vl, attn_mask=mask,
                                           scale=scale)
+    empty = roofline.empty_block_share(sq, skv)
     for name, kern, plain, wrt, outputs, ops, err in (
             ("flash_attention_bwd_dkv", fa.flash_attention_bwd_dkv,
              fa.flash_attention_bwd_dkv_reference, (kl, vl), 2, 8, err_kv),
@@ -1795,43 +1740,48 @@ def time_attention_bwd(torch, F, fa, cap, card, what) -> dict:
         plain_ms = cuda_ms(lambda: plain(*args), reps=2, warmup=1)
         library_ms = cuda_ms(lambda: torch.autograd.grad(
             sdpa, wrt, do, retain_graph=True), reps=20)
-        bound_ms, bound_by, c = attention_bwd_bound(sq, skv, h, d, 2,
-                                                    outputs, ops)
+        bound_ms, bound_by, c = roofline.attention_bwd_bound(
+            sq, skv, h, d, 2, outputs, ops)
+        exp_ms = roofline.exp_floor_ms(c["pairs"], h)
         log(f"{name} bf16 {what}, B={b} H={h} S={s} D={d}, {c['pairs']} of "
-            f"{c['dense_pairs']} pairs share a segment: max_abs_err={err:.3g}"
-            f"; kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, "
+            f"{c['dense_pairs']} pairs share a segment, {empty:.1%} of the "
+            f"16x16 blocks hold none: max_abs_err={err:.3g}; kernel "
+            f"{ms:.4f} ms, plain {plain_ms:.3f} ms, "
             f"scaled_dot_product_attention backward (bool mask, grad of "
             f"{'k, v' if outputs == 2 else 'q'}) {library_ms:.4f} ms, bound "
             f"{bound_ms:.4f} ms ({bound_by}; dense S^2 operations "
-            f"{ops * b * h * s * s * d / PEAK_OPS_S['bf16'] * 1e3:.4f} ms) "
-            f"| {card}")
+            f"{ops * b * h * s * s * d / roofline.PEAK_OPS_S['bf16'] * 1e3:.4f}"
+            f" ms), exponential floor {exp_ms:.4f} ms | {card}")
         res[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                      "bound_ms": bound_ms, "bound_by": bound_by,
-                     "library_ms": library_ms,
-                     "shape": {"B": b, "H": h, "S": s, "D": d, **c}}
+                     "library_ms": library_ms, "exp_floor_ms": exp_ms,
+                     "shape": {"B": b, "H": h, "S": s, "D": d, **c,
+                               "empty_16x16_blocks": empty}}
     del out, lse, di, args, mask, ql, kl, vl, sdpa
     return res
 
 
-def capture_layer0(fa, torch, calls: int):
+def capture_calls(fa, torch, calls: tuple[int, ...]):
     """An attention function that runs flash_attention and keeps the
-    inputs and the output's gradient of its ``calls``-th call (0-based):
-    (q, k, v, seg_q, seg_kv, scale, dO) in ``.captured``."""
+    inputs and the output's gradient of its listed calls (0-based):
+    ``.captured[call]`` = (q, k, v, seg_q, seg_kv, scale, dO)."""
     seen = [0]
 
     def attention(q, k, v, sq, skv, scale):
         out = fa.flash_attention(q, k, v, sq, skv, scale)
-        if seen[0] == calls:
+        if seen[0] in calls:
             keep = [x.detach().clone() for x in (q, k, v, sq, skv)]
+            call = seen[0]
 
             def grab(grad):
-                attention.captured = (*keep, scale, grad.contiguous().clone())
+                attention.captured[call] = (*keep, scale,
+                                            grad.contiguous().clone())
 
             out.register_hook(grab)
         seen[0] += 1
         return out
 
-    attention.captured = None
+    attention.captured = {}
     return attention
 
 
@@ -2008,9 +1958,10 @@ def train_phases(args, card, rng, sampled, mods) -> list[dict]:
     db = torch.as_tensor(tok.encode_batch(batch, 128), device="cuda")
     leaves = list(tenc._leaves(trained).values())
     grads = {}
-    cap128 = capture_layer0(fa, torch, cfg.layers)   # the d side's layer 0
-    for name, attn in (("kernel", cap128), ("plain",
-                                             fa.flash_attention_reference)):
+    # layer 0 of the q side (the first call) and of the d side
+    cap = capture_calls(fa, torch, (0, cfg.layers))
+    for name, attn in (("kernel", cap), ("plain",
+                                          fa.flash_attention_reference)):
         loss = tenc.contrastive_loss(trained, qb, db, cfg, 0.05, True,
                                      attention=attn)
         grads[name] = torch.autograd.grad(loss, leaves)
@@ -2068,15 +2019,27 @@ def train_phases(args, card, rng, sampled, mods) -> list[dict]:
         f"{peak:.2f} GiB | {card}")
 
     # -- the backward kernels on the step's own layer-0 inputs ----------------
-    cap512 = capture_layer0(fa, torch, cfg512.layers)
+    cap512 = capture_calls(fa, torch, (cfg512.layers,))
     loss = tenc.contrastive_loss(params512, q512, d512, cfg512, 0.05, True,
                                  attention=cap512)
     torch.autograd.grad(loss, list(tenc._leaves(params512).values()))
     del loss, params512, step
-    at128 = time_attention_bwd(torch, F, fa, cap128.captured, card,
-                               "training step, layer 0 of the d side")
-    at512 = time_attention_bwd(torch, F, fa, cap512.captured, card,
-                               "d_len 512 step, layer 0 of the d side")
+    layer0 = {32: cap.captured[0], 128: cap.captured[cfg.layers],
+              512: cap512.captured[cfg512.layers]}
+    lengths = {s: [int(n) for n in (c[3] != 0).sum(dim=1).tolist()]
+               for s, c in layer0.items()}
+    for s, ns in lengths.items():
+        log(f"layer-0 rows at S={s}: real tokens {min(ns)}-{max(ns)}, "
+            f"median {sorted(ns)[len(ns) // 2]}, {ns.count(s)} of "
+            f"{len(ns)} rows full")
+    if args.lengths_out:
+        Path(args.lengths_out).parent.mkdir(parents=True, exist_ok=True)
+        Path(args.lengths_out).write_text(json.dumps(lengths))
+    at = {s: time_attention_bwd(torch, F, fa, c, card, f"{step_name}, layer "
+                                f"0 of the {'q' if s == 32 else 'd'} side")
+          for (s, c), step_name in zip(layer0.items(), (
+              "training step", "training step", "d_len 512 step"))}
+    del cap, cap512, layer0
     shutil.rmtree(tmp, ignore_errors=True)
     gc.collect()
     torch.cuda.empty_cache()
@@ -2084,7 +2047,7 @@ def train_phases(args, card, rng, sampled, mods) -> list[dict]:
     for name, line, launched in (
             ("flash_attention_bwd_dkv", 1121, launches[1]),
             ("flash_attention_bwd_dq", 1456, launches[2])):
-        main, big = at128[name], at512[name]
+        main = at[128][name]
         entries.append({
             "name": name, "route": "cuda",
             "source": "rag_foundation_tpu_torch/csrc/flash_attention_bwd.cu",
@@ -2094,11 +2057,10 @@ def train_phases(args, card, rng, sampled, mods) -> list[dict]:
             "launches": launched, "max_abs_err": main["max_abs_err"],
             "ms": main["ms"], "plain_ms": main["plain_ms"],
             "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
-            "library_ms": main["library_ms"], "dtype": "bf16",
+            "library_ms": main["library_ms"],
+            "exp_floor_ms": main["exp_floor_ms"], "dtype": "bf16",
             "shape": main["shape"],
-            "at_s512": {k: big[k] for k in ("max_abs_err", "ms", "plain_ms",
-                                            "bound_ms", "bound_by",
-                                            "library_ms", "shape")}})
+            **{f"at_s{s}": at[s][name] for s in (32, 512)}})
     return entries
 
 
@@ -2119,6 +2081,9 @@ def main() -> None:
                     help="passages of phase 15's ICT corpus")
     ap.add_argument("--train-steps", type=int, default=300,
                     help="steps of phase 15's training run")
+    ap.add_argument("--lengths-out", default=None,
+                    help="write phase 15's layer-0 row lengths (JSON by S) "
+                         "here, for time_kernels --lengths")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
 
@@ -2141,6 +2106,7 @@ def main() -> None:
     from rag_foundation_tpu_torch.ops import (cuda_lib, flash_attention,
                                               gather, ivf_scan, pq_scan,
                                               quantize)
+    from rag_foundation_tpu_torch.utils import roofline
 
     # -- phase 1: card and build -------------------------------------------
     t_start = time.perf_counter()
@@ -2400,7 +2366,7 @@ def main() -> None:
     plain_ms = cuda_ms(lambda: ivf_scan.ivf_list_scan_reference(
         qdisp, lists, row_ids, dispatch, p=p, scale=s), reps=2, warmup=1)
     library_ms, lib_chunks = library_ms_of(qdisp, lists, p)
-    bound_ms, bound_by, c = scan_bound(row_ids, live_n, qcap, p, 1, d,
+    bound_ms, bound_by, c = roofline.scan_bound(row_ids, live_n, qcap, p, 1, d,
                                        "int8")
     log(f"ivf_list_scan int8 main path, Q=1024 stored rows: nlist={nlist} "
         f"qcap={qcap} (dropped {int(dropped)}) cap_len={cap_len} d={d} "

@@ -64,31 +64,39 @@ __device__ __forceinline__ void load_a_rows(uint32_t (&a)[D / 16][4],
   }
 }
 
-// Stage rows [row0, row0 + ROWS) of a row-major [S, D] bf16 matrix into
-// shared memory: row-major with stride LD (when `rm` is not null) and/or
-// transposed, d-major with stride TLD (when `tr` is not null), so that a B
-// fragment of either layout is one 32-bit load. Rows past S are zero.
-template <int ROWS, int D, int LD, int TLD, int THREADS>
-__device__ __forceinline__ void stage_rows(const __nv_bfloat16* m, int row0,
-                                           int S, __nv_bfloat16* rm,
-                                           __nv_bfloat16* tr) {
-  constexpr int CHUNKS = ROWS * D / 8;   // 16-byte pieces
-  for (int c = threadIdx.x; c < CHUNKS; c += THREADS) {
-    const int row = c / (D / 8), col = (c % (D / 8)) * 8;
-    uint4 x = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + row < S)
-      x = *reinterpret_cast<const uint4*>(m + (size_t)(row0 + row) * D + col);
-    if (rm != nullptr) *reinterpret_cast<uint4*>(rm + row * LD + col) = x;
-    if (tr != nullptr) {
-      const uint32_t w[4] = {x.x, x.y, x.z, x.w};
-      unsigned short* t16 = reinterpret_cast<unsigned short*>(tr);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {   // element 2i in the low half
-        t16[(col + 2 * i) * TLD + row] = (unsigned short)(w[i] & 0xffffu);
-        t16[(col + 2 * i + 1) * TLD + row] = (unsigned short)(w[i] >> 16);
-      }
-    }
-  }
+// ldmatrix .x4 of four 8x8 b16 tiles at a shared-memory address: lanes
+// 8j..8j+7 give the addresses of tile j's eight rows (16 bytes each), and
+// thread i receives elements (i / 4, 2 (i % 4)) and (i / 4, 2 (i % 4) + 1)
+// of each tile: on a row-major [n][k] tile the B fragment of
+// mma.m16n8k16 (rows 2t, 2t + 1 of column g). With .trans it receives
+// elements (2 (i % 4), i / 4) and (2 (i % 4) + 1, i / 4): on a row-major
+// [k][n] tile the same fragment, so a product over the rows of a staged
+// tile needs no transposed copy of it.
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 2^x on the special-function unit, denormal results flushed to 0 (an
+// attention weight below 2^-126 is 0 to every sum it enters)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
 }
 
 }  // namespace flash

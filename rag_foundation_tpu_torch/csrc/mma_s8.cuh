@@ -1,7 +1,7 @@
 // Shared device helpers of the int8 list scans (ivf_list_scan.cu,
 // pq_list_scan.cu): the int8 tensor-core product `mma.sync` m16n8k32 with
 // int32 accumulation, `ldmatrix` for its fragments, and `cp.async` copies
-// into shared memory.
+// into shared memory (which the attention backward's ring uses too).
 //
 // Fragments of mma.m16n8k32 with 8-bit inputs (PTX ISA, "Matrix Fragments
 // for mma.m16n8k32"), for lane = 4 * g + tig (g = groupID, tig =

@@ -155,6 +155,22 @@ def backward_terms_reference(q, k, v, seg_q, seg_kv, lse, do, di,
     return p, (p * (dp - di[..., None])) * sm_scale
 
 
+def backward_error_bounds(q, k, v, seg_q, seg_kv, lse, do, di,
+                          sm_scale: float):
+    """sum |a||b| of each backward output's products, f32: (dq, dk, dv),
+    with ds's magnitude taken before its cancellation, p (sum|dO||v| +
+    |di|) * sm_scale: what a kernel's rounding of p and ds to bf16 is
+    relative to."""
+    p, _ = backward_terms_reference(q, k, v, seg_q, seg_kv, lse, do, di,
+                                    sm_scale)
+    dp = torch.einsum("bhqd,bhkd->bhqk", do.float().abs(), v.float().abs())
+    ds = p * (dp + di.abs()[..., None]) * sm_scale
+    del dp
+    return (torch.einsum("bhqk,bhkd->bhqd", ds, k.float().abs()),
+            torch.einsum("bhqk,bhqd->bhkd", ds, q.float().abs()),
+            torch.einsum("bhqk,bhqd->bhkd", p, do.float().abs()))
+
+
 def _check_bwd(q, k, v, seg_q, seg_kv, lse, do, di) -> None:
     _check(q, k, v, seg_q, seg_kv, ("lse", lse, "row"), ("do", do, "qkv"),
            ("di", di, "row"))

@@ -4,6 +4,11 @@
     python -m rag_foundation_tpu_torch.tools.time_kernels --only pq flat \\
         --other-pq path/to/another/pq_list_scan.cu \\
         --other-flat path/to/another/ivf_list_scan.cu
+    python -m rag_foundation_tpu_torch.tools.time_kernels \\
+        --only attention attention_bwd \\
+        --other-attn path/to/another/flash_attention.cu \\
+        --other-attn-bwd path/to/another/flash_attention_bwd.cu \\
+        --lengths build/attention_lengths.json
 
 Needs a CUDA card and ``nvcc``. Inputs: 4096 lists whose 2,441 live rows
 are interleaved over the sub-blocks as the index lays them out, a
@@ -12,8 +17,8 @@ batch of uniform traffic), int8 values from a seeded generator. It prints
 the card's name and power limit, then one line a variant: the ADC scan
 (``pq_list_scan``: qcap 16 and 8, with the dispatch and with every slot
 live, p 8 and 1, bf16 LUT, packed codes) and the flat scan
-(``ivf_list_scan``, p 3), each time beside its bound (the formulas of
-``chip_smoke.py``'s ``pq_scan_bound`` and ``scan_bound``). With
+(``ivf_list_scan``, p 3), each time beside its bound (``utils.roofline``'s
+``pq_scan_bound`` and ``scan_bound``). With
 ``--other-pq`` or ``--other-flat`` it also builds that source (another
 version of the kernel with the same C entry point; headers are taken
 from its own directory), checks that the two give bit-identical outputs
@@ -30,29 +35,47 @@ the rows. Then the encoder's attention (``flash_attention``, H=12, D=32,
 bf16) at the batch and sequence buckets MiniLM encodes at (B 1, 64, 256;
 S 16, 128, 512), every token real and with chunks of half the bucket
 (pads past them), beside ``scaled_dot_product_attention`` with the same
-boolean mask. Then the attention backward (``attention_bwd``:
-``flash_attention_bwd_dkv`` and ``flash_attention_bwd_dq``, bf16, H=12,
-D=32) at the trainer's batch and buckets (B 256 and 1; S 32, 128, 512),
-all real and half real, each beside the backward of
+boolean mask; with ``--other-attn`` first that source in turns at B=256,
+S=512 (outputs and lse compared with ``torch.equal``). Then the attention
+backward (``attention_bwd``: ``flash_attention_bwd_dkv`` and
+``flash_attention_bwd_dq``, bf16, H=12, D=32) at the trainer's batch and
+buckets (B 256; S 32, 128, 512), each with two length patterns (real
+tokens then pads, the lengths drawn from ``--lengths``, the JSON that
+``chip_smoke.py --lengths-out`` writes of phase 15's layer-0 rows, or
+uniform in [1, S] without it; and every token real), beside their bounds,
+the exponential floor and the backward of
 ``scaled_dot_product_attention`` with the same boolean mask (the gradient
-of k and v, or of q). ``--only`` picks sections.
+of k and v, or of q); with ``--other-attn-bwd`` each listed source in
+turns instead, both versions first held to the plain versions within
+``chip_smoke.py``'s tolerance. Every time is the card's: the calls queue
+behind a spin of the card, so a short kernel is not timed by its host
+launch. ``--only`` picks sections.
 """
 
 from __future__ import annotations
 
 import argparse
 import ctypes
+import hashlib
+import json
 import subprocess
 import tempfile
 from pathlib import Path
 
+from rag_foundation_tpu_torch.utils import roofline
+
 
 def _ms(fn, reps: int = 10) -> float:
+    """Device time of one call of ``fn``: ``reps`` calls back to back,
+    queued behind a 100 us a call spin of the card, so that the host's
+    launch overhead (tens of us a wrapper call) never starves the card
+    and a short kernel is timed, not its launch."""
     import torch
     fn()
     torch.cuda.synchronize()
     a = torch.cuda.Event(enable_timing=True)
     b = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(reps * 200_000)
     a.record()
     for _ in range(reps):
         fn()
@@ -81,75 +104,56 @@ def _dispatch(torch, g, nlist: int, qcap: int):
     return disp, int(n_live.sum())
 
 
-# the published H100 SXM peaks of chip_smoke.py
-HBM_BYTES_S = 3.35e12
-INT8_OPS_S = 1.979e15
-SMEM_BYTES_S = 132 * 128 * 1.98e9
+def _bound(t) -> str:
+    """``(ms, bound_by, ...)`` of ``utils.roofline`` as text."""
+    return f"{t[0]:.4f} ms ({t[1]})"
 
 
-def _live_counts(ids, live_n):
-    live_rows = (ids >= 0).sum(dim=1).double()
-    read = live_n > 0
-    return live_rows, read, int(read.sum()) * ids.shape[1]
+def pq_bound(ids, live_n, qcap, p, m, lut_esize) -> str:
+    return _bound(roofline.pq_scan_bound(ids, live_n, qcap, p, m, m,
+                                         lut_esize))
 
 
-def pq_bound_ms(ids, live_n, qcap, p, m, m_bytes, lut_esize) -> str:
-    """``chip_smoke.pq_scan_bound``: the live rows' codes, the ids of the
-    lists read, the live slots' LUTs and the outputs over the HBM rate, or
-    one shared-memory read a lookup, whichever is longer."""
-    live_rows, read, ids_read = _live_counts(ids, live_n)
-    out_elems = ids.shape[0] * qcap * (ids.shape[1] // 128) * p
-    nbytes = float(live_rows[read].sum()) * m_bytes + ids_read * 4 \
-        + int(live_n.sum()) * 16 * m * lut_esize + ids.shape[0] * 4 \
-        + out_elems * 8
-    lookups = m * float((live_n.double() * live_rows).sum())
-    t_b, t_o = nbytes / HBM_BYTES_S, lookups * lut_esize / SMEM_BYTES_S
-    by = "bytes" if t_b >= t_o else "lookups"
-    return f"{max(t_b, t_o) * 1e3:.3f} ms ({by})"
-
-
-def flat_bound_ms(ids, live_n, qcap, p, d) -> str:
-    """``chip_smoke.scan_bound`` for int8: the live query rows, the live
-    rows of the lists read, their ids and the outputs over the HBM rate,
-    or the int8 products at the peak rate, whichever is longer."""
-    live_rows, read, ids_read = _live_counts(ids, live_n)
-    out_elems = ids.shape[0] * qcap * (ids.shape[1] // 128) * p
-    nbytes = (int(live_n.sum()) + float(live_rows[read].sum())) * d \
-        + ids_read * 4 + ids.shape[0] * 4 + out_elems * 8
-    ops = 2.0 * d * float((live_n.double() * live_rows).sum())
-    t_b, t_o = nbytes / HBM_BYTES_S, ops / INT8_OPS_S
-    by = "bytes" if t_b >= t_o else "operations"
-    return f"{max(t_b, t_o) * 1e3:.3f} ms ({by})"
+def flat_bound(ids, live_n, qcap, p, d) -> str:
+    return _bound(roofline.scan_bound(ids, live_n, qcap, p, 1, d, "int8"))
 
 
 def _other_fn(src: str, entry: str, argtypes, tmp: str):
-    """The C entry point of another version of a kernel source."""
+    """The C entry point of another version of a kernel source, built once
+    a source into ``tmp``."""
     from rag_foundation_tpu_torch.ops import cuda_lib
-    lib_path = str(Path(tmp) / f"lib{entry}.so")
-    subprocess.run([cuda_lib._nvcc(), *cuda_lib.NVCC_FLAGS[:-2],
-                    "-o", lib_path, src], check=True)
-    fn = getattr(ctypes.CDLL(lib_path), entry)
+    tag = hashlib.sha256(str(Path(src).resolve()).encode()).hexdigest()[:12]
+    lib_path = Path(tmp) / f"lib{Path(src).stem}-{tag}.so"
+    if not lib_path.exists():
+        subprocess.run([cuda_lib._nvcc(), *cuda_lib.NVCC_FLAGS[:-2],
+                        "-o", str(lib_path), src], check=True)
+    fn = getattr(ctypes.CDLL(str(lib_path)), entry)
     fn.argtypes = argtypes
     fn.restype = ctypes.c_int
     return fn
 
 
-def _turns(torch, name, other, this, bound) -> None:
-    """Bit-identity, then other/this/this/other five times: ten pairs,
-    (other, this) and (this, other) in each round."""
-    ov, oi = other()
-    tv, ti = this()
+def _turns(torch, name, other, this, bound, check=None) -> int:
+    """The outputs compared (bit-identity, or ``check(other_outputs,
+    this_outputs)``, which returns its verdict), then other/this/this/other
+    five times: ten pairs, (other, this) and (this, other) in each round.
+    Returns the pairs this version won."""
+    ov, tv = other(), this()
     torch.cuda.synchronize()
-    same = torch.equal(ov, tv) and torch.equal(oi, ti)
-    print(f"{name}: outputs {'bit-identical' if same else 'DIFFER'}; bound "
-          f"{bound}", flush=True)
+    if check is None:
+        same = all(torch.equal(a, b) for a, b in zip(ov, tv))
+        verdict = "bit-identical" if same else "DIFFER"
+    else:
+        verdict = check(ov, tv)
+    print(f"{name}: outputs {verdict}; bound {bound}", flush=True)
     won = 0
     for _ in range(5):
         t = [_ms(other), _ms(this), _ms(this), _ms(other)]
         won += (t[1] < t[0]) + (t[2] < t[3])
-        print(f"  other {t[0]:.3f} this {t[1]:.3f} this {t[2]:.3f} other "
-              f"{t[3]:.3f} ms", flush=True)
+        print(f"  other {t[0]:.4f} this {t[1]:.4f} this {t[2]:.4f} other "
+              f"{t[3]:.4f} ms", flush=True)
     print(f"  this faster in {won} of 10 pairs", flush=True)
+    return won
 
 
 def time_pq(torch, g, nlist: int, live_rows: int,
@@ -174,14 +178,14 @@ def time_pq(torch, g, nlist: int, live_rows: int,
                                                      p=p))
                 print(f"pq_list_scan int8 LUT qcap={qcap} {name} "
                       f"({slots} live slots) p={p}: {t:.3f} ms, bound "
-                      f"{pq_bound_ms(ids, live_n, qcap, p, m, m, 1)}",
+                      f"{pq_bound(ids, live_n, qcap, p, m, 1)}",
                       flush=True)
         lutb = torch.randn((nlist, qcap, 16 * m), generator=g,
                            device="cuda").bfloat16()
         t = _ms(lambda: pq_scan.pq_list_scan(lutb, codes, ids, None, p=8))
         print(f"pq_list_scan bf16 LUT qcap={qcap} every slot live p=8: "
               f"{t:.3f} ms, bound "
-              f"{pq_bound_ms(ids, every, qcap, 8, m, m, 2)}", flush=True)
+              f"{pq_bound(ids, every, qcap, 8, m, 2)}", flush=True)
     packed = pq_scan.pack_codes(codes).contiguous()
     t = _ms(lambda: pq_scan.pq_list_scan(lut, packed, ids, None, p=8))
     print(f"pq_list_scan int8 LUT qcap=8 packed codes every slot live p=8: "
@@ -215,7 +219,7 @@ def _pq_turns(torch, other_src, lut, codes, ids, disp, live, m) -> None:
                f"dispatch ({live} live slots) p={p}, other = {other_src}",
                other, lambda: pq_scan.pq_list_scan(lut, codes, ids, disp,
                                                    p=p),
-               pq_bound_ms(ids, live_n, qcap, p, m, m, 1))
+               pq_bound(ids, live_n, qcap, p, m, 1))
 
 
 def time_flat(torch, g, nlist: int, live_rows: int,
@@ -229,7 +233,7 @@ def time_flat(torch, g, nlist: int, live_rows: int,
     ids = _lists(torch, g, nlist, cap_len, live_rows)
     disp, live = _dispatch(torch, g, nlist, qcap)
     live_n = ivf_scan.live_slots(disp)
-    bound = flat_bound_ms(ids, live_n, qcap, p, d)
+    bound = flat_bound(ids, live_n, qcap, p, d)
     name = (f"ivf_list_scan int8 qcap={qcap} Poisson(8) dispatch ({live} "
             f"live slots) p={p}")
 
@@ -288,10 +292,51 @@ def time_exact(torch, g, rows: int) -> None:
         del c, q
 
 
-def time_attention(torch, g) -> None:
+ATTN_H, ATTN_D = 12, 32     # MiniLM-L6's heads and head dim
+# chip_smoke.py's ATTN_BWD_TOL for bf16: p and ds rounded to bf16 before a
+# product (2^-8 of sum|a||b|), the kernel's and the plain version's output
+# rounded to bf16 (2^-8 of |plain| each)
+BWD_TOL = 2 ** -8
+
+
+def _attn_ctypes(n_ptrs: int):
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    return [ci] + [vp] * n_ptrs + [ci, ci, ci, ci, ctypes.c_float, vp]
+
+
+def time_attention(torch, g, other_src: str | None) -> None:
+    """The forward at the encoder's buckets beside SDPA; with
+    ``other_src``, first an A/B against that flash_attention.cu at B=256,
+    S=512 (outputs and lse compared with torch.equal)."""
     import torch.nn.functional as F
     from rag_foundation_tpu_torch.ops import flash_attention as fa
-    h, d = 12, 32
+    h, d = ATTN_H, ATTN_D
+    if other_src is not None:
+        b, s = 256, 512
+        q, k, v = (torch.randn((b, h, s, d), generator=g, device="cuda")
+                   .bfloat16() for _ in range(3))
+        seg = (torch.arange(s, device="cuda")[None, :] < torch.randint(
+            1, s + 1, (b, 1), generator=g, device="cuda")).int()
+        out, lse = torch.empty_like(q), torch.empty((b, h, s),
+                                                    device="cuda")
+        with tempfile.TemporaryDirectory() as tmp:
+            fn = _other_fn(other_src, "flash_attention_launch",
+                           _attn_ctypes(7), tmp)
+
+            def other():
+                rc = fn(2, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                        seg.data_ptr(), seg.data_ptr(), out.data_ptr(),
+                        lse.data_ptr(), b, h, s, d, d ** -0.5,
+                        torch.cuda.current_stream().cuda_stream)
+                if rc != 0:
+                    raise RuntimeError(f"other kernel: CUDA error {rc}")
+                return out, lse
+
+            _turns(torch, f"flash_attention bf16 B={b} H={h} S={s} D={d} "
+                   f"random lengths, with lse, other = {other_src}", other,
+                   lambda: fa.flash_attention_forward(
+                       q, k, v, seg, seg, d ** -0.5, with_lse=True),
+                   _bound(roofline.attention_bound(seg, seg, h, d, 2)))
     for b in (1, 64, 256):
         for s in (16, 128, 512):
             q, k, v = (torch.randn((b, h, s, d), generator=g, device="cuda")
@@ -309,45 +354,149 @@ def time_attention(torch, g) -> None:
                       f"{lib:.4f} ms)", flush=True)
 
 
-def time_attention_bwd(torch, g) -> None:
+def _length_patterns(torch, g, b: int, s: int, lengths: dict | None):
+    """(name, seg [b, s] int32): real tokens (1) then pads (0), with the
+    lengths of ``lengths[str(s)]`` (phase 15's captured layer-0 rows, drawn
+    with replacement) or, without them, uniform in [1, s]; then all real."""
+    if lengths is not None and str(s) in lengths:
+        pool = torch.tensor(lengths[str(s)], device="cuda")
+        n = pool[torch.randint(0, len(pool), (b,), generator=g,
+                               device="cuda")]
+        name = "phase-15 lengths"
+    else:
+        n = torch.randint(1, s + 1, (b,), generator=g, device="cuda")
+        name = "lengths uniform in [1, S]"
+    seg = (torch.arange(s, device="cuda")[None, :] < n[:, None]).int()
+    return ((name, seg.contiguous()),
+            ("all real", torch.ones((b, s), dtype=torch.int32,
+                                    device="cuda")))
+
+
+FAILED: list[str] = []   # checks that failed; main() exits non-zero
+
+
+def _bwd_check(torch, fa, args, plain):
+    """check() of _turns for the backward kernels: each version's outputs
+    against the plain version's within BWD_TOL x (sum|a||b| + 2 |plain|)."""
+    bounds = plain["bounds"]
+
+    def check(ov, tv) -> str:
+        errs = []
+        for who, outs in (("other", ov), ("this", tv)):
+            worst, err = float("-inf"), 0.0
+            for got, want, bound in zip(outs, plain["outs"], bounds):
+                diff = (got.float() - want.float()).abs()
+                worst = max(worst, float((diff - BWD_TOL * (
+                    bound + 2 * want.float().abs())).max()))
+                err = max(err, float(diff.max()))
+            if worst > 0.0:
+                FAILED.append(f"{who}: outside the tolerance by {worst}")
+                return f"OUTSIDE the tolerance ({who}, by {worst:.3g})"
+            errs.append(f"{who} max_abs_err {err:.3g}")
+        return "within the tolerance of the plain version (" \
+            + ", ".join(errs) + ")"
+
+    return check
+
+
+def time_attention_bwd(torch, g, others: list[str], lengths: dict | None
+                       ) -> None:
+    """The two backward kernels at the trainer's batch (B=256, H=12, D=32)
+    and buckets (S 32, 128, 512), each with two length patterns: beside
+    their bounds, exponential floor and SDPA's backward, or, with
+    ``others``, in turns against each other flash_attention_bwd.cu."""
     import torch.nn.functional as F
     from rag_foundation_tpu_torch.ops import flash_attention as fa
-    h, d = 12, 32
-    for b in (256, 1):
-        for s in (32, 128, 512):
-            q, k, v, do = (torch.randn((b, h, s, d), generator=g,
-                                       device="cuda").bfloat16()
-                           for _ in range(4))
-            for name, real in (("all real", s), ("half real", s // 2)):
-                seg = (torch.arange(s, device="cuda") < real).int() \
-                    .expand(b, s).contiguous()
-                mask = (seg[:, :, None] == seg[:, None, :])[:, None]
-                out, lse = fa.flash_attention_forward(
-                    q, k, v, seg, seg, d ** -0.5, with_lse=True)
-                di = (out.float() * do.float()).sum(dim=-1)
-                args = (q, k, v, seg, seg, lse, do, di, d ** -0.5)
-                t_kv = _ms(lambda: fa.flash_attention_bwd_dkv(*args), reps=20)
-                t_q = _ms(lambda: fa.flash_attention_bwd_dq(*args), reps=20)
-                ql, kl, vl = (x.clone().requires_grad_(True)
-                              for x in (q, k, v))
-                ref = F.scaled_dot_product_attention(
-                    ql, kl, vl, attn_mask=mask, scale=d ** -0.5)
-                lib_kv = _ms(lambda: torch.autograd.grad(
-                    ref, (kl, vl), do, retain_graph=True), reps=20)
-                lib_q = _ms(lambda: torch.autograd.grad(
-                    ref, (ql,), do, retain_graph=True), reps=20)
-                print(f"flash_attention_bwd bf16 B={b} H={h} S={s} D={d} "
-                      f"{name}: dkv {t_kv:.4f} ms, dq {t_q:.4f} ms "
-                      f"(scaled_dot_product_attention backward: k, v "
-                      f"{lib_kv:.4f} ms, q {lib_q:.4f} ms)", flush=True)
+    b, h, d = 256, ATTN_H, ATTN_D
+    scale = d ** -0.5
+    for s in (32, 128, 512):
+        q, k, v, do = (torch.randn((b, h, s, d), generator=g,
+                                   device="cuda").bfloat16()
+                       for _ in range(4))
+        for name, seg in _length_patterns(torch, g, b, s, lengths):
+            out, lse = fa.flash_attention_forward(q, k, v, seg, seg, scale,
+                                                  with_lse=True)
+            di = (out.float() * do.float()).sum(dim=-1)
+            args = (q, k, v, seg, seg, lse, do, di, scale)
+            pairs = roofline.same_segment_pairs(seg, seg)
+            what = (f"B={b} H={h} S={s} D={d} {name} ({pairs} of {b * s * s}"
+                    f" pairs share a segment, "
+                    f"{roofline.empty_block_share(seg, seg):.1%} of 16x16 "
+                    f"blocks hold none; exponential floor "
+                    f"{roofline.exp_floor_ms(pairs, h):.4f} ms)")
+            bound_kv = _bound(roofline.attention_bwd_bound(seg, seg, h, d, 2,
+                                                           2, 8))
+            bound_q = _bound(roofline.attention_bwd_bound(seg, seg, h, d, 2,
+                                                          1, 6))
+            if others:
+                dk_r, dv_r = fa.flash_attention_bwd_dkv_reference(*args)
+                dq_r = fa.flash_attention_bwd_dq_reference(*args)
+                bq, bk, bv = fa.backward_error_bounds(*args)
+                _bwd_turns(torch, fa, others, args, what, bound_kv, bound_q,
+                           {"outs": (dk_r, dv_r), "bounds": (bk, bv)},
+                           {"outs": (dq_r,), "bounds": (bq,)})
+                del dk_r, dv_r, dq_r, bq, bk, bv
+                continue
+            t_kv = _ms(lambda: fa.flash_attention_bwd_dkv(*args), reps=20)
+            t_q = _ms(lambda: fa.flash_attention_bwd_dq(*args), reps=20)
+            mask = (seg[:, :, None] == seg[:, None, :])[:, None]
+            ql, kl, vl = (x.clone().requires_grad_(True) for x in (q, k, v))
+            ref = F.scaled_dot_product_attention(ql, kl, vl, attn_mask=mask,
+                                                 scale=scale)
+            lib_kv = _ms(lambda: torch.autograd.grad(
+                ref, (kl, vl), do, retain_graph=True), reps=20)
+            lib_q = _ms(lambda: torch.autograd.grad(
+                ref, (ql,), do, retain_graph=True), reps=20)
+            print(f"flash_attention_bwd bf16 {what}: dkv {t_kv:.4f} ms "
+                  f"(bound {bound_kv}), dq {t_q:.4f} ms (bound {bound_q}); "
+                  f"scaled_dot_product_attention backward: k, v "
+                  f"{lib_kv:.4f} ms, q {lib_q:.4f} ms", flush=True)
+            del ql, kl, vl, ref, mask
 
 
-def sass_loops(name: str) -> None:
-    """The inner loops of ``csrc/<name>.cu``'s kernels as compiled: for
-    each kernel, each loop (a backward branch) that holds a tensor-core
-    product or a shared-memory load, its instruction count and the counts
-    of its most frequent opcodes (``cuobjdump -sass`` of the built
-    library)."""
+def _bwd_turns(torch, fa, others, args, what, bound_kv, bound_q, plain_kv,
+               plain_q) -> None:
+    q, k, v, sq, skv, lse, do, di, scale = args
+    b, h, s, d = q.shape
+    dk, dv, dq = (torch.empty_like(x) for x in (k, v, q))
+    stream = torch.cuda.current_stream().cuda_stream
+    ptrs = [x.data_ptr() for x in (q, k, v, sq, skv, lse, do, di)]
+    with tempfile.TemporaryDirectory() as tmp:
+        for src in others:
+            fkv = _other_fn(src, "flash_attention_bwd_dkv_launch",
+                            _attn_ctypes(10), tmp)
+            fq = _other_fn(src, "flash_attention_bwd_dq_launch",
+                           _attn_ctypes(9), tmp)
+
+            def other_kv():
+                rc = fkv(2, *ptrs, dk.data_ptr(), dv.data_ptr(), b, h, s, d,
+                         scale, stream)
+                if rc != 0:
+                    raise RuntimeError(f"other kernel: CUDA error {rc}")
+                return dk, dv
+
+            def other_q():
+                rc = fq(2, *ptrs, dq.data_ptr(), b, h, s, d, scale, stream)
+                if rc != 0:
+                    raise RuntimeError(f"other kernel: CUDA error {rc}")
+                return (dq,)
+
+            _turns(torch, f"flash_attention_bwd_dkv bf16 {what}, other = "
+                   f"{src}", other_kv,
+                   lambda: fa.flash_attention_bwd_dkv(*args), bound_kv,
+                   _bwd_check(torch, fa, args, plain_kv))
+            _turns(torch, f"flash_attention_bwd_dq bf16 {what}, other = "
+                   f"{src}", other_q,
+                   lambda: (fa.flash_attention_bwd_dq(*args),), bound_q,
+                   _bwd_check(torch, fa, args, plain_q))
+
+
+def sass_loops(name: str, only: str = "") -> None:
+    """The inner loops of ``csrc/<name>.cu``'s kernels as compiled (those
+    whose name holds ``only``): for each kernel, each loop (a backward
+    branch) that holds a tensor-core product or a shared-memory load, its
+    instruction count and the counts of its most frequent opcodes
+    (``cuobjdump -sass`` of the built library)."""
     import re
     from collections import Counter
     from rag_foundation_tpu_torch.ops import cuda_lib
@@ -358,7 +507,8 @@ def sass_loops(name: str) -> None:
                          capture_output=True, text=True, check=True).stdout
     for body in out.split("Function : ")[1:]:
         head = body.split("\n", 1)[0]
-        named = re.search(r"((?:pq|ivf)_scan_\w+?)(I\w*?E)?EvP", head)
+        named = re.search(r"((?:pq|ivf)_scan_\w+?|flash_bwd_\w+?)(I\w*?E)?EvP",
+                          head)
         fn = "".join(named.groups("")) if named else head.strip()
         seen = set()
         ins = [(int(m.group(1), 16), m.group(2).strip()) for m in re.finditer(
@@ -373,7 +523,8 @@ def sass_loops(name: str) -> None:
             ops = Counter((t.split()[1] if t.startswith("@") else
                            t.split()[0]).split(".")[0] for t in loop)
             top = ", ".join(f"{k} {v}" for k, v in ops.most_common(7))
-            if (ops["IMMA"] or ops["LDS"]) and len(loop) < 1000 \
+            if (ops["IMMA"] or ops["HMMA"] or ops["LDS"] or ops["LDSM"]) \
+                    and len(loop) < 4000 and only in fn \
                     and top not in seen:
                 seen.add(top)
                 print(f"{name} {fn}: loop of {len(loop)} instructions: "
@@ -392,8 +543,17 @@ def main() -> None:
                     help="another ivf_list_scan.cu to time in turns")
     ap.add_argument("--other-pq", default=None,
                     help="another pq_list_scan.cu to time in turns")
+    ap.add_argument("--other-attn", default=None,
+                    help="another flash_attention.cu to time in turns")
+    ap.add_argument("--other-attn-bwd", nargs="+", default=[],
+                    help="other flash_attention_bwd.cu sources to time in "
+                         "turns")
+    ap.add_argument("--lengths", default=None,
+                    help="JSON of phase 15's layer-0 lengths by S "
+                         "(chip_smoke.py --lengths-out)")
     ap.add_argument("--sass", action="store_true",
-                    help="print the list scans' inner loops as compiled")
+                    help="print the list scans' and the attention backward's "
+                         "(bf16, D=32) inner loops as compiled")
     ap.add_argument("--exact-rows", type=int, default=1_000_000,
                     help="corpus rows of the exact-scan kernels (bf16)")
     ap.add_argument("--only", nargs="+", choices=SECTIONS, default=SECTIONS,
@@ -411,6 +571,7 @@ def main() -> None:
     if args.sass:
         sass_loops("pq_list_scan")
         sass_loops("ivf_list_scan")
+        sass_loops("flash_attention_bwd", only="bf16ILi32")
     if "pq" in args.only:
         time_pq(torch, g, args.nlist, args.live_rows, args.other_pq)
     if "flat" in args.only:
@@ -418,9 +579,14 @@ def main() -> None:
     if "exact" in args.only:
         time_exact(torch, g, args.exact_rows)
     if "attention" in args.only:
-        time_attention(torch, g)
+        time_attention(torch, g, args.other_attn)
     if "attention_bwd" in args.only:
-        time_attention_bwd(torch, g)
+        lengths = None
+        if args.lengths is not None:
+            lengths = json.loads(Path(args.lengths).read_text())
+        time_attention_bwd(torch, g, args.other_attn_bwd, lengths)
+    if FAILED:
+        raise SystemExit("outputs outside the tolerance: " + "; ".join(FAILED))
 
 
 if __name__ == "__main__":

@@ -527,21 +527,54 @@ def test_minilm_encoder_on_card_launches_the_kernel(card):
     assert (out * ref).sum(axis=1).min() >= 0.999
 
 
-def _bwd_case(b, h, s, d, dtype, device, seed):
-    """Inputs of the backward kernels: the plain forward's lse and di."""
+BWD_PATTERNS = ("pads", "packed", "random", "kv_differs", "no_key")
+
+
+def _bwd_segments(seg, pattern, seed):
+    """seg_q, seg_kv [B, S] int32 of a segment pattern; ``seg`` is the
+    real-then-pad rows of ``_attn_inputs``. "packed": three segments a
+    row, packed end to end (ids 1, 2, 3) before the pads; "random": ids 0-4
+    drawn a token, in no order; "kv_differs": random ids, and row 0's keys
+    drawn apart from its queries; "no_key": random ids, and row 0's keys in
+    a segment no query of the row has (every p of the row is 0, lse is
+    -inf)."""
+    b, s = seg.shape
+    rng = np.random.default_rng(seed)
+    if pattern == "pads":
+        return seg, seg
+    if pattern == "packed":
+        cuts = np.sort(rng.integers(0, s + 1, (b, 2)), axis=1)
+        pos = np.arange(s)[None, :]
+        ids = 1 + (pos >= cuts[:, :1]) + (pos >= cuts[:, 1:])
+        out = torch.as_tensor(ids.astype(np.int32), device=seg.device)
+        return (out * seg).contiguous(), (out * seg).contiguous()
+    sq = rng.integers(0, 5, (b, s)).astype(np.int32)
+    skv = sq.copy()
+    if pattern == "kv_differs":
+        skv[0] = rng.integers(0, 5, s)
+    elif pattern == "no_key":
+        skv[0] = 7
+    return (torch.as_tensor(sq, device=seg.device),
+            torch.as_tensor(skv, device=seg.device))
+
+
+def _bwd_case(b, h, s, d, dtype, device, seed, pattern="pads"):
+    """Inputs of the backward kernels: the plain forward's lse and di.
+    Returns q, k, v, seg_q, seg_kv, lse, do, di."""
     q, k, v, seg = _attn_inputs(b, h, s, d, dtype, device, seed=seed)
+    sq, skv = _bwd_segments(seg, pattern, seed)
     g = torch.Generator(device=device).manual_seed(seed)
     do = torch.randn((b, h, s, d), generator=g, device=device).to(dtype)
-    out, lse = fa.flash_attention_reference(q, k, v, seg, seg, d ** -0.5,
+    out, lse = fa.flash_attention_reference(q, k, v, sq, skv, d ** -0.5,
                                             with_lse=True)
     di = (out.float() * do.float()).sum(dim=-1)
-    return q, k, v, seg, lse, do, di
+    return q, k, v, sq, skv, lse, do, di
 
 
-def _bwd_bounds(q, k, v, seg, lse, do, di, scale):
+def _bwd_bounds(q, k, v, sq, skv, lse, do, di, scale):
     """sum |a||b| of each output's products, with ds's magnitude before
     its cancellation: (dq, dk, dv)."""
-    p, _ = fa.backward_terms_reference(q, k, v, seg, seg, lse, do, di,
+    p, _ = fa.backward_terms_reference(q, k, v, sq, skv, lse, do, di,
                                        scale)
     dp = torch.einsum("bhqd,bhkd->bhqk", do.float().abs(), v.float().abs())
     ds = p * (dp + di.abs()[..., None]) * scale
@@ -555,24 +588,30 @@ def _bwd_bounds(q, k, v, seg, lse, do, di, scale):
 @pytest.mark.parametrize("b,h,s,d", [(4, 3, 16, 32), (5, 2, 32, 32),
                                      (4, 12, 100, 32), (3, 4, 128, 32),
                                      (6, 12, 512, 32), (3, 2, 77, 16),
-                                     (3, 2, 200, 64)])
+                                     (3, 2, 200, 64), (4, 3, 1, 32),
+                                     (4, 3, 8, 16), (4, 3, 33, 32),
+                                     (4, 3, 64, 64), (4, 3, 65, 32),
+                                     (4, 5, 256, 32), (3, 2, 300, 16),
+                                     (2, 3, 320, 64)])
+@pytest.mark.parametrize("pattern", BWD_PATTERNS)
 def test_flash_attention_bwd_kernels_match_plain_versions_on_card(
-        card, dtype, b, h, s, d):
-    q, k, v, seg, lse, do, di = _bwd_case(b, h, s, d, dtype, card, s + d)
+        card, dtype, b, h, s, d, pattern):
+    q, k, v, sq, skv, lse, do, di = _bwd_case(b, h, s, d, dtype, card,
+                                              s + d, pattern)
     scale = d ** -0.5
     n_dkv, n_dq = fa.BWD_DKV_LAUNCHES.count, fa.BWD_DQ_LAUNCHES.count
-    dk, dv = fa.flash_attention_bwd_dkv(q, k, v, seg, seg, lse, do, di,
+    dk, dv = fa.flash_attention_bwd_dkv(q, k, v, sq, skv, lse, do, di,
                                         scale)
-    dq = fa.flash_attention_bwd_dq(q, k, v, seg, seg, lse, do, di, scale)
+    dq = fa.flash_attention_bwd_dq(q, k, v, sq, skv, lse, do, di, scale)
     torch.cuda.synchronize()
     assert (fa.BWD_DKV_LAUNCHES.count, fa.BWD_DQ_LAUNCHES.count) == \
         (n_dkv + 1, n_dq + 1)
-    rk, rv = fa.flash_attention_bwd_dkv_reference(q, k, v, seg, seg, lse, do,
+    rk, rv = fa.flash_attention_bwd_dkv_reference(q, k, v, sq, skv, lse, do,
                                                   di, scale)
-    rq = fa.flash_attention_bwd_dq_reference(q, k, v, seg, seg, lse, do, di,
+    rq = fa.flash_attention_bwd_dq_reference(q, k, v, sq, skv, lse, do, di,
                                              scale)
     for got, want, bound in zip((dq, dk, dv), (rq, rk, rv),
-                                _bwd_bounds(q, k, v, seg, lse, do, di,
+                                _bwd_bounds(q, k, v, sq, skv, lse, do, di,
                                             scale)):
         assert got.dtype == dtype and bool(torch.isfinite(got).all())
         excess = (got.float() - want.float()).abs() \
@@ -585,7 +624,7 @@ def test_flash_attention_bwd_kernels_match_plain_versions_on_card(
 @pytest.mark.parametrize("b,h,s,d", [(4, 12, 100, 32), (6, 12, 512, 32),
                                      (3, 2, 77, 16), (3, 2, 200, 64)])
 def test_flash_attention_autograd_on_card(card, dtype, b, h, s, d):
-    q, k, v, seg, lse, do, _ = _bwd_case(b, h, s, d, dtype, card, s)
+    q, k, v, seg, _, lse, do, _ = _bwd_case(b, h, s, d, dtype, card, s)
     # the forward kernel's lse against the plain one
     _, klse = fa.flash_attention_forward(q, k, v, seg, seg, d ** -0.5,
                                          with_lse=True)
@@ -603,18 +642,24 @@ def test_flash_attention_autograd_on_card(card, dtype, b, h, s, d):
 
 @pytest.mark.cuda
 def test_flash_attention_bwd_cuda_checks(card, monkeypatch):
-    q, k, v, seg, lse, do, di = _bwd_case(2, 2, 64, 32, torch.bfloat16,
-                                          card, 0)
+    q, k, v, seg, _, lse, do, di = _bwd_case(2, 2, 64, 32,
+                                             torch.bfloat16, card, 0)
     for fn in (fa.flash_attention_bwd_dkv, fa.flash_attention_bwd_dq):
         with pytest.raises(ValueError, match="one device"):
             fn(q, k, v, seg, seg, lse.cpu(), do, di, 1.0)
         with pytest.raises(ValueError, match="do"):
             fn(q, k, v, seg, seg, lse, do.float(), di, 1.0)
-    q48, k48, v48, seg48, lse48, do48, di48 = _bwd_case(
+    q48, k48, v48, seg48, _, lse48, do48, di48 = _bwd_case(
         2, 2, 64, 48, torch.bfloat16, card, 0)
     with pytest.raises(ValueError, match="head dim"):
         fa.flash_attention_bwd_dq(q48, k48, v48, seg48, seg48, lse48, do48,
                                   di48, 1.0)
+    # a contiguous view 2 bytes off 16: the ring's 16-byte copies refuse it
+    odd = torch.empty(q.numel() + 1, dtype=q.dtype, device=card)[1:] \
+        .view(q.shape).copy_(q)
+    for fn in (fa.flash_attention_bwd_dkv, fa.flash_attention_bwd_dq):
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            fn(odd, k, v, seg, seg, lse, do, di, 1.0)
 
     def missing(name):
         raise RuntimeError("kernel library unavailable")

@@ -42,22 +42,24 @@ def _inputs(b, h, s, d, lengths, seed=0):
     return q, k, v, do, seg
 
 
-def _port_grads(q, k, v, do, seg, scale):
+def _port_grads(q, k, v, do, seg, scale, seg_kv=None):
     """dq, dk, dv from the plain versions, through the wrappers on CPU
     tensors, given the plain forward's lse and di."""
     t = [torch.from_numpy(x) for x in (q, k, v, do)]
     sg = torch.from_numpy(seg)
-    out, lse = fa.flash_attention_reference(*t[:3], sg, sg, scale,
+    skv = sg if seg_kv is None else torch.from_numpy(seg_kv)
+    out, lse = fa.flash_attention_reference(*t[:3], sg, skv, scale,
                                             with_lse=True)
     di = (out * t[3]).sum(dim=-1)
-    dk, dv = fa.flash_attention_bwd_dkv(*t[:3], sg, sg, lse, t[3], di,
+    dk, dv = fa.flash_attention_bwd_dkv(*t[:3], sg, skv, lse, t[3], di,
                                         scale)
-    dq = fa.flash_attention_bwd_dq(*t[:3], sg, sg, lse, t[3], di, scale)
+    dq = fa.flash_attention_bwd_dq(*t[:3], sg, skv, lse, t[3], di, scale)
     return [x.numpy() for x in (dq, dk, dv)]
 
 
-def _jax_grads(fn, q, k, v, do, seg, scale):
-    ids = SegmentIds(q=jnp.asarray(seg), kv=jnp.asarray(seg))
+def _jax_grads(fn, q, k, v, do, seg, scale, seg_kv=None):
+    ids = SegmentIds(q=jnp.asarray(seg),
+                     kv=jnp.asarray(seg if seg_kv is None else seg_kv))
 
     @jax.jit
     def grads(q, k, v, do):
@@ -92,6 +94,25 @@ def test_plain_backward_matches_jax_kernels(s, lengths):
     with pltpu.force_tpu_interpret_mode():
         ref = _jax_grads(_library, q, k, v, do, seg, d ** -0.5)
     _assert_grads_close(_port_grads(q, k, v, do, seg, d ** -0.5), ref)
+
+
+def test_plain_backward_matches_jax_kernels_on_unordered_segments():
+    """Segment ids 0-4 drawn a token, in no order, and one row whose keys
+    are drawn apart from its queries (each query still has a key of its
+    segment): the function that the kernels' skipping of 16 x 16 blocks
+    with no same-segment pair must keep, against the library's two Pallas
+    backward kernels (interpret mode), S=128."""
+    s, d = 128, 32
+    q, k, v, do, _ = _inputs(2, 2, s, d, [s, s], seed=5)
+    rng = np.random.default_rng(5)
+    seg_q = rng.integers(0, 5, (2, s)).astype(np.int32)
+    seg_kv = seg_q.copy()
+    seg_kv[1] = rng.integers(0, 5, s)
+    assert all(set(seg_q[i]) <= set(seg_kv[i]) for i in range(2))
+    with pltpu.force_tpu_interpret_mode():
+        ref = _jax_grads(_library, q, k, v, do, seg_q, d ** -0.5, seg_kv)
+    _assert_grads_close(_port_grads(q, k, v, do, seg_q, d ** -0.5, seg_kv),
+                        ref)
 
 
 @pytest.mark.parametrize("s,lengths", CASES)
@@ -189,3 +210,43 @@ def test_backward_wrappers_raise_on_bad_inputs():
             fn(*t[:3], sg, sg.long(), lse, t[3], di, 1.0)
         with pytest.raises(ValueError, match="shape"):
             fn(t[0], t[1][:, :, :8], t[2], sg, sg, lse, t[3], di, 1.0)
+
+
+def test_bf16_roundings_stay_within_the_card_tolerance():
+    """The tolerance that ``chip_smoke.py`` holds the bf16 backward kernels
+    to, against an ideal kernel that differs from the plain version only by
+    its roundings to bf16 (8 significant bits: up to 2^-8 of the value
+    each): p and ds before their products, and the output. With segment
+    ids 0-4 drawn a token, an output often sums a few same-signed terms,
+    so the two outputs' roundings add up: 2^-8 * (sum|a||b| + 2 |plain|)
+    holds where 2^-8 * (sum|a||b| + |plain|) does not."""
+    rng = np.random.default_rng(7)
+    excess = {1: -np.inf, 2: -np.inf}
+    for _ in range(40):
+        q, k, v, do = (torch.from_numpy(
+            rng.standard_normal((8, 12, 16, 32)).astype(np.float32))
+            .bfloat16() for _ in range(4))
+        seg_q = torch.from_numpy(rng.integers(0, 5, (8, 16)).astype(np.int32))
+        seg_kv = seg_q.clone()
+        seg_kv[0] = torch.from_numpy(rng.integers(0, 5, 16).astype(np.int32))
+        out, lse = fa.flash_attention_reference(q, k, v, seg_q, seg_kv,
+                                                32 ** -0.5, with_lse=True)
+        di = (out.float() * do.float()).sum(dim=-1)
+        args = (q, k, v, seg_q, seg_kv, lse, do, di, 32 ** -0.5)
+        p, ds = fa.backward_terms_reference(*args)
+        dk, dv = fa.flash_attention_bwd_dkv_reference(*args)
+        plain = (fa.flash_attention_bwd_dq_reference(*args), dk, dv)
+
+        def bf(x):
+            return x.bfloat16().float()
+
+        ideal = (bf(torch.einsum("bhqk,bhkd->bhqd", bf(ds), k.float())),
+                 bf(torch.einsum("bhqk,bhqd->bhkd", bf(ds), q.float())),
+                 bf(torch.einsum("bhqk,bhqd->bhkd", bf(p), do.float())))
+        for got, want, bound in zip(ideal, plain,
+                                    fa.backward_error_bounds(*args)):
+            diff = (got - want.float()).abs()
+            for n in (1, 2):
+                excess[n] = max(excess[n], float(
+                    (diff - 2 ** -8 * (bound + n * want.float().abs())).max()))
+    assert excess[2] <= 0.0 < excess[1]
