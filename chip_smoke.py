@@ -66,7 +66,8 @@ Phases (each one fails the run: non-zero exit, no result line):
     launch counters zeroed just before and read just after, recall@10 of
     ``block_topk(p=2)`` against ``fused_topk`` and ``exact_topk``, which
     must name the same rows; then each kernel against its plain version
-    on those inputs with times, a library yardstick and the bound.
+    on those inputs with times (``block_topk``'s kernel and its stage 2
+    also apart), a library yardstick and the bound.
 11. ``exact_topk_hosted`` over a pinned host copy of ``--exact-rows`` x 768
     f32 rows against ``exact_topk`` on the device copy, with seconds and
     GB/s; then a 20,000-row ``build_ivf_flat_streaming`` body adopted by
@@ -88,8 +89,11 @@ Phases (each one fails the run: non-zero exit, no result line):
     ``save_params`` and loaded by an ``Engine`` through
     ``encoder_ckpt``, which ingests long documents at the default 200
     words a chunk: batches of 256 chunks at S=512, the kernel's main
-    shape, with chunks/s, and the kernel's time there beside its bound,
-    its plain version and ``scaled_dot_product_attention`` (timed only).
+    shape, with chunks/s, and the kernel's time there beside its bound
+    (bytes, tensor operations and one exponential a same-segment pair; the
+    exponentials the kernel issues printed beside them), its plain version
+    and ``scaled_dot_product_attention`` (timed only); the kernel's
+    launches on these serve phases are printed by (B, S).
 
 14. The attention backward kernels (``flash_attention_bwd_dkv``,
     ``flash_attention_bwd_dq``) against their plain versions on the card,
@@ -106,7 +110,7 @@ Phases (each one fails the run: non-zero exit, no result line):
     q_len 32, d_len 128, symmetric InfoNCE at temperature 0.05, adamw lr
     3e-4 with warmup and cosine decay, clip 1.0) for ``--train-steps``
     steps, the three attention launch counters zeroed just before and read
-    just after, a finite and falling loss, ms/step, pairs/s and held-out
+    just after (the forward's also by (B, S)), a finite and falling loss, ms/step, pairs/s and held-out
     recall beside the hash encoder; the saved checkpoint served by an
     ``Engine`` through ``encoder_ckpt``; one step's gradients with the
     kernels against the plain attention (worst cosine a leaf); a few steps
@@ -820,10 +824,21 @@ def exact_phases(args, card) -> list[dict]:
                                f"{name} main")
         del kv, ki, rv, ri
         ms = cuda_ms(fn, reps=10)
+        split = {}
+        if mod is bt:       # the kernel (stage 1) and stage 2 apart
+            split["kernel_ms"] = cuda_ms(lambda: bt.block_candidates(
+                queries, corpus, 2, n, 1024), reps=10)
+            cands = bt.block_candidates(queries, corpus, 2, n, 1024)
+            split["stage2_ms"] = cuda_ms(lambda: bt._finish(*cands, k),
+                                         reps=10)
+            del cands
         log(f"{name} bf16 main path, Q={q_n} N={n} d={d} k={k}"
             f"{' p=2 block_n=1024 (stage-2 merge included)' if mod is bt else ''}"
             f": max_abs_err={err:.3g} (tol {tol:.3g}), {near} ids differ "
-            f"within it; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms (one "
+            f"within it; kernel {ms:.3f} ms"
+            + (f" (stage 1 alone {split['kernel_ms']:.3f} ms, stage 2 alone "
+               f"{split['stage2_ms']:.3f} ms)" if split else "")
+            + f", plain {plain_ms:.3f} ms (one "
             f"run), torch.matmul+topk (bf16, 65,536-row blocks) "
             f"{library_ms:.3f} ms, bound {bound_ms:.3f} ms ({bound_by}) | "
             f"{card}")
@@ -833,7 +848,7 @@ def exact_phases(args, card) -> list[dict]:
             "replaces": f"rag_foundation_tpu/ops/{line}",
             "launches": count, "max_abs_err": err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": library_ms, "dtype": "bf16",
+            "library_ms": library_ms, "dtype": "bf16", **split,
             "shape": {"Q": q_n, "N": n, "d": d, "k": k,
                       **({"p": 2, "block_n": 1024} if mod is bt else {})},
         })
@@ -1304,6 +1319,42 @@ def attention_inputs(torch, g, b, h, s, d, dtype):
     return q, k, v, seg.int().contiguous()
 
 
+class ShapeTally:
+    """The forward kernel's launches by shape while started: wraps
+    ``flash_attention_forward``, which ``flash_attention`` and
+    ``FlashAttention`` look up at call time, and counts its calls on card
+    tensors by (B, S). Printed beside the wrapper's own counter, which
+    stays the check."""
+
+    def __init__(self, fa):
+        self.fa, self.orig, self.counts = fa, fa.flash_attention_forward, {}
+
+    def start(self) -> "ShapeTally":
+        def counted(q, *a, **kw):
+            if q.device.type == "cuda" and q.numel() > 0:
+                key = (q.shape[0], q.shape[2])
+                self.counts[key] = self.counts.get(key, 0) + 1
+            return self.orig(q, *a, **kw)
+
+        self.fa.flash_attention_forward = counted
+        return self
+
+    def stop(self) -> dict:
+        self.fa.flash_attention_forward = self.orig
+        return self.counts
+
+    def text(self) -> str:
+        """"S=... : n launches (B ...)" by S, the largest S first."""
+        by_s = {}
+        for (b, s), n in self.counts.items():
+            by_s.setdefault(s, []).append((b, n))
+        return "; ".join(
+            f"S={s}: {sum(n for _, n in bs)} (" + ", ".join(
+                f"B={b} x{n}" for b, n in sorted(bs, reverse=True)[:4])
+            + (", ..." if len(bs) > 4 else "") + ")"
+            for s, bs in sorted(by_s.items(), reverse=True))
+
+
 def check_attention(torch, out, ref, v, kind, what) -> tuple[float, float]:
     """(max |kernel - plain|, tolerance); fails beyond the tolerance."""
     tol = ATTN_TOL[kind] * float(v.float().abs().max())
@@ -1360,6 +1411,7 @@ def encoder_phases(args, card, rng, sampled, mods) -> dict:
                 nlist=16, nprobe=16, ivf_p=10, build_threshold=256,
                 batch_window_s=0.02, device="cuda")
     fa.LAUNCHES.reset()                          # counts: this path only
+    tally = ShapeTally(fa).start()
     engine = Engine(EngineConfig(dim=384, encoder="minilm",
                                  encoder_ckpt=str(ckpt), data_dir=data_dir,
                                  **base))
@@ -1481,6 +1533,9 @@ def encoder_phases(args, card, rng, sampled, mods) -> dict:
     torch.cuda.synchronize()
     long_s = time.perf_counter() - t0
     flash_launches = fa.LAUNCHES.count           # read just after the path
+    by_shape = tally.stop()
+    log(f"flash_attention launches on the serve phases by shape: "
+        f"{tally.text()} | {card}")
     store = long_e._store(key)
     texts = [store.chunks[c].text for c in sorted(store.chunks)]
     lens = (enc.tokenizer.encode_batch(texts[:LONG_BATCH], 512) != 0).sum(
@@ -1542,7 +1597,13 @@ def encoder_phases(args, card, rng, sampled, mods) -> dict:
         f"{c['dense_pairs']} (query, key) pairs share a segment: "
         f"max_abs_err={err:.3g} (tol {tol:.3g}); kernel {ms:.4f} ms, plain "
         f"{plain_ms:.3f} ms, scaled_dot_product_attention (bool mask) "
-        f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}; dense "
+        f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}: bytes "
+        f"{c['bytes'] / roofline.HBM_BYTES_S * 1e3:.4f} ms, tensor "
+        f"operations {c['operations'] / roofline.PEAK_OPS_S['bf16'] * 1e3:.4f}"
+        f" ms, exponential floor {c['exp_floor_ms']:.4f} ms for the "
+        f"{c['exponentials']} same-segment pairs x heads; the kernel issues "
+        f"{c['exponentials_issued']}, "
+        f"{roofline.exp_floor_ms(c['exponentials_issued'], 1):.4f} ms; dense "
         f"S^2 operations {4.0 * b * h * s * s * d / roofline.PEAK_OPS_S['bf16'] * 1e3:.4f}"
         f" ms) | {card}")
     del long_e, enc, q, k, v, sq, skv, mask
@@ -1557,6 +1618,8 @@ def encoder_phases(args, card, rng, sampled, mods) -> dict:
             "launches": flash_launches, "max_abs_err": err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": library_ms, "dtype": "bf16",
+            "launches_by_b_s": {f"{bb},{ss}": n
+                                for (bb, ss), n in by_shape.items()},
             "shape": {"B": b, "H": h, "S": s, "D": d, **c}}
 
 
@@ -1883,10 +1946,14 @@ def train_phases(args, card, rng, sampled, mods) -> list[dict]:
     counters = (fa.LAUNCHES, fa.BWD_DKV_LAUNCHES, fa.BWD_DQ_LAUNCHES)
     for c in counters:
         c.reset()                                 # counts: this path only
+    tally = ShapeTally(fa).start()
     torch.cuda.synchronize()
     run = train_encoder.train_ict(targs, log=lambda m: log(f"  {m}"))
     torch.cuda.synchronize()
     launches = [c.count for c in counters]        # read just after the path
+    tally.stop()
+    log(f"flash_attention launches on the training path by shape: "
+        f"{tally.text()} | {card}")
     losses, summary = run["losses"], run["summary"]
     steps, secs = targs.steps, run["train_s"]
     tenth = max(1, steps // 10)

@@ -20,10 +20,10 @@
 //
 // Bound on an H100 at the exact scan's shapes (Q=1024, N=1M, d=768, bf16):
 // 2*Q*N*d = 1.57e12 operations at 989 TFLOP/s is 1.59 ms, the 1.54 GB of
-// corpus at 3.35 TB/s 0.46 ms: operations. This design reaches the tensor
-// cores through wmma (mma.sync) fed by a cp.async ring, and its warps wait
-// on their shared-memory fragment loads between products; wgmma fed by a
-// TMA ring is what the bound assumes, and is later work.
+// corpus at 3.35 TB/s 0.46 ms: operations. The bf16 design (wgmma fed by a
+// TMA ring that stays in flight across the tiles of a block's corpus
+// block) is in exact_scan.cuh; the 128 x 128 tiles read the queries and
+// rows from the L2 eight and one times over, 24.6 GB a batch.
 
 #include "exact_scan.cuh"
 

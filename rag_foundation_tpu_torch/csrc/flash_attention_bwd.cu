@@ -91,65 +91,22 @@
 #include <stdint.h>
 
 #include "mma_bf16.cuh"
-#include "mma_s8.cuh"
 
 namespace {
 
 using flash::ex2;
+using flash::Flag;
 using flash::LOG2E;
 using flash::mma_16816;
 using flash::pack_a;
 using flash::pack_bf16;
+using flash::RING;
+using flash::row_ids;
+using flash::Stage;
+using flash::stage_tile;
 
 constexpr int TILE = 64;         // f32 kernels: rows a block owns and stages
 constexpr int F32_QTILE = 16;    // f32 dK/dV: queries of a staged tile
-constexpr int RING = 2;          // bf16 kernels: stages of the cp.async ring
-constexpr unsigned FULL = 0xffffffffu;
-
-// One stage of the bf16 kernels' ring: CT rows of two row-major [S, D]
-// bf16 matrices (Q and dO, or K and V) at a stride of D + 8 elements, so
-// that the eight rows of an ldmatrix tile fall in distinct banks, and the
-// CT columns' lse, di (dK/dV only) and segment ids.
-template <int D, int CT>
-struct alignas(16) Stage {
-  __nv_bfloat16 a[CT * (D + 8)];
-  __nv_bfloat16 b[CT * (D + 8)];
-  float lse[CT];
-  float di[CT];
-  int seg[CT];
-};
-
-// Issue the copies of rows [r0, r0 + CT) of a, b, seg and, when lse is not
-// null, of lse and di into `st`; rows at or past S are zero-filled and read
-// nothing.
-template <int D, int CT, int THREADS>
-__device__ __forceinline__ void stage_tile(Stage<D, CT>& st,
-                                           const __nv_bfloat16* a,
-                                           const __nv_bfloat16* b,
-                                           const int* seg, const float* lse,
-                                           const float* di, int r0, int S) {
-  constexpr int LD = D + 8, CHUNKS = D / 8;   // 16-byte pieces a row
-  for (int c = threadIdx.x; c < CT * CHUNKS; c += THREADS) {
-    const int row = c / CHUNKS, col = (c % CHUNKS) * 8, r = r0 + row;
-    const size_t off = (size_t)(r < S ? r : 0) * D + col;
-    s8::cp_async16(st.a + row * LD + col, a + off, r < S ? 16 : 0);
-    s8::cp_async16(st.b + row * LD + col, b + off, r < S ? 16 : 0);
-  }
-  for (int row = threadIdx.x; row < CT; row += THREADS) {
-    const int r = r0 + row, src = r < S ? r : 0, n = r < S ? 4 : 0;
-    s8::cp_async4(st.seg + row, seg + src, n);
-    if (lse != nullptr) {
-      s8::cp_async4(st.lse + row, lse + src, n);
-      s8::cp_async4(st.di + row, di + src, n);
-    }
-  }
-}
-
-// A compile-time flag for a generic lambda's argument
-template <bool B>
-struct Flag {
-  static constexpr bool value = B;
-};
 
 // Whether the warp's rows (ids lo..hi among those before S) and a staged
 // tile's rows before `live` all hold one segment: then every pair of them
@@ -157,25 +114,9 @@ struct Flag {
 template <int CT>
 __device__ __forceinline__ bool one_segment(const int* seg, int live, int lo,
                                             int hi, int lane) {
-  int tlo = INT_MAX, thi = INT_MIN;
-#pragma unroll
-  for (int r = lane; r < CT; r += 32)
-    if (r < live) {
-      tlo = min(tlo, seg[r]);
-      thi = max(thi, seg[r]);
-    }
-  tlo = __reduce_min_sync(FULL, tlo);
-  thi = __reduce_max_sync(FULL, thi);
+  int tlo, thi;
+  flash::tile_ids<CT>(seg, live, lane, tlo, thi);
   return lo == hi && tlo == thi && lo == tlo;
-}
-
-// min and max of the ids of rows row0 .. row0 + rows - 1 before S
-__device__ __forceinline__ void row_ids(const int* seg, int row0, int rows,
-                                        int S, int lane, int& lo, int& hi) {
-  const int r = row0 + lane;
-  const bool live = lane < rows && r < S;
-  lo = __reduce_min_sync(FULL, live ? seg[r] : INT_MAX);
-  hi = __reduce_max_sync(FULL, live ? seg[r] : INT_MIN);
 }
 
 // dK/dV's weights of one m-tile x 16-query block, in place: s (S^T) becomes

@@ -1,5 +1,6 @@
 // bf16 mma.sync helpers shared by the flash attention kernels
-// (flash_attention.cu, flash_attention_bwd.cu).
+// (flash_attention.cu, flash_attention_bwd.cu), and their cp.async ring of
+// row-major tiles.
 //
 // Fragment layouts of mma.m16n8k16 (PTX ISA), g = lane / 4, t = lane % 4:
 //   A regs: (row g, cols 2t..2t+1), (g+8, 2t..), (g, 2t+8..), (g+8, 2t+8..)
@@ -11,12 +12,17 @@
 #pragma once
 
 #include <cuda_bf16.h>
+#include <limits.h>
 #include <stdint.h>
+
+#include "mma_s8.cuh"
 
 namespace flash {
 
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
+constexpr int RING = 2;          // bf16 kernels: stages of the cp.async ring
+constexpr unsigned FULL = 0xffffffffu;
 
 __device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
@@ -97,6 +103,77 @@ __device__ __forceinline__ float ex2(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
   return y;
+}
+
+// One stage of the bf16 kernels' ring: CT rows of two row-major [S, D]
+// bf16 matrices (Q and dO, or K and V) at a stride of D + 8 elements, so
+// that the eight rows of an ldmatrix tile fall in distinct banks, and the
+// CT columns' lse, di (dK/dV only) and segment ids.
+template <int D, int CT>
+struct alignas(16) Stage {
+  __nv_bfloat16 a[CT * (D + 8)];
+  __nv_bfloat16 b[CT * (D + 8)];
+  float lse[CT];
+  float di[CT];
+  int seg[CT];
+};
+
+// Issue the copies of rows [r0, r0 + CT) of a, b, seg and, when lse is not
+// null, of lse and di into `st`; rows at or past S are zero-filled and read
+// nothing.
+template <int D, int CT, int THREADS>
+__device__ __forceinline__ void stage_tile(Stage<D, CT>& st,
+                                           const __nv_bfloat16* a,
+                                           const __nv_bfloat16* b,
+                                           const int* seg, const float* lse,
+                                           const float* di, int r0, int S) {
+  constexpr int LD = D + 8, CHUNKS = D / 8;   // 16-byte pieces a row
+  for (int c = threadIdx.x; c < CT * CHUNKS; c += THREADS) {
+    const int row = c / CHUNKS, col = (c % CHUNKS) * 8, r = r0 + row;
+    const size_t off = (size_t)(r < S ? r : 0) * D + col;
+    s8::cp_async16(st.a + row * LD + col, a + off, r < S ? 16 : 0);
+    s8::cp_async16(st.b + row * LD + col, b + off, r < S ? 16 : 0);
+  }
+  for (int row = threadIdx.x; row < CT; row += THREADS) {
+    const int r = r0 + row, src = r < S ? r : 0, n = r < S ? 4 : 0;
+    s8::cp_async4(st.seg + row, seg + src, n);
+    if (lse != nullptr) {
+      s8::cp_async4(st.lse + row, lse + src, n);
+      s8::cp_async4(st.di + row, di + src, n);
+    }
+  }
+}
+
+// A compile-time flag for a generic lambda's argument
+template <bool B>
+struct Flag {
+  static constexpr bool value = B;
+};
+
+// min and max of the ids of rows row0 .. row0 + rows - 1 before S
+__device__ __forceinline__ void row_ids(const int* seg, int row0, int rows,
+                                        int S, int lane, int& lo, int& hi) {
+  const int r = row0 + lane;
+  const bool live = lane < rows && r < S;
+  lo = __reduce_min_sync(FULL, live ? seg[r] : INT_MAX);
+  hi = __reduce_max_sync(FULL, live ? seg[r] : INT_MIN);
+}
+
+// min and max of the ids of a staged tile's first `live` rows (of CT);
+// INT_MAX, INT_MIN when it has none
+template <int CT>
+__device__ __forceinline__ void tile_ids(const int* seg, int live, int lane,
+                                         int& lo, int& hi) {
+  lo = INT_MAX;
+  hi = INT_MIN;
+#pragma unroll
+  for (int r = lane; r < CT; r += 32)
+    if (r < live) {
+      lo = min(lo, seg[r]);
+      hi = max(hi, seg[r]);
+    }
+  lo = __reduce_min_sync(FULL, lo);
+  hi = __reduce_max_sync(FULL, hi);
 }
 
 }  // namespace flash

@@ -117,6 +117,8 @@ def flash_attention_forward(q, k, v, seg_q, seg_kv, sm_scale: float,
                                          with_lse)
     _check(q, k, v, seg_q, seg_kv)
     _card_shape(q)
+    if not sm_scale > 0:
+        raise ValueError(f"the kernel takes sm_scale > 0, got {sm_scale}")
     b, h, s, d = q.shape
     out = torch.empty_like(q)
     lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device) \

@@ -30,8 +30,10 @@ from rag_foundation_tpu_torch.ops.block_topk import (DTYPE_CODE, check_cuda,
 from rag_foundation_tpu_torch.ops.topk import NEG_INF, exact_topk
 
 _TILE = 128           # rows of a kernel tile: ranges are multiples of it
-_BLOCKS_PER_SM = 2    # blocks an SM holds at once: the default split is
-#                       one such wave (the fastest split measured on an H100)
+_BLOCKS_PER_SM = 2    # 128-query tiles an SM works on at once (the bf16
+#                       kernel's blocks of 256 queries, one an SM): the
+#                       default split is one such wave (the fastest split
+#                       measured on an H100)
 
 LAUNCHES = cuda_lib.LaunchCounter()   # kernel launches (CUDA path only)
 
@@ -47,9 +49,9 @@ def fused_topk_reference(
 
 
 def default_splits(q_n: int, n: int, device: torch.device) -> int:
-    """Ranges of rows that fill the card once: ``_BLOCKS_PER_SM`` blocks
-    an SM over all (128-query tile, range) pairs, at least one tile a
-    range."""
+    """Ranges of rows that fill the card once: ``_BLOCKS_PER_SM``
+    128-query tiles an SM over all (query tile, range) pairs, at least one
+    tile a range."""
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     q_tiles = -(-q_n // _TILE)
     return max(1, min(-(-n // _TILE), sms * _BLOCKS_PER_SM // q_tiles))

@@ -6,9 +6,11 @@
         --other-flat path/to/another/ivf_list_scan.cu
     python -m rag_foundation_tpu_torch.tools.time_kernels \\
         --only attention attention_bwd \\
-        --other-attn path/to/another/flash_attention.cu \\
+        --other-attn path/to/another/flash_attention.cu [more...] \\
         --other-attn-bwd path/to/another/flash_attention_bwd.cu \\
         --lengths build/attention_lengths.json
+    python -m rag_foundation_tpu_torch.tools.time_kernels --only exact \\
+        --other-exact path/to/another/csrc [more directories...]
 
 Needs a CUDA card and ``nvcc``. Inputs: 4096 lists whose 2,441 live rows
 are interleaved over the sub-blocks as the index lays them out, a
@@ -28,15 +30,21 @@ this, other; five rounds of two pairs each, and the number of pairs
 this version won), so that two versions are compared within one run on
 one card.
 Last come the exact-scan kernels on ``--exact-rows`` x 768 normal rows and
-1024 queries: ``block_topk`` (p 2 and 10, its kernel alone
-and with the stage-2 merge), ``fused_topk`` (the default split of the rows
+1024 queries: ``block_topk`` (p 2 and 10, its kernel alone, stage 2 alone
+and the two together), ``fused_topk`` (the default split of the rows
 and a few others, k 10 and 64), in bf16, and both in f32 on an eighth of
-the rows. Then the encoder's attention (``flash_attention``, H=12, D=32,
-bf16) at the batch and sequence buckets MiniLM encodes at (B 1, 64, 256;
-S 16, 128, 512), every token real and with chunks of half the bucket
+the rows; with ``--other-exact`` first the ``block_topk.cu`` and
+``fused_topk.cu`` of each directory listed in turns against this version's
+(``block_candidates`` p 2 and ``fused_topk`` k 10 in bf16, outputs
+compared with ``torch.equal``). Then the encoder's attention
+(``flash_attention``, H=12, D=32, bf16) at the batch and sequence buckets
+MiniLM encodes at (B 1, 64, 256; S 16, 128, 512), every token real and
+with chunks of half the bucket
 (pads past them), beside ``scaled_dot_product_attention`` with the same
-boolean mask; with ``--other-attn`` first that source in turns at B=256,
-S=512 (outputs and lse compared with ``torch.equal``). Then the attention
+boolean mask; with ``--other-attn`` first each listed source in turns at
+B=256 and S 32, 128, 512, two length patterns each as below (each
+version's out and lse held to the plain version within ``chip_smoke.py``'s
+tolerance). Then the attention
 backward (``attention_bwd``: ``flash_attention_bwd_dkv`` and
 ``flash_attention_bwd_dq``, bf16, H=12, D=32) at the trainer's batch and
 buckets (B 256; S 32, 128, 512), each with two length patterns (real
@@ -264,23 +272,41 @@ def time_flat(torch, g, nlist: int, live_rows: int,
         _turns(torch, f"{name}, other = {other_src}", other, this, bound)
 
 
-def time_exact(torch, g, rows: int) -> None:
+def _exact_inputs(torch, g, n: int, d: int, q_n: int, dtype):
+    c = torch.empty((n, d), dtype=dtype, device="cuda")
+    for lo in range(0, n, 131_072):
+        c[lo:lo + 131_072] = torch.randn((min(131_072, n - lo), d),
+                                         generator=g, device="cuda")
+    return torch.randn((q_n, d), generator=g, device="cuda").to(dtype), c
+
+
+def time_exact(torch, g, rows: int, other_dirs: list[str]) -> None:
+    """The exact-scan kernels; with ``other_dirs`` (directories, each
+    holding another ``block_topk.cu``, ``fused_topk.cu`` and the headers
+    they include), first each version in turns against this one at
+    ``rows`` x 768 bf16, Q=1024: ``block_candidates`` (p=2, block_n=1024)
+    and ``fused_topk`` (k=10, the default split), outputs compared with
+    ``torch.equal``."""
     from rag_foundation_tpu_torch.ops import block_topk as bt
     from rag_foundation_tpu_torch.ops import fused_topk as ft
     d, q_n = 768, 1024
+    if other_dirs:
+        q, c = _exact_inputs(torch, g, rows, d, q_n, torch.bfloat16)
+        for other_dir in other_dirs:
+            _exact_turns(torch, bt, ft, q, c, other_dir)
+        del q, c
     for dtype, n in ((torch.bfloat16, rows), (torch.float32, rows // 8)):
-        c = torch.empty((n, d), dtype=dtype, device="cuda")
-        for lo in range(0, n, 131_072):
-            c[lo:lo + 131_072] = torch.randn((min(131_072, n - lo), d),
-                                             generator=g, device="cuda")
-        q = torch.randn((q_n, d), generator=g, device="cuda").to(dtype)
+        q, c = _exact_inputs(torch, g, n, d, q_n, dtype)
         name = f"{str(dtype).split('.')[1]} N={n} d={d} Q={q_n}"
         for p in (2, 10):
             t1 = _ms(lambda: bt.block_candidates(q, c, p, n, 1024), reps=5)
             t2 = _ms(lambda: bt.block_topk(q, c, 10, p=p), reps=5)
+            cands = bt.block_candidates(q, c, p, n, 1024)
+            t3 = _ms(lambda: bt._finish(*cands, 10), reps=5)
             print(f"block_topk {name} k=10 p={p} block_n=1024: kernel "
-                  f"{t1:.3f} ms, with the stage-2 merge {t2:.3f} ms",
-                  flush=True)
+                  f"{t1:.3f} ms, stage 2 alone {t3:.3f} ms, with the stage-2 "
+                  f"merge {t2:.3f} ms", flush=True)
+            del cands
         auto = ft.default_splits(q_n, n, c.device)
         for k, splits in ((10, None), (10, 16), (10, 64), (10, 512),
                           (64, None)):
@@ -290,6 +316,57 @@ def time_exact(torch, g, rows: int) -> None:
                   f"{' (default)' if splits is None else ''}: {t:.3f} ms",
                   flush=True)
         del c, q
+
+
+def _exact_turns(torch, bt, ft, q, c, other_dir: str) -> None:
+    n, d = c.shape
+    q_n, p, k, block_n = q.shape[0], 2, 10, 1024
+    nseg = -(-n // block_n)
+    splits = ft.default_splits(q_n, n, c.device)
+    seg_len = -(-(-(-n // splits)) // 128) * 128
+    n_splits = -(-n // seg_len)
+    bound = _bound(roofline.topk_bound(q_n, n, d, k, 2, "bf16"))
+    dev = c.device
+    cv = torch.empty((q_n, nseg, p), dtype=torch.float32, device=dev)
+    ci = torch.empty((q_n, nseg, p), dtype=torch.int32, device=dev)
+    pv = torch.empty((q_n, n_splits, k), dtype=torch.float32, device=dev)
+    pi = torch.empty((q_n, n_splits, k), dtype=torch.int32, device=dev)
+    fv = torch.empty((q_n, k), dtype=torch.float32, device=dev)
+    fi = torch.empty((q_n, k), dtype=torch.int32, device=dev)
+    vp, ci_t = ctypes.c_void_p, ctypes.c_int
+    stream = torch.cuda.current_stream().cuda_stream
+    with tempfile.TemporaryDirectory() as tmp:
+        fb = _other_fn(str(Path(other_dir) / "block_topk.cu"),
+                       "block_topk_launch",
+                       [ci_t, vp, vp, vp, ci_t, vp, vp, ci_t, ci_t, ci_t,
+                        ci_t, ci_t, vp], tmp)
+        ff = _other_fn(str(Path(other_dir) / "fused_topk.cu"),
+                       "fused_topk_launch",
+                       [ci_t, vp, vp, vp, ci_t, vp, vp, vp, vp, ci_t, ci_t,
+                        ci_t, ci_t, ci_t, vp], tmp)
+
+        def other_block():
+            rc = fb(2, q.data_ptr(), c.data_ptr(), None, n, cv.data_ptr(),
+                    ci.data_ptr(), q_n, n, d, block_n, p, stream)
+            if rc != 0:
+                raise RuntimeError(f"other kernel: CUDA error {rc}")
+            return cv, ci
+
+        def other_fused():
+            rc = ff(2, q.data_ptr(), c.data_ptr(), None, n, pv.data_ptr(),
+                    pi.data_ptr(), fv.data_ptr(), fi.data_ptr(), q_n, n, d,
+                    seg_len, k, stream)
+            if rc != 0:
+                raise RuntimeError(f"other kernel: CUDA error {rc}")
+            return fv, fi
+
+        _turns(torch, f"block_candidates bf16 N={n} d={d} Q={q_n} p={p} "
+               f"block_n={block_n} (kernel alone), other = {other_dir}",
+               other_block, lambda: bt.block_candidates(q, c, p, n, block_n),
+               bound)
+        _turns(torch, f"fused_topk bf16 N={n} d={d} Q={q_n} k={k} "
+               f"n_splits={n_splits}, other = {other_dir}", other_fused,
+               lambda: ft.fused_topk(q, c, k), bound)
 
 
 ATTN_H, ATTN_D = 12, 32     # MiniLM-L6's heads and head dim
@@ -304,39 +381,28 @@ def _attn_ctypes(n_ptrs: int):
     return [ci] + [vp] * n_ptrs + [ci, ci, ci, ci, ctypes.c_float, vp]
 
 
-def time_attention(torch, g, other_src: str | None) -> None:
-    """The forward at the encoder's buckets beside SDPA; with
-    ``other_src``, first an A/B against that flash_attention.cu at B=256,
-    S=512 (outputs and lse compared with torch.equal)."""
+def time_attention(torch, g, others: list[str],
+                   lengths: dict | None) -> None:
+    """The forward at the encoder's buckets beside SDPA; with ``others``,
+    first an A/B against each of those flash_attention.cu sources at B=256
+    and S 32, 128, 512 (two length patterns each, as the backward's; both
+    versions' outputs held to the plain version within ``ATTN_TOL`` of
+    max|v|, their lse within ``LSE_TOL``)."""
     import torch.nn.functional as F
     from rag_foundation_tpu_torch.ops import flash_attention as fa
     h, d = ATTN_H, ATTN_D
-    if other_src is not None:
-        b, s = 256, 512
-        q, k, v = (torch.randn((b, h, s, d), generator=g, device="cuda")
-                   .bfloat16() for _ in range(3))
-        seg = (torch.arange(s, device="cuda")[None, :] < torch.randint(
-            1, s + 1, (b, 1), generator=g, device="cuda")).int()
-        out, lse = torch.empty_like(q), torch.empty((b, h, s),
-                                                    device="cuda")
+    if others:
+        b = 256
         with tempfile.TemporaryDirectory() as tmp:
-            fn = _other_fn(other_src, "flash_attention_launch",
-                           _attn_ctypes(7), tmp)
-
-            def other():
-                rc = fn(2, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                        seg.data_ptr(), seg.data_ptr(), out.data_ptr(),
-                        lse.data_ptr(), b, h, s, d, d ** -0.5,
-                        torch.cuda.current_stream().cuda_stream)
-                if rc != 0:
-                    raise RuntimeError(f"other kernel: CUDA error {rc}")
-                return out, lse
-
-            _turns(torch, f"flash_attention bf16 B={b} H={h} S={s} D={d} "
-                   f"random lengths, with lse, other = {other_src}", other,
-                   lambda: fa.flash_attention_forward(
-                       q, k, v, seg, seg, d ** -0.5, with_lse=True),
-                   _bound(roofline.attention_bound(seg, seg, h, d, 2)))
+            fns = [(src, _other_fn(src, "flash_attention_launch",
+                                   _attn_ctypes(7), tmp)) for src in others]
+            for s in (32, 128, 512):
+                q, k, v = (torch.randn((b, h, s, d), generator=g,
+                                       device="cuda").bfloat16()
+                           for _ in range(3))
+                for name, seg in _length_patterns(torch, g, b, s, lengths):
+                    for src, fn in fns:
+                        _fwd_turns(torch, fa, fn, q, k, v, seg, src, name)
     for b in (1, 64, 256):
         for s in (16, 128, 512):
             q, k, v = (torch.randn((b, h, s, d), generator=g, device="cuda")
@@ -352,6 +418,53 @@ def time_attention(torch, g, other_src: str | None) -> None:
                 print(f"flash_attention bf16 B={b} H={h} S={s} D={d} "
                       f"{name}: {t:.4f} ms (scaled_dot_product_attention "
                       f"{lib:.4f} ms)", flush=True)
+
+
+# chip_smoke.py's ATTN_TOL (bf16, times max|v|) and LSE_TOL
+ATTN_TOL, LSE_TOL = 3 * 2 ** -9, 1e-4
+
+
+def _fwd_turns(torch, fa, fn, q, k, v, seg, other_src, name) -> None:
+    b, h, s, d = q.shape
+    scale = d ** -0.5
+    out, lse = torch.empty_like(q), torch.empty((b, h, s), device="cuda")
+    ref, ref_lse = fa.flash_attention_reference(q, k, v, seg, seg, scale,
+                                                with_lse=True)
+    tol = ATTN_TOL * float(v.float().abs().max())
+
+    def other():
+        rc = fn(2, q.data_ptr(), k.data_ptr(), v.data_ptr(), seg.data_ptr(),
+                seg.data_ptr(), out.data_ptr(), lse.data_ptr(), b, h, s, d,
+                scale, torch.cuda.current_stream().cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"other kernel: CUDA error {rc}")
+        return out, lse
+
+    def check(ov, tv) -> str:
+        errs = []
+        for who, (o, l) in (("other", ov), ("this", tv)):
+            err = float((o.float() - ref.float()).abs().max())
+            fin = torch.isfinite(ref_lse)
+            lerr = float((l[fin] - ref_lse[fin]).abs().max())
+            if err > tol or lerr > LSE_TOL or not torch.equal(
+                    torch.isfinite(l), fin):
+                FAILED.append(f"flash_attention {who} S={s} {name}: out "
+                              f"{err} (tol {tol}), lse {lerr}")
+                return f"OUTSIDE the tolerance ({who})"
+            errs.append(f"{who} max_abs_err {err:.3g}, lse {lerr:.3g}")
+        return "within the tolerance of the plain version (" \
+            + ", ".join(errs) + f"; tol {tol:.3g}, lse {LSE_TOL})"
+
+    ms, by, c = roofline.attention_bound(seg, seg, h, d, 2)
+    _turns(torch, f"flash_attention bf16 B={b} H={h} S={s} D={d} {name} "
+           f"({c['pairs']} of {c['dense_pairs']} pairs share a segment; "
+           f"{c['exponentials_issued']} exponentials issued, "
+           f"{c['exponentials']} needed), with lse, other = {other_src}",
+           other, lambda: fa.flash_attention_forward(
+               q, k, v, seg, seg, scale, with_lse=True),
+           f"{ms:.4f} ms ({by}; exponential floor {c['exp_floor_ms']:.4f} "
+           f"ms)", check)
+    del ref, ref_lse
 
 
 def _length_patterns(torch, g, b: int, s: int, lengths: dict | None):
@@ -507,8 +620,8 @@ def sass_loops(name: str, only: str = "") -> None:
                          capture_output=True, text=True, check=True).stdout
     for body in out.split("Function : ")[1:]:
         head = body.split("\n", 1)[0]
-        named = re.search(r"((?:pq|ivf)_scan_\w+?|flash_bwd_\w+?)(I\w*?E)?EvP",
-                          head)
+        named = re.search(r"((?:pq|ivf)_scan_\w+?|flash_(?:bwd|fwd)_\w+?|"
+                          r"segment_topk_\w+?)(I\w*?E)?EvP", head)
         fn = "".join(named.groups("")) if named else head.strip()
         seen = set()
         ins = [(int(m.group(1), 16), m.group(2).strip()) for m in re.finditer(
@@ -543,8 +656,11 @@ def main() -> None:
                     help="another ivf_list_scan.cu to time in turns")
     ap.add_argument("--other-pq", default=None,
                     help="another pq_list_scan.cu to time in turns")
-    ap.add_argument("--other-attn", default=None,
-                    help="another flash_attention.cu to time in turns")
+    ap.add_argument("--other-exact", nargs="+", default=[],
+                    help="directories, each with another block_topk.cu, "
+                         "fused_topk.cu and their headers, to time in turns")
+    ap.add_argument("--other-attn", nargs="+", default=[],
+                    help="other flash_attention.cu sources to time in turns")
     ap.add_argument("--other-attn-bwd", nargs="+", default=[],
                     help="other flash_attention_bwd.cu sources to time in "
                          "turns")
@@ -552,8 +668,9 @@ def main() -> None:
                     help="JSON of phase 15's layer-0 lengths by S "
                          "(chip_smoke.py --lengths-out)")
     ap.add_argument("--sass", action="store_true",
-                    help="print the list scans' and the attention backward's "
-                         "(bf16, D=32) inner loops as compiled")
+                    help="print the list scans', the attention kernels' "
+                         "(bf16, D=32) and the exact scan's (bf16) inner "
+                         "loops as compiled")
     ap.add_argument("--exact-rows", type=int, default=1_000_000,
                     help="corpus rows of the exact-scan kernels (bf16)")
     ap.add_argument("--only", nargs="+", choices=SECTIONS, default=SECTIONS,
@@ -572,18 +689,20 @@ def main() -> None:
         sass_loops("pq_list_scan")
         sass_loops("ivf_list_scan")
         sass_loops("flash_attention_bwd", only="bf16ILi32")
+        sass_loops("flash_attention", only="bf16ILi32")
+        sass_loops("block_topk", only="bf16")
     if "pq" in args.only:
         time_pq(torch, g, args.nlist, args.live_rows, args.other_pq)
     if "flat" in args.only:
         time_flat(torch, g, args.nlist, args.live_rows, args.other_flat)
     if "exact" in args.only:
-        time_exact(torch, g, args.exact_rows)
+        time_exact(torch, g, args.exact_rows, args.other_exact)
+    lengths = None
+    if args.lengths is not None:
+        lengths = json.loads(Path(args.lengths).read_text())
     if "attention" in args.only:
-        time_attention(torch, g, args.other_attn)
+        time_attention(torch, g, args.other_attn, lengths)
     if "attention_bwd" in args.only:
-        lengths = None
-        if args.lengths is not None:
-            lengths = json.loads(Path(args.lengths).read_text())
         time_attention_bwd(torch, g, args.other_attn_bwd, lengths)
     if FAILED:
         raise SystemExit("outputs outside the tolerance: " + "; ".join(FAILED))

@@ -11,6 +11,8 @@ from tensors on any device; ``chip_smoke.py`` and
 
 from __future__ import annotations
 
+import torch
+
 # published H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and dense
 # operations/s per input type
 HBM_BYTES_S = 3.35e12
@@ -105,14 +107,61 @@ def attention_bound(seg_q, seg_kv, h, d, esize) -> tuple[float, str, dict]:
     output written once (``esize`` bytes an element), the segment ids read
     once; 4*d operations a head for every (query, key) pair of one
     segment (2*d for the score, 2*d for its share of P.V) at the bf16
-    peak: the pairs these segments need, not all S^2."""
+    peak; and one exponential a head for each of those pairs on the
+    special-function unit (``exp_floor_ms``), which counts as operations:
+    the pairs these segments need, not all S^2. The counts also hold
+    ``exponentials_issued``, those the forward kernel issues for these
+    inputs (``fwd_exponentials_issued``); the bound does not use them,
+    since a pair of another segment is work the function does not need."""
     b, s = seg_q.shape
     pairs = same_segment_pairs(seg_q, seg_kv)
     nbytes = 4 * b * h * s * d * esize + 2 * b * s * 4
     ops = 4.0 * h * d * pairs
-    return (*_pick(nbytes / HBM_BYTES_S, ops / PEAK_OPS_S["bf16"]),
-            {"pairs": pairs, "dense_pairs": b * s * s, "bytes": nbytes,
-             "operations": ops})
+    exp_ms = exp_floor_ms(pairs, h)
+    ms, by = _pick(nbytes / HBM_BYTES_S,
+                   max(ops / PEAK_OPS_S["bf16"], exp_ms / 1e3))
+    return ms, by, {"pairs": pairs, "dense_pairs": b * s * s,
+                    "bytes": nbytes, "operations": ops,
+                    "exponentials": pairs * h, "exp_floor_ms": exp_ms,
+                    "exponentials_issued": fwd_exponentials_issued(
+                        seg_q, seg_kv, h, d)}
+
+
+def fwd_tile(s: int, d: int) -> tuple[int, int]:
+    """(query rows a warp, keys a tile) of the bf16 forward kernel at
+    sequence length ``s`` and head dim ``d`` (``csrc/flash_attention.cu``,
+    ``launch_as``)."""
+    if s <= 32:
+        return 16, 32
+    return (32, 64) if d <= 32 else (16, 64)
+
+
+def _id_ranges(seg, size: int) -> tuple:
+    """min and max id of each run of ``size`` rows of ``seg [B, S]``
+    (rows past S left out; a run with none gets an empty range)."""
+    b, s = seg.shape
+    n = -(-s // size)
+    big = torch.iinfo(torch.int64).max
+    x = seg.to(torch.int64)
+    pad = n * size - s
+    lo = torch.nn.functional.pad(x, (0, pad), value=big).view(b, n, size)
+    hi = torch.nn.functional.pad(x, (0, pad), value=-big).view(b, n, size)
+    return lo.amin(dim=2), hi.amax(dim=2)
+
+
+def fwd_exponentials_issued(seg_q, seg_kv, h: int, d: int) -> int:
+    """Exponentials the bf16 forward kernel issues over ``h`` heads: every
+    pair of each (warp's rows x key tile) it computes, i.e. of each tile
+    whose keys' ids meet the range of the warp's rows' ids (the kernel
+    skips the others, whose weights are all 0); the rows and keys past S
+    of a computed tile included."""
+    b, s = seg_q.shape
+    rows, cols = fwd_tile(s, d)
+    qlo, qhi = _id_ranges(seg_q, rows)
+    klo, khi = _id_ranges(seg_kv, cols)
+    meet = (khi[:, None, :] >= qlo[:, :, None]) \
+        & (klo[:, None, :] <= qhi[:, :, None])
+    return int(meet.sum()) * rows * cols * h
 
 
 def attention_bwd_bound(seg_q, seg_kv, h, d, esize, outputs, ops_per_pair
@@ -135,9 +184,10 @@ def attention_bwd_bound(seg_q, seg_kv, h, d, esize, outputs, ops_per_pair
 def exp_floor_ms(pairs: int, h: int) -> float:
     """Least time of one exponential for each of ``pairs`` same-segment
     (query, key) pairs in each of ``h`` heads on the special-function
-    unit (``EXP_S``): a floor of each attention backward kernel, which
-    recomputes every p, beside ``attention_bwd_bound`` (which counts only
-    the tensor-core operations and the bytes)."""
+    unit (``EXP_S``): a floor of the attention forward (inside
+    ``attention_bound``) and of each backward kernel, which recomputes
+    every p, beside ``attention_bwd_bound`` (which counts only the
+    tensor-core operations and the bytes)."""
     return pairs * h / EXP_S * 1e3
 
 

@@ -413,6 +413,39 @@ def test_exact_scan_kernels_tie_rule_bit_identical_on_card(card, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 2, 10, 64])
+@pytest.mark.parametrize("q_n,n", [(1, 1), (77, 10_007), (130, 383),
+                                   (257, 4_100)])
+def test_exact_scan_bf16_route_on_card(card, k, q_n, n):
+    """The bf16 scan's route: Q and N off the 128-row tiles, d = 200 (a
+    last chunk of 8 of 32), each row two or three times and small-integer
+    values (every partial sum exact in f32, so every tie is real), all
+    valid or a device valid count below N: bit-identical to the plain
+    version, ties to the lowest row, block_topk(p=k) equal to fused_topk,
+    and block_topk(p=2) over blocks that end inside a tile equal to its
+    plain version."""
+    rng = np.random.default_rng(q_n + n + k)
+    d = 200
+    base = rng.integers(-3, 4, (max(1, n // 2), d)).astype(np.float32)
+    rows = np.concatenate([base, base, base])[:n]
+    c = torch.as_tensor(rows, device=card).bfloat16()
+    q = torch.as_tensor(rng.integers(-3, 4, (q_n, d)).astype(np.float32),
+                        device=card).bfloat16()
+    for vc in (None, torch.tensor(max(1, n - n // 3), device=card)):
+        rv, ri = fused_topk_reference(q, c, k, valid_count=vc)
+        kv, ki = fused_topk(q, c, k, valid_count=vc)
+        torch.cuda.synchronize()
+        assert torch.equal(kv, rv) and torch.equal(ki, ri)
+        ev, ei = block_topk(q, c, k, p=k, valid_count=vc, block_n=256)
+        assert torch.equal(ev, kv) and torch.equal(ei, ki)
+        kw = dict(p=min(k, 2), valid_count=vc, block_n=1000)
+        kb = min(k, -(-n // 1000) * min(k, 2))   # at most the candidates
+        bv, bi = block_topk(q, c, kb, **kw)
+        wv, wi = block_topk_reference(q, c, kb, **kw)
+        assert torch.equal(bv, wv) and torch.equal(bi, wi)
+
+
+@pytest.mark.cuda
 def test_exact_scan_kernels_cuda_checks(card, monkeypatch):
     q = torch.zeros((4, 64), device=card)
     c = torch.zeros((3000, 64), device=card)
@@ -504,6 +537,50 @@ def test_flash_attention_cuda_checks(card, monkeypatch):
     monkeypatch.setattr(cuda_lib, "load", missing)
     with pytest.raises(RuntimeError, match="unavailable"):
         fa.flash_attention(q, k, v, seg, seg, 1.0)
+
+
+FWD_PATTERNS = ("pads", "one_segment", "packed", "random")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s", [1, 16, 32, 33, 64, 100, 128, 512])
+@pytest.mark.parametrize("d", [32, 64])
+@pytest.mark.parametrize("pattern", FWD_PATTERNS)
+def test_flash_attention_tiles_on_card(card, s, d, pattern):
+    """The bf16 forward's tile shapes (S <= 32: 32-row tiles of 32 keys;
+    past that 16-row warps and 64-key tiles; from S = 256 at D = 32 32-row
+    warps): rows of every length, an all-pad row and a one-token row
+    ("pads"), every tile of one segment ("one_segment", no test a pair),
+    packed and random ids; out and lse against the plain version, and the
+    instantiation without lse gives the same out."""
+    q, k, v, seg = _attn_inputs(5, 3, s, d, torch.bfloat16, card, seed=s + d)
+    if pattern == "one_segment":
+        sq = skv = torch.ones_like(seg)
+    else:
+        sq, skv = _bwd_segments(seg, pattern, s + d)
+    out, lse = fa.flash_attention_forward(q, k, v, sq, skv, d ** -0.5,
+                                          with_lse=True)
+    torch.cuda.synchronize()
+    ref, rlse = fa.flash_attention_reference(q, k, v, sq, skv, d ** -0.5,
+                                             with_lse=True)
+    _check_attention(out, ref, v)
+    fin = torch.isfinite(rlse)
+    assert torch.equal(torch.isfinite(lse), fin)
+    torch.testing.assert_close(lse[fin], rlse[fin], rtol=0, atol=1e-4)
+    assert torch.equal(fa.flash_attention_forward(q, k, v, sq, skv,
+                                                  d ** -0.5), out)
+
+
+@pytest.mark.cuda
+def test_flash_attention_scale_and_alignment_on_card(card):
+    q, k, v, seg = _attn_inputs(2, 2, 64, 32, torch.bfloat16, card)
+    with pytest.raises(ValueError, match="sm_scale"):
+        fa.flash_attention(q, k, v, seg, seg, 0.0)
+    # a contiguous view 2 bytes off 16: the ring's 16-byte copies refuse it
+    odd = torch.empty(q.numel() + 1, dtype=q.dtype, device=card)[1:] \
+        .view(q.shape).copy_(q)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        fa.flash_attention(odd, k, v, seg, seg, 1.0)
 
 
 @pytest.mark.cuda

@@ -71,13 +71,73 @@ def test_topk_bound(args, want):
     assert (ms, by) == (pytest.approx(want[0], rel=REL), want[1])
 
 
+def _attention_segments(full):
+    """The rows of ``test_attention_bound``'s cases: False ``_segments()``;
+    True B=2, S=512 every token real; "short" B=256, S=32 every token
+    real; "chunks" B=4, S=512, 300 real tokens then pads."""
+    if full == "short":
+        return torch.ones((256, 32), dtype=torch.int32)
+    if full == "chunks":
+        return (torch.arange(512)[None, :] < 300).int().expand(4, 512) \
+            .contiguous()
+    return torch.ones((2, 512), dtype=torch.int32) if full else _segments()
+
+
 @pytest.mark.parametrize("full,want", [
-    (False, 0.0003530507462686567), (True, 0.000941468656716418)])
+    (False, 0.0003530507462686567), (True, 0.000941468656716418),
+    ("short", 0.007531749253731344), ("chunks", 0.001882937313432836)])
 def test_attention_bound(full, want):
-    seg = torch.ones((2, 512), dtype=torch.int32) if full else _segments()
+    """``want`` is the bytes time; the bound is the larger of it, the
+    tensor-core operations and one exponential a same-segment pair."""
+    seg = _attention_segments(full)
     ms, by, counts = roofline.attention_bound(seg, seg, 12, 32, 2)
-    assert (ms, by) == (pytest.approx(want, rel=REL), "bytes")
-    assert counts["pairs"] == roofline.same_segment_pairs(seg, seg)
+    pairs = roofline.same_segment_pairs(seg, seg)
+    assert counts["pairs"] == pairs
+    assert counts["bytes"] / roofline.HBM_BYTES_S * 1e3 == pytest.approx(
+        want, rel=REL)
+    exp_ms = roofline.exp_floor_ms(pairs, 12)
+    assert counts["exponentials"] == pairs * 12
+    assert counts["exp_floor_ms"] == pytest.approx(exp_ms, rel=REL)
+    ops_ms = 4.0 * 12 * 32 * pairs / roofline.PEAK_OPS_S["bf16"] * 1e3
+    assert (ms, by) == (pytest.approx(max(want, ops_ms, exp_ms), rel=REL),
+                        "bytes" if want >= max(ops_ms, exp_ms)
+                        else "operations")
+    if full is True:
+        # every pair at S=512: 6.3M exponentials outweigh the bytes
+        assert by == "operations" and ms == pytest.approx(exp_ms, rel=REL)
+    if full == "chunks":
+        # 32-row warps and 64-key tiles: a real row's warp (rows 0-287)
+        # computes the 5 tiles of keys 0-319, a pad row's warp (rows
+        # 320-511) the 4 tiles of keys 256-511, the warp of rows 288-319
+        # all 8: (9 x 5 + 6 x 4 + 8) blocks of 32 x 64 pairs a row and head
+        assert roofline.fwd_tile(512, 32) == (32, 64)
+        assert counts["exponentials_issued"] == \
+            4 * 12 * (9 * 5 + 6 * 4 + 8) * 32 * 64
+
+
+@pytest.mark.parametrize("s,d,want", [(1, 32, (16, 32)), (32, 32, (16, 32)),
+                                      (33, 32, (32, 64)), (255, 32, (32, 64)),
+                                      (256, 32, (32, 64)), (512, 64, (16, 64))])
+def test_fwd_tile(s, d, want):
+    assert roofline.fwd_tile(s, d) == want
+
+
+def test_fwd_exponentials_issued():
+    seg = _segments()
+    # 32-row warps, 64-key tiles at S=128. Row 0 (100 real): warps 0-2 real
+    # meet tile 0 (ids 1) and tile 1 (ids 1, 0); warp 3 (rows 96-127,
+    # mixed) meets both: 8 blocks. Row 1 (all real): 8. Row 2 (5 real):
+    # warp 0 (mixed) meets both tiles, warps 1-3 (pads) both too (tile 0
+    # holds pads from key 5 on): 8.
+    assert roofline.fwd_exponentials_issued(seg, seg, 12, 32) \
+        == (8 + 8 + 8) * 32 * 64 * 12
+    # 16-row warps at D=64: row 0's warp 7 (rows 112-127, pads) meets only
+    # tile 1: 15 blocks; rows 1 and 2: 16 each
+    assert roofline.fwd_exponentials_issued(seg, seg, 12, 64) \
+        == (15 + 16 + 16) * 16 * 64 * 12
+    # ids that never meet: nothing is computed
+    q = torch.zeros((1, 64), dtype=torch.int32)
+    assert roofline.fwd_exponentials_issued(q, q + 1, 3, 32) == 0
 
 
 @pytest.mark.parametrize("full,outputs,ops,want", [
