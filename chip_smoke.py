@@ -121,10 +121,32 @@ Phases (each one fails the run: non-zero exit, no result line):
     blocks with no same-segment pair. ``--lengths-out`` writes those rows'
     lengths for ``time_kernels --lengths``.
 
+16. The generative chat path at full width: an ``Engine`` with phase 13's
+    MiniLM store and the repository's ``checkpoints/decoder_distill.npz``
+    (vocab 8192, hidden 384, 6 layers, 6 heads, ffn 1536, max_len 512,
+    ``gen_block`` 16) behind ``EngineRpcServer``, driven only through
+    ``RemoteEngine``: ``prewarm_generator``, the fact documents ingested,
+    then for each of 16 fact questions a search (k=8) and
+    ``generate_stream`` over its hits' texts. The flash-attention forward's
+    launch counter is zeroed just before and read just after, and must
+    rise in the searches; every stream ends with its done frame; every
+    answer equals the in-process loop's, whose ids all lie in its prompt,
+    the function words and EOS; for two questions the card's bf16
+    prefill logits against the port's CPU path in f32 within
+    ``DECODER_LOGIT_TOL``, and the card's argmax equal to the CPU's
+    (teacher-forced on the card's ids) on every step whose f32 top-1/top-2
+    margin exceeds twice it; four concurrent streams give the sequential
+    texts. Printed: prefill and ``decode_block`` times, device launches a
+    token and the device's busy share (``torch.profiler``, one block), the
+    decode bytes bound a token (``utils/roofline.decode_bound``) and the
+    ratio to it, time to first delta and answer latency over RPC (p50,
+    p99), answer tokens/s and peak device memory.
+
 ``--long-docs`` sets the number of long documents of phase 13. The line
-before last is the kernels' JSON (eight entries); the last line is
-``{"ok": true, "device": {...}}``. The script imports neither JAX nor the
-JAX package.
+before last is the kernels' JSON (eight entries; the flash-attention
+forward's also holds its launches on phase 16's chat path); the last line
+is ``{"ok": true, "device": {...}}``. The script imports neither JAX nor
+the JAX package.
 """
 
 from __future__ import annotations
@@ -185,6 +207,16 @@ TRAIN_BATCH = 256      # the production recipe's batch
 # f32), a relative 2^-9 a rounding through 6 layers and the loss's
 # 1/temperature = 20; a kernel fault (a tile, a mask) turns whole gradients
 GRAD_COS_MIN = 0.99
+# the generative decoder's logits, card bf16 against the port's CPU path in
+# f32 on the same checkpoint: the card rounds every activation to bf16 (8
+# significant bits, 2^-8 relative) where the f32 path keeps 24; through 6
+# layers and the tied head that moves logits of magnitude up to ~17 by a
+# few hundredths (the port's own bf16 against f32 on the CPU: at most 0.055
+# over 6 fact prompts). A wrong layer, mask or cache slot moves them by
+# whole units. The argmax is compared on steps whose f32 top-1/top-2 margin
+# exceeds twice this
+DECODER_LOGIT_TOL = 2.0 ** -3
+CHAT_QUESTIONS = 16    # fact questions of phase 16, each searched + answered
 
 _SYL = ("ka", "lo", "mi", "ne", "ru", "ta", "vo", "zu", "pe", "shi", "dra",
         "gon", "bel", "tor", "qua", "xen", "fli", "mur", "sol", "yat")
@@ -2131,6 +2163,285 @@ def train_phases(args, card, rng, sampled, mods) -> list[dict]:
     return entries
 
 
+def greedy_answer(gen, tdec, torch, np, question, evidences):
+    """The ids ``TextGenerator.stream`` emits for one question, by its own
+    loop in process on the card: (prompt ids, the prefill's f32 logits on
+    the card, the vocabulary bias, the answer ids up to and including
+    EOS)."""
+    cfg = gen.cfg
+    ids = gen.tokenizer.encode_prompt(question, evidences, cfg.prefix_len)
+    bias_np = gen.vocab_bias(ids)
+    padded = torch.full((1, cfg.prefix_len), tdec.PAD_ID, device="cuda")
+    padded[0, :len(ids)] = torch.tensor(ids)
+    budget = min(cfg.ans_len, cfg.max_len - len(ids) - 1)
+    with torch.inference_mode():
+        cache, logits = tdec.prefill(gen.params, padded,
+                                     torch.tensor([len(ids)], device="cuda"),
+                                     cfg)
+        out = [int(np.argmax(logits[0].cpu().numpy() + bias_np))]
+        pos, bias = len(ids), torch.as_tensor(bias_np, device="cuda")
+        while out[-1] != tdec.EOS_ID and len(out) < budget \
+                and len(ids) + len(out) + gen.block <= cfg.max_len:
+            blk, cache, pos = tdec.decode_block(
+                gen.params, cache, torch.tensor([out[-1]], device="cuda"),
+                pos, cfg=cfg, k_steps=gen.block, bias=bias)
+            out += blk[0].tolist()[: budget - len(out)]
+    if tdec.EOS_ID in out:
+        out = out[: out.index(tdec.EOS_ID) + 1]
+    return ids, logits[0], bias_np, out
+
+
+def generator_phase(args, card, sampled, mods) -> int:
+    """Phase 16: the generative chat path at full width. Returns the
+    flash-attention forward's launches on it."""
+    import numpy as np
+    import torch
+    from rag_foundation_tpu_torch.models import decoder as tdec
+    from rag_foundation_tpu_torch.models import encoder as tenc
+    from rag_foundation_tpu_torch.ops import flash_attention as fa
+    from rag_foundation_tpu_torch.ops import ivf_scan
+    from rag_foundation_tpu_torch.utils import roofline
+    from torch.profiler import ProfilerActivity, profile
+    Engine, EngineConfig, EngineRpcServer, RemoteEngine = mods
+    enc_ckpt = ROOT / "checkpoints" / "minilm_ict.npz"
+    dec_ckpt = ROOT / "checkpoints" / "decoder_distill.npz"
+    for ckpt in (enc_ckpt, dec_ckpt):
+        if not ckpt.exists():
+            fail(f"{ckpt} not found")
+    t_phase = time.perf_counter()
+    data_dir = tempfile.mkdtemp(prefix="ragtpu-chip-smoke-chat-")
+    sock = str(Path(data_dir) / "engine.sock")
+    key = "stores/chip-smoke-chat"
+    torch.cuda.reset_peak_memory_stats()
+    # phase 13's MiniLM store (IVF-Flat, 16 lists, all probed, capture 10)
+    engine = Engine(EngineConfig(
+        dim=384, encoder="minilm", encoder_ckpt=str(enc_ckpt),
+        generator_ckpt=str(dec_ckpt), gen_block=16, chunk_tokens=76,
+        chunk_overlap=16, index_mode="ivf_flat", nlist=16, nprobe=16,
+        ivf_p=10, build_threshold=256, batch_window_s=0.02,
+        data_dir=data_dir, device="cuda"))
+    server = EngineRpcServer(engine, sock, allow_pad=True).start()
+    remote = RemoteEngine(sock, pool_size=16)
+    questions = [(i, fact_query(i)) for i in sampled[:CHAT_QUESTIONS]]
+    try:
+        fa.LAUNCHES.reset()                      # counts: this path only
+        ivf_scan.LAUNCHES.reset()
+        info = remote.prewarm_generator()
+        remote.create_store(key)
+        for i in range(args.docs):
+            remote.ingest_document(key, f"doc-{i}", f"project-{i}.txt",
+                                   fact_doc(i))
+        search_launches, ttfd, total, answers, evidences = 0, [], [], {}, {}
+        for i, q in questions:
+            n0 = fa.LAUNCHES.count
+            hits = remote.search([key], q, k=8)
+            search_launches += fa.LAUNCHES.count - n0
+            evidences[q] = [h.text for h in hits]
+            deltas = []
+            t0 = time.perf_counter()
+            # RemoteEngine.generate_stream returns only on the done frame
+            # (it raises on an error frame or a closed connection)
+            for delta in remote.generate_stream(q, evidences[q]):
+                if not deltas:
+                    ttfd.append((time.perf_counter() - t0) * 1e3)
+                deltas.append(delta)
+            total.append((time.perf_counter() - t0) * 1e3)
+            if not deltas:
+                ttfd.append(total[-1])     # EOS first: the done frame
+            answers[q] = "".join(deltas)
+        chat_launches = fa.LAUNCHES.count      # read just after the path
+        scan_launches = ivf_scan.LAUNCHES.count
+        log(f"generative chat over RPC (decoder_distill.npz: "
+            f"{tdec.checkpoint_meta(str(dec_ckpt))}; gen_block 16; MiniLM "
+            f"store of {args.docs} fact documents): "
+            f"prewarm_generator {info}; {len(questions)} questions, k=8 "
+            f"evidences each: flash_attention launches {chat_launches} "
+            f"({search_launches} in the searches), ivf_list_scan launches "
+            f"{scan_launches} | {card}")
+        if search_launches == 0:
+            fail("the chat path's searches never launched flash_attention")
+
+        # every answer is grounded: the ids the stream emitted (the
+        # in-process loop's, which decode to the text served over RPC) all
+        # lie in prompt + function words + EOS. Re-encoding the text can
+        # merge pieces emitted apart ("21" "##1" "##d" -> "21" "##1d") into
+        # a piece the prompt lacks: counted and printed, not a fault
+        gen = engine._text_generator()
+        tok = gen.tokenizer
+        replay, n_tokens, merged = {}, 0, []
+        for _, q in questions:
+            replay[q] = greedy_answer(gen, tdec, torch, np, q, evidences[q])
+            ids, _, _, out = replay[q]
+            n_tokens += len(out)
+            if tok.decode(out) != answers[q]:
+                fail(f"answer over RPC {answers[q]!r} != in process "
+                     f"{tok.decode(out)!r}")
+            allowed = set(ids) | gen._fn_ids | {tdec.EOS_ID}
+            bad = [t for t in out if t not in allowed]
+            if bad:
+                fail(f"answer {answers[q]!r} to {q!r} emitted ids outside "
+                     f"the prompt, the function words and EOS: {bad}")
+            if any(t not in allowed for t in tok.encode_text(answers[q])):
+                merged.append((answers[q], [tok._id2piece[t] for t in out]))
+        log(f"answers: {sum(bool(a) for a in answers.values())} of "
+            f"{len(answers)} non-empty, every one ends with its done frame, "
+            f"equals the in-process loop's and emits only ids of its prompt,"
+            f" the function words and EOS; {n_tokens} answer tokens (EOS "
+            f"included), e.g. {[answers[q] for _, q in questions[:4]]}; "
+            f"{len(merged)} re-encode to a merged piece outside that set: "
+            f"{merged}")
+
+        # card bf16 against the port's CPU path in f32, teacher-forced on
+        # the card's ids, for the two longest answers
+        p_cpu, cfg, _ = tdec.load_decoder(str(dec_ckpt), device="cpu")
+        p32 = tenc._map(p_cpu, lambda _, t: t.float())
+        c32 = cfg._replace(dtype="float32")
+        longest = sorted(questions, key=lambda iq: -len(replay[iq[1]][3]))
+        worst_pre = worst_all = 0.0
+        checked = below = 0
+        for _, q in longest[:2]:
+            ids, card_logits, bias_np, out = replay[q]
+            seq = torch.tensor([ids + out[:-1]])
+            with torch.inference_mode():
+                f32 = tdec.forward(p32, seq, c32)[0, len(ids) - 1:]
+                b16 = tdec.forward(gen.params, seq.to("cuda"), cfg)[
+                    0, len(ids) - 1:].cpu()
+            pre = float((card_logits.cpu() - f32[0]).abs().max())
+            worst_pre = max(worst_pre, pre)
+            worst_all = max(worst_all, float((b16 - f32).abs().max()))
+            if pre > DECODER_LOGIT_TOL:
+                fail(f"prefill logits: card vs CPU f32 {pre} > "
+                     f"{DECODER_LOGIT_TOL} for {q!r}")
+            for j, want in enumerate(out):
+                row = f32[j].numpy() + bias_np
+                top2 = np.sort(row)[-2:]
+                if top2[1] - top2[0] <= 2 * DECODER_LOGIT_TOL:
+                    below += 1
+                    continue
+                checked += 1
+                if int(np.argmax(row)) != want:
+                    fail(f"step {j} of {q!r}: card chose {want}, the CPU "
+                         f"f32 path {int(np.argmax(row))} (margin "
+                         f"{top2[1] - top2[0]:.3f})")
+        log(f"card bf16 vs the port's CPU path in f32 (2 questions, "
+            f"teacher-forced on the card's ids): prefill logits max abs "
+            f"diff {worst_pre:.4f} (tol {DECODER_LOGIT_TOL}), card forward "
+            f"on the same ids {worst_all:.4f}; argmax equal on {checked} "
+            f"steps above a margin of {2 * DECODER_LOGIT_TOL}, {below} below "
+            f"it not compared | {card}")
+
+        # four concurrent streams on distinct questions
+        conc = [q for _, q in questions[:4]]
+        got = [None] * len(conc)
+
+        def run(j):
+            q = conc[j]
+            got[j] = "".join(remote.generate_stream(q, evidences[q]))
+
+        threads = [threading.Thread(target=run, args=(j,))
+                   for j in range(len(conc))]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+        conc_s = time.perf_counter() - t0
+        if got != [answers[q] for q in conc]:
+            fail(f"concurrent streams {got} != sequential "
+                 f"{[answers[q] for q in conc]}")
+        log(f"4 concurrent RPC streams on distinct questions: the "
+            f"sequential texts, in {conc_s * 1e3:.1f} ms | {card}")
+
+        # times: prefill, decode_block, launches, busy share, bound
+        ids = replay[questions[0][1]][0]
+        padded = torch.full((1, cfg.prefix_len), tdec.PAD_ID, device="cuda")
+        padded[0, :len(ids)] = torch.tensor(ids)
+        length = torch.tensor([len(ids)], device="cuda")
+        reps = 20
+        with torch.inference_mode():
+            cache, logits = tdec.prefill(gen.params, padded, length, cfg)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                cache, logits = tdec.prefill(gen.params, padded, length, cfg)
+            torch.cuda.synchronize()
+            prefill_ms = (time.perf_counter() - t0) * 1e3 / reps
+            prefill_dev = cuda_ms(lambda: tdec.prefill(gen.params, padded,
+                                                       length, cfg), reps)
+            first = torch.argmax(logits, -1)
+            block = gen.block
+
+            def one_block():
+                blk, _, _ = tdec.decode_block(gen.params, cache, first,
+                                              len(ids), cfg=cfg,
+                                              k_steps=block)
+                return blk.cpu()      # the stream reads a block's ids once
+
+            one_block()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                one_block()
+            block_ms = (time.perf_counter() - t0) * 1e3 / reps
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                one_block()
+                torch.cuda.synchronize()
+        ops = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and e.self_device_time_total > 0
+               and not getattr(e, "is_user_annotation", False)]
+        copies = sum(e.count for e in ops if e.key.startswith("Mem"))
+        kernels = sum(e.count for e in ops) - copies
+        device_ms = sum(e.self_device_time_total for e in ops) / 1e3
+        top = sorted(ops, key=lambda e: -e.self_device_time_total)[:5]
+        token_ms = block_ms / block
+        if kernels == 0:
+            log(f"torch.profiler saw no device time in a decode block: "
+                f"launches a token and the busy share not measured | {card}")
+        bound_ms, bound_by, c = roofline.decode_bound(cfg)
+        pre_bound, pre_by, _ = roofline.prefill_bound(cfg, len(ids))
+        log(f"prefill B=1, P={cfg.prefix_len} ({len(ids)} real tokens): "
+            f"{prefill_ms:.3f} ms a call (host clock, synchronized, mean of "
+            f"{reps}), {prefill_dev:.3f} ms queued behind a spin (CUDA "
+            f"events); bound {pre_bound:.4f} ms ({pre_by}) | {card}")
+        log(f"decode_block of {block} steps (B=1, bias on): {block_ms:.3f} ms "
+            f"a block = {token_ms:.4f} ms a token = {1e3 / token_ms:,.1f} "
+            f"tokens/s (host clock, ids read back, mean of {reps}); one "
+            f"block under torch.profiler: {kernels} kernels + {copies} copies"
+            f" = {(kernels + copies) / block:.1f} device launches a token, "
+            f"device time {device_ms:.3f} ms = {device_ms / block_ms:.1%} "
+            f"busy of the unprofiled block; top: "
+            + "; ".join(f"{e.key[:48]} x{e.count} "
+                        f"{e.self_device_time_total / 1e3:.3f} ms"
+                        for e in top) + f" | {card}")
+        log(f"decode bytes bound a token: {c['bytes']:,} bytes "
+            f"({c['weight_bytes']:,} weights + {c['cache_read_bytes']:,} "
+            f"K/V cache of all {cfg.max_len} positions + the new slot) / "
+            f"{roofline.HBM_BYTES_S:.3g} B/s = {bound_ms * 1e3:.2f} us "
+            f"({bound_by}); measured {token_ms * 1e3:.1f} us a token = "
+            f"{token_ms / bound_ms:.1f}x the bound, device time "
+            f"{device_ms / block * 1e3:.1f} us a token = "
+            f"{device_ms / block / bound_ms:.1f}x | {card}")
+        log(f"chat over RPC ({len(questions)} questions): time to first "
+            f"delta p50 {np.percentile(ttfd, 50):.2f} ms p99 "
+            f"{np.percentile(ttfd, 99):.2f} ms; whole answer p50 "
+            f"{np.percentile(total, 50):.2f} ms p99 "
+            f"{np.percentile(total, 99):.2f} ms; answer tokens/s "
+            f"{n_tokens / (sum(total) / 1e3):,.1f} ({n_tokens} tokens in "
+            f"{sum(total):.1f} ms of answers); peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 2**20:,.1f} MiB | {card}")
+    finally:
+        remote.close()
+        server.shutdown()
+    shutil.rmtree(data_dir, ignore_errors=True)
+    del engine, server, remote, gen, cache
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"phase 16: {time.perf_counter() - t_phase:.1f} s")
+    return chat_launches
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rows", type=int, default=10_000_000,
@@ -2488,6 +2799,11 @@ def main() -> None:
     phase_small_attention_bwd(flash_attention, torch)
     bwd_kernels = train_phases(args, card, rng, sampled,
                                (Engine, EngineConfig))
+
+    # -- phase 16: the generative chat path -------------------------------
+    attn_kernel["launches_generative_chat"] = generator_phase(
+        args, card, sampled,
+        (Engine, EngineConfig, EngineRpcServer, RemoteEngine))
     log(f"total {time.perf_counter() - t_start:.1f} s")
 
     kernels = {"kernels": [{

@@ -10,9 +10,11 @@ the other.
 Ported: the ``hash``, ``minilm`` and ``hybrid`` encoders and the
 ``exact``, ``ivf_flat``, ``ivf_flat_int8`` and ``ivf_pq`` index modes on
 one device (``EngineConfig.device``, the card by default; the MiniLM
-encoder runs there too), and the engine's Prometheus series
-(``engine/metrics.py``, ``Engine.metrics``). Not ported yet: mesh
-sharding, the generative decoder and the reader's ``textnorm`` pinning.
+encoder runs there too), the generative decoder's serve path
+(``generator_ckpt``: ``generate_stream`` and ``prewarm_generator``, on the
+engine's device, ``models/decoder.py``), and the engine's Prometheus
+series (``engine/metrics.py``, ``Engine.metrics``). Not ported yet: mesh
+sharding and the reader's ``textnorm`` pinning.
 
 Thread model: the RPC server calls in from many threads; each store
 serializes mutation under its own lock, searches read the latest
@@ -73,6 +75,10 @@ class EngineConfig:
     batch_window_s: float = 0.0     # >0: micro-batch concurrent searches
     mesh_shards: int = 1            # not ported (raises when > 1)
     data_dir: str | None = None     # checkpoint root; None = memory-only
+    generator_ckpt: str | None = None  # decoder npz (the JAX format)
+    gen_block: int = 16            # greedy tokens per decode block
+    gen_constrained: bool = True   # constrained grounded decoding
+    #   (logits masked to prompt ∪ function words ∪ EOS)
     device: str = "cuda"            # "cuda" (raises without a card) | "cpu"
 
     def __post_init__(self):
@@ -90,6 +96,8 @@ class EngineConfig:
             raise ValueError(f"invalid pq_refine {self.pq_refine!r}")
         if self.mesh_shards > 1:
             raise ValueError("mesh sharding not ported yet")
+        if self.gen_block < 1:
+            raise ValueError(f"gen_block must be >= 1, got {self.gen_block}")
 
 
 @dataclass
@@ -187,6 +195,8 @@ class Engine:
         self._stores: dict[str, _Store] = {}
         self._pad_counts: dict[str, int] = {}   # bench pads (pad_store)
         self._registry_lock = threading.Lock()
+        self._generator = None              # TextGenerator, built at first use
+        self._generator_lock = threading.Lock()
         self.metrics = EngineMetrics()
         if self.config.data_dir:
             self._load_all()
@@ -573,12 +583,39 @@ class Engine:
         return {"store": store_key, "k": k, "buckets_s": timings}
 
     # -- generative answer composition ----------------------------------------
+    # The decoder lives here because this process owns the device.
+    def _text_generator(self):
+        with self._generator_lock:
+            if self._generator is None:
+                if not self.config.generator_ckpt:
+                    raise ValueError(
+                        "no generative decoder configured "
+                        "(ENGINE_GENERATOR_CKPT) — train one with "
+                        "scripts/train_decoder.py")
+                from rag_foundation_tpu_torch.models.decoder import \
+                    TextGenerator
+                self._generator = TextGenerator(
+                    self.config.generator_ckpt, block=self.config.gen_block,
+                    constrained=self.config.gen_constrained,
+                    device=self.device)
+            return self._generator
+
     def generate_stream(self, question: str, evidences: list[str],
                         *, max_tokens: int | None = None):
-        raise ValueError("the generative decoder is not ported yet")
+        """Greedy evidence-conditioned generation; yields text deltas
+        (one per decode block of ``gen_block`` tokens)."""
+        yield from self._text_generator().stream(
+            question, list(evidences), max_tokens=max_tokens)
 
     def prewarm_generator(self) -> dict:
-        raise ValueError("the generative decoder is not ported yet")
+        """Load the decoder and run one prefill and one decode block, so
+        that the first live chat finds cuBLAS and the allocator warm.
+        ``compile_s`` keeps the JAX engine's key (the RPC contract); here
+        it is the seconds of that load and warm-up."""
+        t0 = time.perf_counter()
+        self._text_generator().prewarm()
+        return {"ckpt": self.config.generator_ckpt,
+                "compile_s": round(time.perf_counter() - t0, 2)}
 
     def recall_probe(self, store_key: str, *, sample: int = 32,
                      k: int = 10, seed: int = 0) -> dict:

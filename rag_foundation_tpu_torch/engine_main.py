@@ -13,9 +13,13 @@ processes connect with ``RAGTPU_ENGINE_RPC_MODE=connect``.
 
 The engine runs on the card; ``RAGTPU_ENGINE_PLATFORM=cpu`` runs it on
 the CPU instead. Without a card and without that variable it exits with
-an error. It also exits, before it opens the socket, when
-``RAGTPU_ENGINE_GENERATOR_CKPT`` is set: the generative decoder is not
-ported yet.
+an error. ``RAGTPU_ENGINE_GENERATOR_CKPT`` (a decoder npz, the JAX
+format), ``RAGTPU_ENGINE_GEN_BLOCK`` and ``RAGTPU_ENGINE_GEN_CONSTRAINED``
+configure the generative decoder: once the socket is open, the process
+loads it and runs one prefill and one decode block
+(``Engine.prewarm_generator``), logs ``generator_prewarmed`` and serves
+the RPC ``generate`` stream. A setting it cannot read makes it exit
+non-zero before it opens the socket.
 """
 
 from __future__ import annotations
@@ -50,6 +54,9 @@ _FIELDS = (
     ("ivf_p", "ENGINE_IVF_P", int, 4),
     ("approx_routing", "ENGINE_APPROX_ROUTING", bool, False),
     ("mesh_shards", "ENGINE_MESH_SHARDS", int, 1),
+    ("generator_ckpt", "ENGINE_GENERATOR_CKPT", str, ""),
+    ("gen_block", "ENGINE_GEN_BLOCK", int, 16),
+    ("gen_constrained", "ENGINE_GEN_CONSTRAINED", bool, True),
 )
 
 
@@ -74,16 +81,10 @@ def config_from_env(env: dict[str, str] | None = None
     """``(EngineConfig, rpc socket path, allow_pad)`` from ``RAGTPU_*``
     variables."""
     env = dict(os.environ if env is None else env)
-    if env.get(_PREFIX + "ENGINE_GENERATOR_CKPT"):
-        # the JAX engine process prewarms the decoder at startup; the
-        # port has none, so it refuses here rather than fail the first chat
-        raise ValueError(
-            f"{_PREFIX}ENGINE_GENERATOR_CKPT is set, but the generative "
-            f"decoder is not ported yet: unset {_PREFIX}ENGINE_GENERATOR_CKPT"
-            f" (the extractive span_reader needs no decoder)")
     kw = {f: _get(env, name, typ, default)
           for f, name, typ, default in _FIELDS}
     kw["encoder_ckpt"] = kw["encoder_ckpt"] or None
+    kw["generator_ckpt"] = kw["generator_ckpt"] or None
     kw["batch_window_s"] = _get(env, "ENGINE_BATCH_WINDOW_MS", float,
                                 0.0) / 1000.0
     data_dir = _get(env, "DATA_DIR", str, "./data")
@@ -107,19 +108,29 @@ def main() -> None:  # pragma: no cover — production entrypoint
     except ValueError as e:
         raise SystemExit(f"engine_main: {e}") from None
     engine = Engine(cfg)
+    stop = threading.Event()
+
+    def _stop(signum, frame):
+        stop.set()
+
+    # before the prewarm: a stop that arrives during it ends the process
+    # cleanly once it is done
+    signal.signal(signal.SIGTERM, _stop)
+    signal.signal(signal.SIGINT, _stop)
     server = EngineRpcServer(engine, socket_path,
                              allow_pad=allow_pad).start()
     log.info(json.dumps({"event": "engine_rpc_started",
                          "socket": socket_path, "device": str(engine.device),
                          "stores": len(engine.list_stores()),
                          "batch_window_s": cfg.batch_window_s}))
-    stop = threading.Event()
-
-    def _stop(signum, frame):
-        stop.set()
-
-    signal.signal(signal.SIGTERM, _stop)
-    signal.signal(signal.SIGINT, _stop)
+    if cfg.generator_ckpt:
+        # load and warm the decoder now, not on the first live chat
+        try:
+            info = engine.prewarm_generator()
+        except Exception:
+            server.shutdown()
+            raise
+        log.info(json.dumps({"event": "generator_prewarmed", **info}))
     stop.wait()
     server.shutdown()
     log.info(json.dumps({"event": "engine_rpc_stopped"}))

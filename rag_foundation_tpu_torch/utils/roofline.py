@@ -5,8 +5,9 @@ Each bound is the larger of two times: the bytes the function must move
 and its operations over the peak rate for their type. Where the work
 depends on the data (dead rows, dispatch slots, segments), the counts are
 those of the inputs given. Every function returns ``(ms, bound_by, ...)``
-from tensors on any device; ``chip_smoke.py`` and
-``tools/time_kernels.py`` read them.
+from tensors on any device, or, for the generative decoder
+(``decode_bound``, ``prefill_bound``), from its config's shapes;
+``chip_smoke.py`` and ``tools/time_kernels.py`` read them.
 """
 
 from __future__ import annotations
@@ -205,3 +206,70 @@ def empty_block_share(seg_q, seg_kv, block: int = 16) -> float:
         same = padded
     hit = same.view(b, n, block, n, block).any(dim=4).any(dim=2)
     return 1.0 - float(hit.double().mean())
+
+
+def _decoder_linear_params(cfg) -> int:
+    """Weights of the decoder's products a token passes through: each
+    block's qkv, proj, fc1 and fc2, and the tied LM head (``tok_emb``)."""
+    h, f = cfg.hidden, cfg.ffn
+    return cfg.layers * (h * 3 * h + h * h + 2 * h * f) + cfg.vocab_size * h
+
+
+def _decoder_weight_bytes(cfg, pos_rows: int) -> int:
+    """Bytes of every weight leaf one pass reads: the linear weights and
+    their biases in the config's dtype, the layernorms' f32 gains and
+    biases, ``pos_rows`` rows of ``pos_emb`` (the token rows of
+    ``tok_emb`` are inside the LM head, which reads all of it)."""
+    esize = 2 if cfg.dtype == "bfloat16" else 4
+    h, f = cfg.hidden, cfg.ffn
+    biases = cfg.layers * (3 * h + h + f + h)
+    layernorms = (2 * cfg.layers + 1) * 2 * h * 4
+    return (_decoder_linear_params(cfg) + biases + pos_rows * h) * esize \
+        + layernorms
+
+
+def decode_bound(cfg, batch: int = 1) -> tuple[float, str, dict]:
+    """(ms, "bytes" | "operations", counts): least time of one greedy
+    decode step of ``batch`` rows of the generative decoder
+    (``models/decoder.py``, a ``DecoderConfig``). Bytes: every weight leaf
+    the step reads (``_decoder_weight_bytes``, one ``pos_emb`` row), the
+    K and V cache slots of all ``max_len`` positions of every layer and
+    row (the step masks the positions past its own but reads them), and
+    the new slot written; operations: 2 a weight of each product and 4 a
+    hidden unit for each cache slot attended (scores and P.V), at the
+    dtype's peak. Per step, so per token of each row."""
+    esize = 2 if cfg.dtype == "bfloat16" else 4
+    kind = "bf16" if esize == 2 else "f32"
+    slots = cfg.layers * batch * cfg.max_len * cfg.hidden
+    cache_read = 2 * slots * esize
+    cache_write = 2 * cfg.layers * batch * cfg.hidden * esize
+    weights = _decoder_weight_bytes(cfg, 1)
+    nbytes = weights + cache_read + cache_write
+    ops = 2.0 * batch * _decoder_linear_params(cfg) + 4.0 * slots
+    ms, by = _pick(nbytes / HBM_BYTES_S, ops / PEAK_OPS_S[kind])
+    return ms, by, {"bytes": nbytes, "weight_bytes": weights,
+                    "cache_read_bytes": cache_read, "operations": ops}
+
+
+def prefill_bound(cfg, length: int, batch: int = 1
+                  ) -> tuple[float, str, dict]:
+    """(ms, "bytes" | "operations", counts): least time of one prefill of
+    ``batch`` prompts of ``length`` real tokens: the operations those
+    tokens need (2 a weight of each block's products a token, 4 a hidden
+    unit for each causal (query, key) pair, the LM head at the last
+    position only) at the dtype's peak, against the weights read once
+    (``length`` rows of ``pos_emb``) and their K and V written once. The
+    padding of the prefix to ``prefix_len`` is work the answer does not
+    need, so it is not counted."""
+    esize = 2 if cfg.dtype == "bfloat16" else 4
+    kind = "bf16" if esize == 2 else "f32"
+    h = cfg.hidden
+    block_params = _decoder_linear_params(cfg) - cfg.vocab_size * h
+    pairs = length * (length + 1) // 2
+    ops = batch * (2.0 * length * block_params
+                   + 4.0 * cfg.layers * h * pairs
+                   + 2.0 * cfg.vocab_size * h)
+    nbytes = _decoder_weight_bytes(cfg, length) \
+        + 2 * cfg.layers * batch * length * h * esize
+    ms, by = _pick(nbytes / HBM_BYTES_S, ops / PEAK_OPS_S[kind])
+    return ms, by, {"bytes": nbytes, "operations": ops}

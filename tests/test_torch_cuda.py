@@ -33,7 +33,12 @@ at most 2^-8 * (sum|a||b| + |plain|) (``BWD_TOL``); in f32, exp2 against
 exp and sums in another order: 1e-5 of the same. ``FlashAttention`` against autograd
 of the plain forward (which keeps o and the weights in f32): the
 relative norm error of each gradient within 2^-6 in bf16 (three roundings
-of 2^-9 a term, o's included through di) and 1e-5 in f32.
+of 2^-9 a term, o's included through di) and 1e-5 in f32. The generative
+decoder (plain PyTorch products, no kernel of its own) on the card
+against its CPU path: bf16 logits against f32 within 2^-3
+(``chip_smoke.DECODER_LOGIT_TOL``'s reason), f32 within 1e-4 (f32 sums in
+another order), and greedy ids equal wherever the CPU's top-1/top-2
+margin exceeds twice the tolerance.
 """
 
 import numpy as np
@@ -764,3 +769,54 @@ def test_minilm_train_step_on_card_launches_the_kernels(card):
     assert [c.count - n for c, n in zip(counters, before)] == \
         [3 * 2 * cfg.layers] * 3
     assert all(np.isfinite(losses)) and losses[-1] < losses[0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [("bfloat16", 2 ** -3),
+                                       ("float32", 1e-4)])
+def test_decoder_on_card_matches_the_cpu_path(card, dtype, tol):
+    from pathlib import Path
+
+    from rag_foundation_tpu_torch.models import decoder as tdec
+    ckpt = str(Path(__file__).resolve().parents[1] / "checkpoints"
+               / "decoder_smoke.npz")
+    p_cpu, cfg, tok = tdec.load_decoder(ckpt, device="cpu")
+    cfg = cfg._replace(dtype=dtype)
+    p_cpu = tenc._map(p_cpu, lambda k, t: t if k.endswith(("['g']", "['b']"))
+                      else t.to(cfg.tdtype))
+    p_card = tenc._map(p_cpu, lambda _, t: t.to(card))
+    p32 = tenc._map(p_cpu, lambda _, t: t.float())
+    c32 = cfg._replace(dtype="float32")
+    ids = tok.encode_prompt("how long does maintenance of the optics unit "
+                            "take?", ["Maintenance of the optics unit takes "
+                                      "12 hours on average."] * 3,
+                            cfg.prefix_len)
+    padded = torch.zeros((1, cfg.prefix_len), dtype=torch.int64)
+    padded[0, :len(ids)] = torch.tensor(ids)
+    bias = torch.zeros(cfg.vocab_size)
+    bias[tdec.EOS_ID] = -1e9              # the answer runs all 32 steps
+    with torch.inference_mode():
+        cache, logits = tdec.prefill(p_card, padded.to(card),
+                                     torch.tensor([len(ids)], device=card),
+                                     cfg)
+        first = torch.argmax(logits + bias.to(card), -1)
+        blk, _, pos = tdec.decode_block(p_card, cache, first, len(ids),
+                                        cfg=cfg, k_steps=32,
+                                        bias=bias.to(card))
+        out = [int(first[0])] + blk[0].tolist()
+        want = tdec.forward(p32, torch.tensor([ids + out[:-1]]), c32)[
+            0, len(ids) - 1:]
+    assert pos == len(ids) + 32
+    assert float((logits[0].cpu() - want[0]).abs().max()) <= tol
+    checked = 0
+    for j, got in enumerate(out):
+        row = want[j] + bias
+        top2 = torch.topk(row, 2).values
+        if float(top2[0] - top2[1]) > 2 * tol:
+            checked += 1
+            assert int(torch.argmax(row)) == got, j
+    assert checked >= len(out) // 2
+    gen = tdec.TextGenerator(ckpt, block=8, device=card)
+    gen.prewarm()
+    text = "".join(gen.stream("how fast?", ["it is fast"]))
+    assert text == "".join(gen.stream("how fast?", ["it is fast"]))

@@ -1,6 +1,6 @@
 """The port's engine faults against the JAX engine: ``VectorSegment``'s
 ``compact()`` and ``live_count``, the engine's Prometheus text over RPC,
-and ``engine_main`` refusing a generative config.
+and ``engine_main``'s generator settings.
 
 The JAX registry (``rag_foundation_tpu.app.metrics``) is module-global,
 so its series are compared as deltas over the searches of one test; the
@@ -242,30 +242,77 @@ def test_port_runtime_does_not_import_prometheus_client():
                    env={**os.environ, "PYTHONPATH": str(ROOT)})
 
 
-# -- fault 3: engine_main refuses a generative config ---------------------------
+# -- engine_main's generator settings (the refusal they replace is gone) ------
 
-def test_engine_main_refuses_generator_ckpt(tmp_path):
-    with pytest.raises(ValueError, match="RAGTPU_ENGINE_GENERATOR_CKPT") \
-            as e:
-        engine_main.config_from_env({
-            "RAGTPU_ENGINE_PLATFORM": "cpu",
-            "RAGTPU_ENGINE_GENERATOR_CKPT": "checkpoints/decoder_smoke.npz"})
-    assert "not ported" in str(e.value)
-    # unset or empty: the extractive path starts as before
+def test_engine_main_reads_the_generator_settings():
+    from rag_foundation_tpu.app.config import Settings
+    fields = Settings.model_fields
+    cfg, _, _ = engine_main.config_from_env({"RAGTPU_ENGINE_PLATFORM": "cpu"})
+    # unset: the JAX app's defaults (an empty checkpoint means none)
+    assert (cfg.generator_ckpt or "", cfg.gen_block, cfg.gen_constrained) \
+        == (fields["ENGINE_GENERATOR_CKPT"].default,
+            fields["ENGINE_GEN_BLOCK"].default,
+            fields["ENGINE_GEN_CONSTRAINED"].default) == ("", 16, True)
+    assert cfg.generator_ckpt is None
     cfg, _, _ = engine_main.config_from_env({
-        "RAGTPU_ENGINE_PLATFORM": "cpu", "RAGTPU_ENGINE_GENERATOR_CKPT": ""})
+        "RAGTPU_ENGINE_PLATFORM": "cpu",
+        "RAGTPU_ENGINE_GENERATOR_CKPT": "checkpoints/decoder_smoke.npz",
+        "RAGTPU_ENGINE_GEN_BLOCK": "4", "RAGTPU_ENGINE_GEN_CONSTRAINED": "0"})
+    assert (cfg.generator_ckpt, cfg.gen_block, cfg.gen_constrained) == (
+        "checkpoints/decoder_smoke.npz", 4, False)
     assert cfg.device == "cpu"
 
 
-def test_engine_main_exits_before_opening_the_socket(tmp_path, monkeypatch):
+@pytest.mark.parametrize("block", ["sixteen", "0"])
+def test_engine_main_exits_before_the_socket_on_a_bad_gen_block(
+        tmp_path, monkeypatch, block):
     sock = tmp_path / "engine.sock"
     for name, value in (("ENGINE_PLATFORM", "cpu"),
                         ("DATA_DIR", str(tmp_path)),
                         ("ENGINE_RPC_SOCKET", str(sock)),
-                        ("ENGINE_GENERATOR_CKPT", "decoder.npz")):
+                        ("ENGINE_GENERATOR_CKPT", "decoder.npz"),
+                        ("ENGINE_GEN_BLOCK", block)):
         monkeypatch.setenv("RAGTPU_" + name, value)
     with pytest.raises(SystemExit) as e:
         engine_main.main()
     assert e.value.code not in (0, None)
-    assert "not ported" in str(e.value.code)
+    assert "engine_main" in str(e.value.code)
     assert not sock.exists()
+
+
+def test_engine_main_prewarms_and_serves_the_generator(tmp_path):
+    """With a checkpoint set, ``main`` opens the socket, prewarms the
+    decoder (``generator_prewarmed`` in its log) and serves
+    ``prewarm_generator`` and the ``generate`` stream."""
+    import time
+    sock = str(tmp_path / "engine.sock")
+    ckpt = str(ROOT / "checkpoints" / "decoder_smoke.npz")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
+    env.update(PYTHONPATH=str(ROOT), RAGTPU_ENGINE_PLATFORM="cpu",
+               RAGTPU_DATA_DIR=str(tmp_path / "data"),
+               RAGTPU_ENGINE_RPC_SOCKET=sock,
+               RAGTPU_ENGINE_GENERATOR_CKPT=ckpt)
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "rag_foundation_tpu_torch.engine_main"],
+        cwd=str(tmp_path), env=env, stdout=subprocess.DEVNULL,
+        stderr=subprocess.PIPE, text=True)
+    try:
+        remote = RemoteEngine(sock, timeout=60.0)
+        deadline = time.time() + 60
+        while True:
+            assert proc.poll() is None, proc.stderr.read()
+            assert time.time() < deadline, "engine_main never served"
+            try:
+                if remote.ping():
+                    break
+            except OSError:
+                time.sleep(0.15)
+        info = remote.prewarm_generator()
+        assert info["ckpt"] == ckpt and info["compile_s"] >= 0
+        assert "".join(remote.generate_stream("how fast?", ["it is fast"]))
+        remote.close()
+    finally:
+        proc.terminate()
+        _, err = proc.communicate(timeout=30)
+    assert proc.returncode == 0, err
+    assert '"event": "generator_prewarmed"' in err

@@ -2,13 +2,20 @@
 
 ``chip_smoke.py`` and ``tools/time_kernels.py`` each kept a copy of these
 functions; each value below is what those copies gave for the same input,
-so the move keeps every formula. The exponential floor and the share of
-empty 16 x 16 blocks are new, and are pinned to a count by hand.
+so the move keeps every formula. The exponential floor, the share of
+empty 16 x 16 blocks and the generative decoder's decode and prefill
+bounds (at ``checkpoints/decoder_distill.npz``'s shapes) are pinned to a
+count by hand.
 """
 
+from pathlib import Path
+
+import numpy as np
 import pytest
 import torch
 
+from rag_foundation_tpu_torch.models.decoder import (DecoderConfig,
+                                                     checkpoint_meta)
 from rag_foundation_tpu_torch.utils import roofline
 
 REL = 1e-12
@@ -172,3 +179,62 @@ def test_exp_floor_and_empty_blocks():
         == pytest.approx(12 / (3 * 64), rel=REL)
     ids = torch.tensor([[0] * 16 + [1] * 16], dtype=torch.int32)
     assert roofline.empty_block_share(ids, ids) == pytest.approx(0.5)
+
+
+DISTILL = str(Path(__file__).resolve().parents[1] / "checkpoints"
+              / "decoder_distill.npz")
+
+
+def _distill_cfg():
+    """checkpoints/decoder_distill.npz's shapes (read from the file)."""
+    meta = checkpoint_meta(DISTILL)
+    meta.pop("vocab_entries")
+    cfg = DecoderConfig(**meta)
+    assert tuple(cfg)[:7] == (8192, 384, 6, 6, 1536, 512, 96)
+    return cfg
+
+
+def test_decode_bound_at_decoder_distill():
+    cfg = _distill_cfg()
+    h, f, v, layers = 384, 1536, 8192, 6
+    # bf16 weights of one block: qkv, proj, fc1, fc2 and their biases;
+    # two f32 layernorms (gain and bias each)
+    block = (h * 3 * h + h * h + 2 * h * f + 3 * h + h + f + h) * 2 \
+        + 2 * 2 * h * 4
+    weights = layers * block + v * h * 2 + h * 2 + 2 * h * 4   # + ln_f
+    assert weights == 27_607_296
+    cache = 2 * layers * 512 * h * 2          # K and V, all 512 positions
+    written = 2 * layers * h * 2              # the new slot
+    ms, by, c = roofline.decode_bound(cfg)
+    assert c["bytes"] == weights + cache + written == 32_335_104  # ~32.3 MB
+    assert (c["weight_bytes"], c["cache_read_bytes"]) == (weights, cache)
+    assert by == "bytes"
+    assert ms == pytest.approx(32_335_104 / 3.35e12 * 1e3, rel=REL)
+    # every parameter but pos_emb's other 511 rows; layernorms in f32
+    with np.load(DISTILL) as z:
+        params = sum(z[k].size for k in z.files if not k.startswith("__"))
+    assert params == 13_989_888
+    assert weights == (params - 511 * h) * 2 + (2 * layers + 1) * 2 * h * 2
+    # a batch of 4 reads the weights once and four caches
+    assert roofline.decode_bound(cfg, 4)[2]["bytes"] == \
+        weights + 4 * (cache + written)
+
+
+@pytest.mark.parametrize("length", [1, 414, 416])
+def test_prefill_bound_at_decoder_distill(length):
+    cfg = _distill_cfg()
+    h, f, v, layers = 384, 1536, 8192, 6
+    ops = 2.0 * length * layers * (3 * h * h + h * h + 2 * h * f) \
+        + 4.0 * layers * h * length * (length + 1) // 2 + 2.0 * v * h
+    ms, by, c = roofline.prefill_bound(cfg, length)
+    assert c["operations"] == pytest.approx(ops, rel=REL)
+    assert c["bytes"] == roofline.decode_bound(cfg)[2]["weight_bytes"] \
+        + (length - 1) * h * 2 + 2 * layers * length * h * 2
+    assert by == ("operations" if length > 1 else "bytes")
+    assert ms == pytest.approx(max(ops / 0.989e15, c["bytes"] / 3.35e12)
+                               * 1e3, rel=REL)
+    # f32 counts 4 bytes an element and the f32 peak
+    ms32, _, c32 = roofline.prefill_bound(cfg._replace(dtype="float32"),
+                                          length)
+    assert c32["operations"] == c["operations"]
+    assert ms32 >= ms
