@@ -142,11 +142,46 @@ Phases (each one fails the run: non-zero exit, no result line):
     ratio to it, time to first delta and answer latency over RPC (p50,
     p99), answer tokens/s and peak device memory.
 
+17. The sharded engine, run after phase 5 on phase 3's store: an
+    ``Engine`` with ``mesh_shards=4`` and ``mesh=make_mesh(4,
+    devices=[card] * 4)`` (four logical shards on the one card) on phase
+    3's ``data_dir``, whose saved body reloads as four views; it adopts
+    phase 3's 10M int8 body as four views (its pads are not persisted),
+    and behind ``EngineRpcServer`` serves single and 64 concurrent
+    searches and a Q=1024 batch through ``RemoteEngine``, with recall@10
+    of the fact questions against phase 3's exact scan (>= 0.95), the
+    recall audit through the shards, and ``ivf_list_scan``'s launch
+    counter (zeroed just before, read just after) at 4 a body search. In
+    process: Q=1024 stored rows against the one-device search at the same
+    global nprobe 32 (overlap, each row found first, >= 0.95, and the
+    probes each shard's qcap drops), that search split by stage (per-shard
+    routing, the four scans, per-shard regather + top-k, the merge), one
+    shard's kernel against its plain version on its own dispatch with its
+    time and bound; then fact documents into the sharded tail over RPC and
+    a flush of 1,088 rows through ``sharded_ivf_append``, which must land
+    in phase 3's own body tensors and be found.
+18. The sharded IVF-PQ engine, run after phase 8: an ``Engine`` with
+    ``mesh_shards=4``, ``pq_refine="host"`` and ``[card] * 4`` restarted
+    on phase 6's ``data_dir`` (its saved body, which keeps a device
+    refine table, is restored whole), adopting phase 6's 10M body without
+    its refine table as four views and its host archive. Behind
+    ``EngineRpcServer`` it serves the fact questions and a Q=1024 batch
+    through ``RemoteEngine`` (bf16 query transport, the ADC top-C over
+    the shards, the host archive's re-rank): recall@10 of the fact
+    questions against phase 6's exact scan as ``Engine.search`` asks the
+    index (a chunk tying the 10th score counts; >= 0.95), and
+    ``pq_list_scan``'s launch counter (zeroed just before, read just
+    after) at 4 a body search with no device re-rank. In process: the ADC
+    top-10 overlap of ``sharded_ivfpq_search`` with the one-device
+    ``ivfpq_search`` at nprobe 32 (>= 0.9 on the fact questions), and one
+    shard's kernel against its plain version with its time and bound.
+
 ``--long-docs`` sets the number of long documents of phase 13. The line
 before last is the kernels' JSON (eight entries; the flash-attention
-forward's also holds its launches on phase 16's chat path); the last line
-is ``{"ok": true, "device": {...}}``. The script imports neither JAX nor
-the JAX package.
+forward's also holds its launches on phase 16's chat path, and the two
+list scans their launches and one shard's numbers on the sharded paths
+of phases 17-18); the last line is ``{"ok": true, "device": {...}}``.
+The script imports neither JAX nor the JAX package.
 """
 
 from __future__ import annotations
@@ -687,6 +722,417 @@ def pq_recall_with_ties(seg, gather, qv, served, exact, k=10) -> float:
                          .sum(axis=1) / k))
 
 
+def card_mesh(torch, make_mesh, n: int = 4):
+    """``n`` logical shards on the one card (a mesh may repeat a device)."""
+    card = torch.device("cuda", torch.cuda.current_device())
+    return make_mesh(n, devices=[card] * n)
+
+
+def shards_share_storage(torch, shards, field, base) -> bool:
+    """Every shard's ``field`` is a view of ``base``'s storage."""
+    ptr = base.untyped_storage().data_ptr()
+    return all(getattr(s, field).untyped_storage().data_ptr() == ptr
+               for s in shards)
+
+
+def shard_kernel_line(torch, kernel, reference, args, kw, bound, what,
+                      card) -> dict:
+    """One shard's list-scan kernel against its plain version on that
+    shard's own dispatch (exact for int8), with its time, the plain
+    version's (one run) and its bound."""
+    kv, ki = kernel(*args, **kw)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rv, ri = reference(*args, **kw)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    err = check_scan(kv, ki, rv, ri, True, None, None, what)
+    del kv, ki, rv, ri
+    ms = cuda_ms(lambda: kernel(*args, **kw), reps=10)
+    bound_ms, bound_by, c = bound
+    log(f"{what}: {c['lists_read']} lists with queries, {c['live_slots']} "
+        f"live slots, {c['rows_needed']} live rows of "
+        f"{c['rows_in_lists_read']}: bit-identical; kernel {ms:.3f} ms, "
+        f"plain {plain_ms:.3f} ms (one run), bound {bound_ms:.3f} ms "
+        f"({bound_by}) | {card}")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "shape": c}
+
+
+def mesh_flat_phase(args, card, ctx, mods) -> dict:
+    """Phase 17: the sharded engine at 10M x 768 through the entry points:
+    an ``Engine`` with ``mesh_shards=4`` on four logical shards of the
+    one card, on phase 3's data_dir, serving phase 3's 10M int8 body
+    (adopted as four views: its pads are not persisted) behind
+    ``EngineRpcServer``. Returns the ``ivf_list_scan`` entry's sharded
+    keys."""
+    import numpy as np
+    import torch
+    (Engine, EngineConfig, EngineRpcServer, RemoteEngine, search_profile,
+     make_mesh, sivf, tivf, ivf_scan, roofline) = mods
+    (cfg, key, sock, body, body_cids, qv1, exact, probe_rows, probe_ids,
+     sampled, rng) = ctx
+    t_phase = time.perf_counter()
+    mesh = card_mesh(torch, make_mesh)
+    engine = Engine(EngineConfig(**cfg, mesh_shards=4), mesh=mesh)
+    store = engine._store(key)
+    seg = store.segment
+    small = seg.body
+    if not isinstance(small, sivf.ShardedBody) or len(small.shards) != 4:
+        fail(f"mesh restart: the saved body came back as "
+             f"{type(small).__name__}")
+    if not shards_share_storage(torch, small.shards, "lists",
+                                small.shards[0].lists):
+        fail("mesh restart: the shards are not views of one body")
+    log(f"mesh engine on phase 3's data_dir: the saved int8 body ({small.n} "
+        f"rows, nlist {small.nlist}) reloaded as 4 shards of "
+        f"{small.nlist_local} lists, views of one tensor; tail "
+        f"{type(seg.tail).__name__} of {seg.tail.count} rows")
+    mem0 = torch.cuda.memory_allocated()
+    seg.adopt_body(body, body_cids)
+    sbody = seg.body
+    grown = torch.cuda.memory_allocated() - mem0
+    if not (shards_share_storage(torch, sbody.shards, "lists", body.lists)
+            and shards_share_storage(torch, sbody.shards, "row_ids",
+                                     body.row_ids)):
+        fail("mesh: the adopted 10M body was copied, not viewed")
+    # the pads are not persisted: do not rewrite body.npz for them, and
+    # over-fetch past them as the padding engine did
+    store.saved_body_version = seg.body_version
+    engine._pad_counts[key] = args.rows - args.docs
+    log(f"mesh: phase 3's 10M body adopted as 4 shards of "
+        f"{sbody.nlist_local} lists (views; device memory +"
+        f"{grown / 2**20:.1f} MiB) | {card}")
+
+    server = EngineRpcServer(engine, sock, allow_pad=True).start()
+    remote = RemoteEngine(sock, pool_size=80)
+    ivf_scan.LAUNCHES.reset()                 # counts: this path only
+    search_profile.reset()
+    try:
+        lat = []
+        for i in sampled:
+            t0 = time.perf_counter()
+            hits = remote.search([key], fact_query(i), k=5)
+            lat.append((time.perf_counter() - t0) * 1e3)
+            if not hits or hits[0].doc_id != f"doc-{i}":
+                fail(f"mesh: top hit for project {i} is "
+                     f"{hits[0].doc_id if hits else None}")
+        log(f"mesh single search over RPC: p50 {np.percentile(lat, 50):.3f}"
+            f" ms p99 {np.percentile(lat, 99):.3f} ms ({len(lat)} searches, "
+            f"right top hit each) | {card}")
+        lat1, served = [], []
+        for i in range(len(sampled)):
+            t0 = time.perf_counter()
+            served.append(seg.search(qv1[i:i + 1], 10)[1][0])
+            lat1.append((time.perf_counter() - t0) * 1e3)
+        fact_recall = recall_at(served, exact)
+        log(f"mesh StoreIndex.search Q=1 in process: p50 "
+            f"{np.percentile(lat1, 50):.3f} ms p99 "
+            f"{np.percentile(lat1, 99):.3f} ms; recall@10 of fact questions "
+            f"vs phase 3's exact scan {fact_recall:.4f} ({len(sampled)} "
+            f"questions) | {card}")
+        if fact_recall < RECALL_MIN:
+            fail(f"mesh fact-question recall@10 {fact_recall} < "
+                 f"{RECALL_MIN}")
+
+        threads = 64
+        qids = [int(i) for i in rng.integers(0, args.docs, size=threads * 24)]
+        hits, wall = run_concurrent(remote, key,
+                                    [fact_query(i) for i in qids], threads)
+        right = sum(1 for i, h in zip(qids, hits)
+                    if h and h[0].doc_id == f"doc-{i}")
+        log(f"mesh concurrent search over RPC: {threads} threads, "
+            f"{len(qids)} queries in {wall:.3f} s = {len(qids) / wall:,.1f} "
+            f"QPS; right top hit {right}/{len(qids)} | {card}")
+        bq = [fact_query(int(i)) for i in rng.integers(0, args.docs, 1024)]
+        t0 = time.perf_counter()
+        scores, _ = remote.search_batch(key, bq, k=10)
+        bwall = time.perf_counter() - t0
+        if scores.shape != (1024, 10):
+            fail(f"mesh search_batch returned {scores.shape}")
+        seg.search(probe_rows, 10)
+        t0 = time.perf_counter()
+        for _ in range(5):
+            seg.search(probe_rows, 10)
+        swall = (time.perf_counter() - t0) / 5
+        log(f"mesh search_batch Q=1024 over RPC (encode included): "
+            f"{bwall * 1e3:.1f} ms; StoreIndex.search Q=1024 stored rows in "
+            f"process (host clock, f32 transport, tail merge): "
+            f"{swall * 1e3:.2f} ms = {1024 / swall:,.0f} QPS | {card}")
+        probe = remote.recall_probe(key, k=10, sample=64)
+        if probe["recall"] is None:
+            fail(f"mesh recall_probe {probe}")
+        dispatches = search_profile.snapshot().get("body_dispatch",
+                                                   {"n": 0})["n"]
+        launches = ivf_scan.LAUNCHES.count           # read just after
+        log(f"mesh recall_probe@10 (sampled through the shards, exact scan "
+            f"a shard) {probe['recall']:.4f}; ivf_list_scan launches "
+            f"{launches} for {dispatches} body searches | {card}")
+        if dispatches == 0 or launches != 4 * dispatches:
+            fail(f"mesh: {launches} ivf_list_scan launches for "
+                 f"{dispatches} body searches (4 each expected)")
+
+        # the sharded search of Q=1024 stored rows against the one-device
+        # search of the same body at the same global nprobe
+        q = torch.as_tensor(probe_rows, device="cuda")
+        qcap = tivf.default_qcap(1024, 8, sbody.nlist_local)
+        routed = sivf.route_shards(sbody, q, 8, qcap, mesh)
+        drops = [int(r[3]) for r in routed]
+        _, one_rows, one_drop = tivf.ivf_search(body, q, 16, nprobe=32, p=3)
+        _, sh_rows = sivf.sharded_ivf_search(sbody, q, 16, mesh=mesh,
+                                             nprobe_local=8, p=3)
+        one_rows = one_rows[:, :10].cpu().numpy()
+        sh_rows = sh_rows[:, :10].cpu().numpy()
+        overlap = recall_at(sh_rows, one_rows)
+        # each query is a stored row: it must come back first
+        self_first = [float(np.mean(body_cids[r[:, 0]] == probe_ids))
+                      for r in (sh_rows, one_rows)]
+        log(f"mesh vs one device, Q=1024 stored rows, ivf_search nprobe 32 "
+            f"vs 4 x nprobe_local 8: overlap@10 {overlap:.4f}; the query's "
+            f"own row first {self_first[0]:.4f} sharded, {self_first[1]:.4f}"
+            f" one device; probes dropped by qcap {qcap}: a shard {drops} "
+            f"(sum {sum(drops)} of {1024 * 32}), one device "
+            f"{int(one_drop)} | {card}")
+        if min(self_first) < RECALL_MIN:
+            fail(f"mesh: a stored row came back first for {self_first} of "
+                 f"the queries (< {RECALL_MIN})")
+        stage_split(
+            torch, lambda: sivf.sharded_ivf_search(sbody, q, 16, mesh=mesh,
+                                                   nprobe_local=8, p=3),
+            [(sivf, "route_shards", "after"), (sivf, "scan_shards", "after"),
+             (sivf, "select_shards", "after")],
+            ["per-shard routing", "list scans (4 launches)",
+             "per-shard regather + top-k", "merge"], card,
+            "mesh ivf_flat_int8 search of Q=1024 stored rows "
+            "(sharded_ivf_search, 4 shards on one card, split by CUDA "
+            "events between its stages in one call)")
+        scans_ms = cuda_ms(lambda: sivf.scan_shards(sbody, routed, 3, mesh),
+                           reps=10)
+        probe_lists, dispatch, _, _, qdisp, scale = routed[0]
+        shard0 = sbody.shards[0]
+        entry = shard_kernel_line(
+            torch, ivf_scan.ivf_list_scan, ivf_scan.ivf_list_scan_reference,
+            (qdisp, shard0.lists, shard0.row_ids, dispatch),
+            dict(p=3, scale=scale),
+            roofline.scan_bound(shard0.row_ids, ivf_scan.live_slots(dispatch),
+                                qcap, 3, 1, 768, "int8"),
+            f"ivf_list_scan int8, shard 0 of 4 ({shard0.nlist} lists, "
+            f"qcap {qcap}), Q=1024 stored rows; the 4 shards' launches "
+            f"together {scans_ms:.3f} ms", card)
+        del routed, probe_lists, dispatch, qdisp
+
+        # a few fact documents into the sharded tail over RPC
+        new_docs = range(args.docs, args.docs + 8)
+        for i in new_docs:
+            remote.ingest_document(key, f"doc-{i}", f"project-{i}.txt",
+                                   fact_doc(i))
+        tail_n = seg.tail.count
+        for i in new_docs:
+            hits = remote.search([key], fact_query(i), k=3)
+            if not hits or hits[0].doc_id != f"doc-{i}":
+                fail(f"mesh tail: top hit for new project {i} is "
+                     f"{hits[0].doc_id if hits else None}")
+        # a flush through sharded_ivf_append: rows that fit their lists
+        # (a capacity overflow would re-route them through a 10M rebuild)
+        n_app = 1024 + 64
+        g = np.random.default_rng(args.seed + 17)
+        rows = g.standard_normal((n_app, 768)).astype(np.float32)
+        rows /= np.linalg.norm(rows, axis=1, keepdims=True)
+        cents = torch.cat([s.centroids for s in sbody.shards])
+        flushed = np.concatenate([seg.tail.state()["vectors"], rows])
+        assign = tivf.assign_clusters(torch.as_tensor(flushed,
+                                                      device="cuda"),
+                                      cents)[0].cpu().numpy()
+        free = sbody.cap_len - (body.row_ids >= 0).sum(dim=1).cpu().numpy()
+        if (np.bincount(assign, minlength=sbody.nlist) > free).any():
+            fail("mesh append: a list has no room for its new rows")
+        row_base = len(seg.body_chunk_ids)
+        version = seg.body_version
+        ids = np.arange(1 << 30, (1 << 30) + n_app, dtype=np.int64)
+        t0 = time.perf_counter()
+        seg.add(rows, ids)
+        torch.cuda.synchronize()
+        flush_s = time.perf_counter() - t0
+        landed = int((body.row_ids >= row_base).sum())
+        got = seg.search(rows[:64], 1)[1][:, 0]
+        log(f"mesh append: {tail_n} tail rows (8 new fact documents, found "
+            f"first over RPC) + {n_app} rows flushed through "
+            f"sharded_ivf_append in {flush_s:.3f} s (body version "
+            f"{version} -> {seg.body_version}, tail {seg.tail.count}); "
+            f"{landed} rows landed in phase 3's own body tensors; an "
+            f"appended row found first for {np.mean(got == ids[:64]):.4f} "
+            f"of 64 | {card}")
+        if seg.body_version == version or landed != tail_n + n_app \
+                or np.mean(got == ids[:64]) < RECALL_MIN:
+            fail("mesh append: the flushed rows were not found in place")
+        for i in new_docs:
+            hits = remote.search([key], fact_query(i), k=3)
+            if not hits or hits[0].doc_id != f"doc-{i}":
+                fail(f"mesh append: new project {i} lost in the flush")
+    finally:
+        remote.close()
+        server.shutdown()
+    log(f"phase 17: {time.perf_counter() - t_phase:.1f} s")
+    return {"launches_sharded": launches, "sharded_shard": entry,
+            "sharded_overlap_at_10": overlap,
+            "sharded_fact_recall_at_10": fact_recall}
+
+
+def mesh_pq_phase(args, card, ctx, mods) -> dict:
+    """Phase 18: the sharded ``ivf_pq`` engine at 10M x 768 through the
+    entry points: an ``Engine`` with ``mesh_shards=4`` and
+    ``pq_refine="host"`` on four logical shards of the one card, restarted
+    on phase 6's data_dir, adopting phase 6's 10M body without its refine
+    table (as four views) and its host archive, behind
+    ``EngineRpcServer``. Returns the ``pq_list_scan`` entry's sharded
+    keys."""
+    import numpy as np
+    import torch
+    from types import SimpleNamespace
+    from rag_foundation_tpu_torch.engine.ivf import default_qcap
+    from rag_foundation_tpu_torch.parallel import sharded_ivf as sivf
+    from rag_foundation_tpu_torch.parallel.mesh import make_mesh
+    from rag_foundation_tpu_torch.utils import roofline
+    (Engine, EngineConfig, EngineRpcServer, RemoteEngine, search_profile,
+     tpq, pq_scan, gather) = mods
+    (cfg, key, sock, body, cids, arch, n_pad, qv1, exact, probe_rows,
+     probe_ids, sampled, rng, p) = ctx
+    t_phase = time.perf_counter()
+    mesh = card_mesh(torch, make_mesh)
+    engine = Engine(EngineConfig(**{**cfg, "pq_refine": "host"},
+                                 mesh_shards=4), mesh=mesh)
+    store = engine._store(key)
+    seg = store.segment
+    saved = seg.body
+    # the saved body keeps its device refine table, which does not split
+    # by lists: the mesh store serves it whole until it is replaced
+    log(f"mesh ivf_pq engine on phase 6's data_dir: the saved body "
+        f"({type(saved).__name__}, {saved.n} rows, refine "
+        f"{tuple(saved.refine.shape)}) restored whole")
+    free = body._replace(refine=body.refine[:0, :0])
+    mem0 = torch.cuda.memory_allocated()
+    seg.adopt_body(free, cids)
+    with seg._body_lock:
+        seg._pq_archive = arch         # archive row i is body row i
+    sbody = seg.body
+    grown = torch.cuda.memory_allocated() - mem0
+    if not isinstance(sbody, sivf.ShardedBody) or not (
+            shards_share_storage(torch, sbody.shards, "codes", body.codes)
+            and shards_share_storage(torch, sbody.shards, "row_ids",
+                                     body.row_ids)):
+        fail("mesh ivf_pq: the adopted 10M body is not four views of it")
+    # the pads are not persisted: do not rewrite body.npz for them, and
+    # over-fetch past them as the padding engine did
+    store.saved_body_version = seg.body_version
+    engine._pad_counts[key] = n_pad
+    log(f"mesh ivf_pq: phase 6's 10M body without its refine table adopted "
+        f"as 4 shards of {sbody.nlist_local} lists (views; device memory "
+        f"+{grown / 2**20:.1f} MiB), re-ranked against the host archive of "
+        f"{arch.n} rows | {card}")
+
+    server = EngineRpcServer(engine, sock, allow_pad=True).start()
+    remote = RemoteEngine(sock, pool_size=80)
+    pq_scan.LAUNCHES.reset()                  # counts: this path only
+    gather.LAUNCHES.reset()
+    search_profile.reset()
+    try:
+        lat = []
+        for i in sampled:
+            t0 = time.perf_counter()
+            hits = remote.search([key], fact_query(i), k=5)
+            lat.append((time.perf_counter() - t0) * 1e3)
+            if not hits or hits[0].doc_id != f"doc-{i}":
+                fail(f"mesh ivf_pq: top hit for project {i} is "
+                     f"{hits[0].doc_id if hits else None}")
+        log(f"mesh ivf_pq single search over RPC: p50 "
+            f"{np.percentile(lat, 50):.3f} ms p99 "
+            f"{np.percentile(lat, 99):.3f} ms ({len(lat)} searches, right "
+            f"top hit each) | {card}")
+        # the fact questions as Engine.search asks the index of a padded
+        # store (40 rows: the ADC top 256 re-ranked on the host)
+        served = np.stack([seg.search(qv1[i:i + 1], 40)[1][0, :10]
+                           for i in range(len(qv1))])
+        ns = SimpleNamespace(body=body, body_chunk_ids=cids)
+        recall_ties = pq_recall_with_ties(ns, gather, qv1, served, exact)
+        bq = [fact_query(int(i)) for i in rng.integers(0, args.docs, 1024)]
+        t0 = time.perf_counter()
+        scores, _ = remote.search_batch(key, bq, k=10)
+        bwall = time.perf_counter() - t0
+        if scores.shape != (1024, 10):
+            fail(f"mesh ivf_pq search_batch returned {scores.shape}")
+        # the fact documents share a few lists, so a batch of fact
+        # questions overflows their qcap and drops probes, as on one
+        # device (phase 6 prints the same count)
+        finite = int(np.isfinite(scores[:, 0]).sum())
+        seg.search(probe_rows, 10)
+        t0 = time.perf_counter()
+        for _ in range(3):
+            top = seg.search(probe_rows, 10)[1]
+        swall = (time.perf_counter() - t0) / 3
+        dispatches = search_profile.snapshot().get("body_dispatch",
+                                                   {"n": 0})["n"]
+        launches = pq_scan.LAUNCHES.count          # read just after
+        rescores = gather.LAUNCHES.count
+    finally:
+        remote.close()
+        server.shutdown()
+    log(f"mesh ivf_pq (4 x nprobe_local 8, p={p}): recall@10 of the fact "
+        f"questions vs phase 6's exact scan {recall_ties:.4f} counting a "
+        f"chunk that ties the 10th exact score, "
+        f"{recall_at(served, exact):.4f} by ids alone; search_batch Q=1024 "
+        f"over RPC (encode included) {bwall * 1e3:.1f} ms, top score finite "
+        f"for {finite}/1024; StoreIndex.search"
+        f" Q=1024 stored rows in process (host clock, bf16 transport, host "
+        f"re-rank) {swall * 1e3:.2f} ms = {1024 / swall:,.0f} QPS, a stored "
+        f"row first {np.mean(top[:, 0] == probe_ids):.4f} (printed); "
+        f"pq_list_scan launches {launches} for {dispatches} body searches, "
+        f"gather_rescore_int8 {rescores} | {card}")
+    if recall_ties < RECALL_MIN:
+        fail(f"mesh ivf_pq fact recall@10 {recall_ties} < {RECALL_MIN}")
+    if dispatches == 0 or launches != 4 * dispatches or rescores:
+        fail(f"mesh ivf_pq: {launches} pq_list_scan launches for "
+             f"{dispatches} body searches (4 each expected), {rescores} "
+             f"device re-ranks (none expected)")
+
+    # the ADC candidates against one device at the same global nprobe
+    def adc_overlap(q):
+        _, s10 = sivf.sharded_ivfpq_search(sbody, q, 10, mesh=mesh,
+                                           nprobe_local=8, p=p)
+        _, o10, dropped = tpq.ivfpq_search(free, q, 10, nprobe=32, p=p)
+        return recall_at(s10.cpu().numpy(), o10.cpu().numpy()), dropped
+
+    adc_fact = float(np.mean([adc_overlap(torch.as_tensor(
+        qv1[i:i + 1], device="cuda").to(torch.bfloat16))[0]
+        for i in range(len(qv1))]))
+    qb = torch.as_tensor(probe_rows, device="cuda").to(torch.bfloat16)
+    adc_rows, one_drop = adc_overlap(qb)
+    log(f"mesh ivf_pq ADC top-10 overlap with one device at nprobe 32: "
+        f"fact questions {adc_fact:.4f}, Q=1024 stored rows "
+        f"{adc_rows:.4f} | {card}")
+    if adc_fact < 0.9:
+        fail(f"mesh ivf_pq ADC overlap {adc_fact} < 0.9")
+
+    # one shard's kernel on its own dispatch of the Q=1024 batch
+    shard0 = sbody.shards[0]
+    q32, _, _, dispatch, _, dropped = tpq.route(
+        shard0, qb, 8, default_qcap(1024, 8, shard0.nlist))
+    lut_disp, _ = tpq.scan_inputs(shard0, q32, dispatch, torch.int8)
+    qcap = dispatch.shape[1]
+    entry = shard_kernel_line(
+        torch, pq_scan.pq_list_scan, pq_scan.pq_list_scan_reference,
+        (lut_disp, shard0.codes, shard0.row_ids, dispatch), dict(p=p),
+        roofline.pq_scan_bound(shard0.row_ids, pq_scan.live_slots(dispatch),
+                               qcap, p, shard0.m, shard0.codes.shape[2], 1),
+        f"pq_list_scan int8 LUT, shard 0 of 4 ({shard0.nlist} lists, qcap "
+        f"{qcap}, dropped {int(dropped)}; one device dropped "
+        f"{int(one_drop)}), Q=1024 stored rows", card)
+    del engine, store, seg, sbody, shard0, lut_disp, dispatch
+    log(f"phase 18: {time.perf_counter() - t_phase:.1f} s")
+    return {"launches_sharded": launches, "sharded_shard": entry,
+            "sharded_fact_recall_at_10": recall_ties,
+            "sharded_adc_overlap_at_10": adc_fact}
+
+
 def check_topk(kv, ki, rv, ri, q, c, tol, what) -> tuple[float, int]:
     """Kernel top-k (kv, ki) against the plain version's (rv, ri):
     (max |value difference|, ids that differ). ``tol == 0`` asks for
@@ -1177,7 +1623,9 @@ def pq_phases(args, card, rng, sampled, mods) -> list[dict]:
         dwall = (time.perf_counter() - t0) / 3
         log(f"ivf_pq StoreIndex.search Q=1024 in process: "
             f"{dwall * 1e3:.2f} ms = {1024 / dwall:,.0f} QPS | {card}")
-        probe_rows, _ = seg.sample_live_rows(1024, seed=args.seed + 1)
+        probe_rows, probe_ids = seg.sample_live_rows(1024,
+                                                     seed=args.seed + 1)
+        pq_arch, pq_cids = seg._pq_archive, seg.body_chunk_ids  # phase 18
         seg.search(probe_rows, 10)
         t0 = time.perf_counter()
         for _ in range(3):
@@ -1293,6 +1741,13 @@ def pq_phases(args, card, rng, sampled, mods) -> list[dict]:
         f"kernel {gather_ms:.4f} ms, plain {gather_plain_ms:.3f} ms, no "
         f"single library call, bound {gather_bound_ms:.4f} ms "
         f"({gather_by}) | {card}")
+
+    # -- phase 18: the sharded engine over the same body ---------------------
+    sharded = mesh_pq_phase(
+        args, card, (cfg, key, sock, body, pq_cids, pq_arch, n_pad, qv1, exact,
+               probe_rows, probe_ids, sampled, rng, p),
+        (Engine, EngineConfig, EngineRpcServer, RemoteEngine, search_profile,
+         tpq, pq_scan, gather))
     shutil.rmtree(data_dir, ignore_errors=True)
     return [{
         "name": "pq_list_scan", "route": "cuda",
@@ -1301,6 +1756,7 @@ def pq_phases(args, card, rng, sampled, mods) -> list[dict]:
         "launches": launches[0], "max_abs_err": scan_err, "ms": scan_ms,
         "plain_ms": scan_plain_ms, "bound_ms": scan_bound_ms,
         "bound_by": scan_by, "library_ms": None, "dtype": "int8 LUT",
+        **sharded,
         "shape": {"nlist": nlist, "qcap": qcap, "cap_len": cap_len,
                   "m": body.m, "m_bytes": m_bytes, "p": p, **c},
     }, {
@@ -2484,6 +2940,8 @@ def main() -> None:
     from rag_foundation_tpu_torch.ops import (cuda_lib, flash_attention,
                                               gather, ivf_scan, pq_scan,
                                               quantize)
+    from rag_foundation_tpu_torch.parallel import sharded_ivf as sivf
+    from rag_foundation_tpu_torch.parallel.mesh import make_mesh
     from rag_foundation_tpu_torch.utils import roofline
 
     # -- phase 1: card and build -------------------------------------------
@@ -2683,7 +3141,9 @@ def main() -> None:
             f"{fact_drop}/{1024 * 32} | {card}")
 
         # phase 5 input: a batch of 1024 stored rows (uniform traffic)
-        probe_rows, _ = seg.sample_live_rows(1024, seed=args.seed + 1)
+        probe_rows, probe_ids = seg.sample_live_rows(1024,
+                                                     seed=args.seed + 1)
+        body_cids = seg.body_chunk_ids                   # phase 17
         seg.search(probe_rows, 10)
         t0 = time.perf_counter()
         for _ in range(5):
@@ -2765,6 +3225,13 @@ def main() -> None:
         "ivf_flat_int8 search of Q=1024 stored rows (ivf_search, split by "
         "CUDA events between its stages in one call)")
     del qj
+
+    # -- phase 17: the sharded engine over the same body ---------------------
+    ivf_sharded = mesh_flat_phase(
+        args, card, (cfg, key, sock, body, body_cids, qv1, exact, probe_rows,
+                     probe_ids, sampled, rng),
+        (Engine, EngineConfig, EngineRpcServer, RemoteEngine, search_profile,
+         make_mesh, sivf, tivf, ivf_scan, roofline))
     shutil.rmtree(data_dir, ignore_errors=True)
     # release the int8 store before the ivf_pq phases (the servers'
     # handler threads, which hold their engine, end once their clients'
@@ -2821,6 +3288,7 @@ def main() -> None:
         "dtype": "int8",
         "shape": {"nlist": nlist, "qcap": qcap, "cap_len": cap_len, "d": d,
                   "p": p, **c},
+        **ivf_sharded,
     }] + pq_kernels + exact_kernels + [attn_kernel] + bwd_kernels}
     print(json.dumps(kernels), flush=True)
     print(json.dumps({"ok": True, "device": {

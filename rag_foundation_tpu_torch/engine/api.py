@@ -10,11 +10,15 @@ the other.
 Ported: the ``hash``, ``minilm`` and ``hybrid`` encoders and the
 ``exact``, ``ivf_flat``, ``ivf_flat_int8`` and ``ivf_pq`` index modes on
 one device (``EngineConfig.device``, the card by default; the MiniLM
-encoder runs there too), the generative decoder's serve path
-(``generator_ckpt``: ``generate_stream`` and ``prewarm_generator``, on the
-engine's device, ``models/decoder.py``), and the engine's Prometheus
-series (``engine/metrics.py``, ``Engine.metrics``). Not ported yet: mesh
-sharding and the reader's ``textnorm`` pinning.
+encoder runs there too) or sharded over a mesh (``mesh_shards``: the
+tail's rows and the body's lists split over the first ``mesh_shards``
+cards, or over ``[cpu] * mesh_shards`` with ``device="cpu"``;
+``parallel/``), the generative decoder's serve path (``generator_ckpt``:
+``generate_stream`` and ``prewarm_generator``, on the engine's device,
+``models/decoder.py``), and the engine's Prometheus series
+(``engine/metrics.py``, ``Engine.metrics``). The reader's ``textnorm``
+pinning is left out on purpose: the port's engine is reached only over
+RPC, from another process.
 
 Thread model: the RPC server calls in from many threads; each store
 serializes mutation under its own lock, searches read the latest
@@ -37,6 +41,7 @@ from rag_foundation_tpu_torch.engine.chunker import chunk_text
 from rag_foundation_tpu_torch.engine.index import StoreIndex
 from rag_foundation_tpu_torch.engine.metrics import EngineMetrics
 from rag_foundation_tpu_torch.models.hash_encoder import HashingEncoder
+from rag_foundation_tpu_torch.parallel.mesh import Mesh, make_mesh
 from rag_foundation_tpu_torch.utils.device import resolve_device
 
 
@@ -73,7 +78,7 @@ class EngineConfig:
     ivf_p: int = 4                  # per-sub-block top-p capture
     approx_routing: bool = False    # accepted; the port routes exactly
     batch_window_s: float = 0.0     # >0: micro-batch concurrent searches
-    mesh_shards: int = 1            # not ported (raises when > 1)
+    mesh_shards: int = 1            # corpus shards over the mesh
     data_dir: str | None = None     # checkpoint root; None = memory-only
     generator_ckpt: str | None = None  # decoder npz (the JAX format)
     gen_block: int = 16            # greedy tokens per decode block
@@ -94,8 +99,6 @@ class EngineConfig:
                 f"{self.dim} for ivf_pq mode")
         if self.pq_refine not in ("device", "host", "none"):
             raise ValueError(f"invalid pq_refine {self.pq_refine!r}")
-        if self.mesh_shards > 1:
-            raise ValueError("mesh sharding not ported yet")
         if self.gen_block < 1:
             raise ValueError(f"gen_block must be >= 1, got {self.gen_block}")
 
@@ -172,11 +175,22 @@ def _make_encoder(cfg: EngineConfig, device: torch.device):
 
 
 class Engine:
-    """In-process index-and-query engine on one device."""
+    """In-process index-and-query engine on one device or a mesh.
 
-    def __init__(self, config: EngineConfig | None = None):
+    ``mesh`` (beside ``config``, as ``device`` extends the JAX
+    signatures) sets the mesh the stores shard over, for instance one
+    that repeats a card; by default ``config.mesh_shards > 1`` makes one
+    (``_mesh``)."""
+
+    def __init__(self, config: EngineConfig | None = None, *,
+                 mesh: Mesh | None = None):
         self.config = config or EngineConfig()
         self.device = resolve_device(self.config.device)
+        if mesh is not None and self.config.mesh_shards > 1 \
+                and mesh.shape["shard"] != self.config.mesh_shards:
+            raise ValueError(f"mesh of {mesh.shape['shard']} shards for "
+                             f"mesh_shards={self.config.mesh_shards}")
+        self.mesh = mesh if mesh is not None else self._mesh()
         self.encoder = _make_encoder(self.config, self.device)
         enc_cfg = getattr(getattr(self.encoder, "mini", self.encoder),
                           "cfg", None)
@@ -245,6 +259,17 @@ class Engine:
             finally:
                 fcntl.flock(f, fcntl.LOCK_UN)
 
+    def _mesh(self) -> Mesh | None:
+        """The default mesh: none for one shard; ``[cpu] * mesh_shards``
+        on the CPU; else the first ``mesh_shards`` visible cards, which
+        raises when there are fewer (JAX's ``make_mesh``)."""
+        n = self.config.mesh_shards
+        if n <= 1:
+            return None
+        if self.device.type == "cpu":
+            return make_mesh(n, devices=[self.device] * n)
+        return make_mesh(n)
+
     def encoder_fingerprint(self) -> str:
         """Identity of the embedding space (encoder name, dim,
         checkpoint, hybrid weight), persisted per store and checked on
@@ -265,7 +290,8 @@ class Engine:
                     pq_packed=cfg.pq_packed, pq_refine=cfg.pq_refine,
                     pq_cap_slack=cfg.pq_cap_slack, ivf_p=cfg.ivf_p,
                     approx_routing=cfg.approx_routing,
-                    archive_dir=archive_dir, device=self.device)
+                    archive_dir=archive_dir, mesh=self.mesh,
+                    device=self.device)
 
     def _new_index(self, key: str) -> StoreIndex:
         # an ivf_pq store keeps its host archive under its own directory

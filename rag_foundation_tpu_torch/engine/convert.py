@@ -17,6 +17,8 @@ from rag_foundation_tpu_torch.engine.archive import HostArchive
 from rag_foundation_tpu_torch.engine.ivf import IVFFlatIndex
 from rag_foundation_tpu_torch.engine.ivfpq import IVFPQIndex
 from rag_foundation_tpu_torch.engine.segments import VectorSegment
+from rag_foundation_tpu_torch.parallel.sharded_ivf import (ShardedBody,
+                                                          gather_body)
 
 
 def body_from_state(state: dict[str, np.ndarray],
@@ -60,8 +62,13 @@ def body_from_state(state: dict[str, np.ndarray],
     raise ValueError(f"unknown body kind {kind!r}")
 
 
-def body_to_state(body: IVFFlatIndex | IVFPQIndex) -> dict[str, np.ndarray]:
-    """The ``f_*`` fields of ``body_state()`` for a port body."""
+def body_to_state(body: IVFFlatIndex | IVFPQIndex | ShardedBody
+                  ) -> dict[str, np.ndarray]:
+    """The ``f_*`` fields of ``body_state()`` for a port body. A sharded
+    body saves what the unsharded one would (JAX's ``np.asarray`` of a
+    sharded array gathers it likewise)."""
+    if isinstance(body, ShardedBody):
+        body = gather_body(body)
     out = {}
     for name, val in body._asdict().items():
         if isinstance(val, torch.Tensor):

@@ -1,7 +1,9 @@
 """Per-store index: streaming exact tail + bulk IVF body.
 
 Counterpart of ``rag_foundation_tpu/engine/index.py`` for the modes
-``exact``, ``ivf_flat``, ``ivf_flat_int8`` and ``ivf_pq`` on one device.
+``exact``, ``ivf_flat``, ``ivf_flat_int8`` and ``ivf_pq``, on one device
+or over a mesh (``parallel/``: the tail's rows and the body's posting
+lists split over the mesh's shards, per-shard scans, a top-k merge).
 Fresh inserts land in the exact ``VectorSegment`` tail; once the tail
 outgrows ``build_threshold``, vectors are compacted into an IVF body
 (k-means + uniform-capacity posting lists; for ``ivf_pq`` residual PQ
@@ -39,6 +41,13 @@ from rag_foundation_tpu_torch.engine.segments import VectorSegment
 from rag_foundation_tpu_torch.ops.quantize import (quantize_int8,
                                                    quantize_with_scale)
 from rag_foundation_tpu_torch.ops.topk import exact_topk
+from rag_foundation_tpu_torch.parallel.mesh import Mesh, on_device
+from rag_foundation_tpu_torch.parallel.sharded_index import \
+    ShardedVectorStore
+from rag_foundation_tpu_torch.parallel.sharded_ivf import (
+    ShardedBody, body_parts, gather_slots, shard_ivf_index,
+    shard_ivfpq_index, sharded_ivf_append, sharded_ivf_search,
+    sharded_ivfpq_search)
 from rag_foundation_tpu_torch.utils.device import resolve_device
 from rag_foundation_tpu_torch.utils.shapes import bucket_pow2
 
@@ -66,6 +75,10 @@ def _exact_int8_topk(qq, table8, live, k, block_size: int = 8192):
     return exact_topk(qq, table8, k, live_mask=live, block_size=block_size)
 
 
+def _is_pq(body) -> bool:
+    return isinstance(body_parts(body)[0], IVFPQIndex)
+
+
 class StoreIndex:
     """Mode-aware store index:
     'exact' | 'ivf_flat' | 'ivf_flat_int8' | 'ivf_pq'."""
@@ -79,14 +92,12 @@ class StoreIndex:
                  pq_cap_slack: float = 1.5,
                  ivf_p: int = 4, approx_routing: bool = False,
                  archive_dir: str | None = None,
-                 seed: int = 0, mesh=None,
+                 seed: int = 0, mesh: Mesh | None = None,
                  device: str | torch.device = "cuda"):
         if mode not in ("exact", "ivf_flat", "ivf_flat_int8", "ivf_pq"):
             raise ValueError(f"unknown index mode {mode!r}")
         if mode == "ivf_pq" and dim % pq_m:
             raise ValueError(f"dim {dim} not divisible by pq_m {pq_m}")
-        if mesh is not None:
-            raise ValueError("mesh sharding not ported yet")
         self.pq_m = pq_m
         self.pq_nbits = pq_nbits
         self.pq_packed = pq_packed
@@ -98,6 +109,11 @@ class StoreIndex:
             pq_refine = "device" if pq_refine else "none"
         if pq_refine not in ("device", "host", "none"):
             raise ValueError(f"unknown pq_refine {pq_refine!r}")
+        if mode == "ivf_pq" and mesh is not None and pq_refine == "device":
+            # the row-indexed refine table does not partition by lists;
+            # sharded PQ re-ranks against the host archive instead
+            raise ValueError("mesh ivf_pq requires pq_refine='host' "
+                             "or 'none'")
         self.pq_refine = pq_refine
         # host re-rank fan-out (ADC top-C candidates re-ranked); None =
         # the 4*fetch heuristic. C is the host tier's main cost knob
@@ -118,7 +134,9 @@ class StoreIndex:
         self.approx_routing = approx_routing
         self.build_threshold = build_threshold
         self.seed = seed
-        self.mesh = None
+        # a mesh splits the tail's rows and the body's lists over its
+        # shards (parallel/); the device above stays the lead for builds
+        self.mesh = mesh
         # serializes body mutation (in-place appends, swaps) vs body reads
         self._body_lock = threading.RLock()
         self.tail = self._new_tail()
@@ -129,8 +147,20 @@ class StoreIndex:
         # restore/delete): lets savers skip rewriting an unchanged body
         self.body_version = 0
 
-    def _new_tail(self) -> VectorSegment:
+    def _new_tail(self) -> VectorSegment | ShardedVectorStore:
+        if self.mesh is not None:
+            return ShardedVectorStore(self.dim, self.mesh)
         return VectorSegment(self.dim, device=self.device)
+
+    def _shard_body(self, body):
+        """``body`` with its lists split over the mesh (as it is without
+        one). Raises when they do not split: builds size nlist for the
+        shards and a mesh store keeps no device refine table."""
+        if self.mesh is None:
+            return body
+        if isinstance(body, IVFPQIndex):
+            return shard_ivfpq_index(body, self.mesh)
+        return shard_ivf_index(body, self.mesh)
 
     def _generator(self) -> torch.Generator:
         return torch.Generator(device=self.device).manual_seed(self.seed)
@@ -156,6 +186,10 @@ class StoreIndex:
         """Streaming insert: append the tail into the existing IVF body
         (no retrain/relayout); capacity overflow triggers a full rebuild
         (which retrains the coarse quantizer and resizes lists)."""
+        if self.mesh is not None and self.mode == "ivf_pq":
+            # sharded PQ bodies compact through the streaming rebuild
+            self.rebuild()
+            return
         st = self.tail.state()
         if not len(st["ids"]):
             return
@@ -171,6 +205,9 @@ class StoreIndex:
                     self._pq_archive.append(
                         np.asarray(st["vectors"], np.float32))
                 new_body, dropped = ivfpq_append(self.body, vecs, new_rows)
+            elif isinstance(self.body, ShardedBody):
+                new_body, dropped = sharded_ivf_append(
+                    self.body, vecs, new_rows, mesh=self.mesh)
             else:
                 new_body, dropped = ivf_append(self.body, vecs, new_rows)
             # only rows that landed extend the id table; dropped rows
@@ -237,6 +274,7 @@ class StoreIndex:
             torch.as_tensor(vecs, device=self.device), nlist,
             generator=self._generator(),
             int8=self.mode.endswith("int8"), capacity_slack=1.5)
+        new_body = self._shard_body(new_body)
         # publish body+ids together, THEN swap the tail; a racing search
         # may briefly see rows in both (deduped at merge), never neither
         with self._body_lock:
@@ -250,7 +288,9 @@ class StoreIndex:
         """Swap in an externally built body (``build_ivf_flat_device``).
         ``chunk_ids[i]`` is the chunk id of the build's global row i.
         Replaces the current body AND tail — callers pass a build that
-        already includes every live row."""
+        already includes every live row. On a mesh the body is split
+        over the shards (as views where they share its device)."""
+        body = self._shard_body(body)
         with self._body_lock:
             self.body_chunk_ids = np.asarray(chunk_ids, np.int64)
             self.body = body
@@ -264,7 +304,12 @@ class StoreIndex:
 
     def _sized_nlist(self, n: int) -> int:
         floor = -(-n // self.MAX_MEAN_LIST_ROWS)
-        return max(8, floor, min(self.nlist, n // 64 or 8))
+        nlist = max(8, floor, min(self.nlist, n // 64 or 8))
+        if self.mesh is not None:
+            # lists split over the shards: keep nlist divisible by them
+            shards = self.mesh.shape["shard"]
+            nlist = max(shards, -(-nlist // shards) * shards)
+        return nlist
 
     def _archive_path(self) -> str | None:
         if not self.archive_dir:
@@ -334,6 +379,7 @@ class StoreIndex:
             nbits=self.pq_nbits, packed=self.pq_packed,
             cap_slack=self.pq_cap_slack, source_scale=arch.scale,
             refine=refine, source_rows=arch.rows_i8, progress=progress)
+        new_body = self._shard_body(new_body)
         over_rows = np.nonzero(overflow)[0]
         over_vecs = arch.rows_f32(over_rows) if len(over_rows) else None
         over_ids = cids[over_rows] if len(over_rows) else None
@@ -372,15 +418,17 @@ class StoreIndex:
         # from the codes (coarse centroid + decoded residual) — lossy,
         # but the only material left after a restart, and only rebuilds
         # (re-train + re-encode) consume it
-        nlist, cap_len = idx.row_ids.shape
-        codes = _unpack(idx.codes.reshape(nlist * cap_len, -1), idx.packed)
-        flat = (pq_decode(idx.codebook, codes)
-                + idx.centroids.repeat_interleave(cap_len, dim=0)
-                ).cpu().numpy()
-        ids = idx.row_ids.reshape(-1).cpu().numpy()
-        live = ids >= 0
         out = np.zeros((len(self.body_chunk_ids), self.dim), np.float32)
-        out[ids[live]] = flat[live]
+        for part in body_parts(idx):
+            nlist, cap_len = part.row_ids.shape
+            codes = _unpack(part.codes.reshape(nlist * cap_len, -1),
+                            part.packed)
+            flat = (pq_decode(part.codebook, codes)
+                    + part.centroids.repeat_interleave(cap_len, dim=0)
+                    ).cpu().numpy()
+            ids = part.row_ids.reshape(-1).cpu().numpy()
+            live = ids >= 0
+            out[ids[live]] = flat[live]
         return out
 
     def _body_vectors(self) -> np.ndarray:
@@ -388,14 +436,14 @@ class StoreIndex:
         table slot is a -1 sentinel (dropped appends) stay zero."""
         if self.mode == "ivf_pq":
             return self._pq_body_vectors()
-        idx = self.body
-        flat = idx.lists.reshape(-1, self.dim).float().cpu().numpy()
-        if idx.lists.dtype == torch.int8:
-            flat = flat * np.float32(idx.scale)
-        ids = idx.row_ids.reshape(-1).cpu().numpy()
-        live = ids >= 0
         out = np.zeros((len(self.body_chunk_ids), self.dim), np.float32)
-        out[ids[live]] = flat[live]
+        for part in body_parts(self.body):
+            flat = part.lists.reshape(-1, self.dim).float().cpu().numpy()
+            if part.lists.dtype == torch.int8:
+                flat = flat * np.float32(part.scale)
+            ids = part.row_ids.reshape(-1).cpu().numpy()
+            live = ids >= 0
+            out[ids[live]] = flat[live]
         return out
 
     # -- search -----------------------------------------------------------
@@ -464,9 +512,10 @@ class StoreIndex:
             # flat-int8 transport: big batches cross to the device as
             # int8 quantized with the body's own scale (the list scan
             # reads those bytes verbatim — bit-identical scores to an f32
-            # upload; only the coarse routing sees dequantized values)
+            # upload; only the coarse routing sees dequantized values).
+            # A mesh store takes f32, as the JAX engine's does
             q_int8 = (self.mode == "ivf_flat_int8" and q_n >= 256
-                      and queries.dtype == np.float32)
+                      and self.mesh is None and queries.dtype == np.float32)
             with search_profile.stage("q_upload"):
                 if q_int8:
                     qj = torch.as_tensor(np.clip(
@@ -474,7 +523,15 @@ class StoreIndex:
                         127).astype(np.int8), device=self.device)
                 else:
                     qj = torch.as_tensor(queries, device=self.device)
-            if q_n * nprobe * 8 <= body.nlist:
+            if isinstance(body, ShardedBody):
+                # every batch, a single query included: per-shard routing
+                # over each shard's lists (no small-batch path)
+                shards = self.mesh.shape["shard"]
+                b_vals, b_rows = sharded_ivf_search(
+                    body, qj, fetch, mesh=self.mesh,
+                    nprobe_local=-(-nprobe // shards),
+                    p=min(self.ivf_p, fetch))
+            elif q_n * nprobe * 8 <= body.nlist:
                 # small batch: gather only the probed lists
                 b_vals, b_rows = ivf_search_small(body, qj, fetch,
                                                   nprobe=nprobe)
@@ -496,13 +553,22 @@ class StoreIndex:
                      tail: VectorSegment):
         """The ``ivf_pq`` body dispatch. There is no small-batch path:
         every batch, a single query included, goes through
-        ``ivfpq_search`` and its list-scan kernel. (The JAX engine's bf16
-        query transport is reached only by mesh stores, which are not
-        ported.)"""
+        ``ivfpq_search`` (or, for a sharded body, ``sharded_ivfpq_search``)
+        and its list-scan kernel."""
         q_n = queries.shape[0]
+        host_refine = self.pq_refine == "host" \
+            and self._pq_archive is not None
         q_scale = None
         with search_profile.stage("q_upload"):
-            if queries.dtype == np.float32:
+            if self.mesh is not None:
+                # the JAX engine's mesh transport: with the host re-rank
+                # the device only proposes candidates and the host f32
+                # rescore ranks them, so queries cross as bf16 (the tail
+                # scan shares them); else f32
+                qj = torch.as_tensor(queries, device=self.device)
+                if host_refine and queries.dtype == np.float32:
+                    qj = qj.to(torch.bfloat16)
+            elif queries.dtype == np.float32:
                 # queries cross to the device as int8 + one scale, a
                 # quarter of the f32 bytes. The batch-absmax scale is
                 # computed here on the host in numpy, as the JAX engine
@@ -525,7 +591,16 @@ class StoreIndex:
             # and a dense cluster of near-duplicates in one list needs
             # more than 4 rows a sub-block
             p_cap = max(4, self.ivf_p)
-            if self.pq_refine == "host" and self._pq_archive is not None:
+            if isinstance(body, ShardedBody):
+                shards = self.mesh.shape["shard"]
+                c = (self.pq_refine_c or min(max(4 * fetch, 32), 256)) \
+                    if host_refine else fetch
+                b_vals, b_rows = sharded_ivfpq_search(
+                    body, qj, c, mesh=self.mesh,
+                    nprobe_local=-(-nprobe // shards), p=min(p_cap, c))
+                if c != fetch:
+                    rescore_arch = self._pq_archive
+            elif host_refine:
                 # tier past the card's memory: the device ADC proposes
                 # top-C, the host int8 archive re-ranks exactly (in
                 # _finalize_padded)
@@ -644,7 +719,7 @@ class StoreIndex:
                                       np.float32)[take])
             parts_i.append(np.asarray(tail_st["ids"], np.int64)[take])
         if body is not None and want_body:
-            nlist, cap_len = body.row_ids.shape
+            nlist, cap_len = body.nlist, body.cap_len
             picked: list[tuple[int, int]] = []
             probe_n = bucket_pow2(max(8, want_body * 2))
             for _ in range(6):
@@ -652,17 +727,14 @@ class StoreIndex:
                     break
                 ls = rng.integers(0, nlist, size=probe_n)
                 ss = rng.integers(0, cap_len, size=probe_n)
-                ids = body.row_ids[torch.as_tensor(ls, device=self.device),
-                                   torch.as_tensor(ss, device=self.device)
-                                   ].cpu().numpy()
+                ids = gather_slots(body, "row_ids", ls, ss,
+                                   self.device).cpu().numpy()
                 for li, si, rid in zip(ls, ss, ids):
                     if rid >= 0 and len(picked) < want_body:
                         picked.append((int(li), int(si)))
             if picked:
-                ls = torch.as_tensor([p[0] for p in picked],
-                                     device=self.device)
-                ss = torch.as_tensor([p[1] for p in picked],
-                                     device=self.device)
+                ls = np.array([p[0] for p in picked], np.int64)
+                ss = np.array([p[1] for p in picked], np.int64)
                 vecs, rows = self._fetch_body_rows(body, ls, ss)
                 live = rows >= 0
                 parts_v.append(vecs[live])
@@ -672,11 +744,14 @@ class StoreIndex:
                 np.concatenate(parts_i) if parts_i
                 else np.zeros((0,), np.int64))
 
-    def _fetch_body_rows(self, body, ls: torch.Tensor, ss: torch.Tensor
+    def _fetch_body_rows(self, body, ls: np.ndarray, ss: np.ndarray
                          ) -> tuple[np.ndarray, np.ndarray]:
         """Sampled body rows (list, slot) as f32 + their global row ids."""
-        rows = body.row_ids[ls, ss].cpu().numpy()
-        if isinstance(body, IVFPQIndex):
+        def at(field, slots=ss):
+            return gather_slots(body, field, ls, slots, self.device)
+
+        rows = at("row_ids").cpu().numpy()
+        if _is_pq(body):
             if self._pq_archive is not None:
                 return (self._pq_archive.rows_f32(np.clip(rows, 0, None)),
                         rows)
@@ -687,11 +762,11 @@ class StoreIndex:
                 return (v8.astype(np.float32)
                         * np.float32(body.refine_scale), rows)
             # no refine: reconstruct only the sampled rows from codes
-            dec = pq_decode(body.codebook,
-                            _unpack(body.codes[ls, ss], body.packed))
-            return (dec + body.centroids[ls]).cpu().numpy(), rows
-        vecs = body.lists[ls, ss].float().cpu().numpy()
-        if body.lists.dtype == torch.int8:
+            dec = pq_decode(body.codebook, _unpack(at("codes"), body.packed))
+            return (dec + at("centroids", None)).cpu().numpy(), rows
+        lists = at("lists")
+        vecs = lists.float().cpu().numpy()
+        if lists.dtype == torch.int8:
             vecs = vecs * np.float32(body.scale)
         return vecs, rows
 
@@ -763,31 +838,41 @@ class StoreIndex:
             return t_ids[:, :k] if t_ids.shape[1] >= k else np.pad(
                 t_ids, ((0, 0), (0, k - t_ids.shape[1])),
                 constant_values=-1)
-        if isinstance(body, IVFPQIndex):
+        if _is_pq(body):
             vals, rows = self._exact_pq(body, table, q32, k)
             return self._merge_exact(vals, rows, table, t_vals, t_ids, k)
-        flat = body.lists.reshape(-1, self.dim)
-        flat_rows = body.row_ids.reshape(-1).cpu().numpy()
-        live_np = flat_rows >= 0
-        if self._dead:  # exclude tombstones IN the scan
-            safe_rows = np.clip(flat_rows, 0, len(table) - 1)
-            live_np &= ~np.isin(table[safe_rows], self._dead_array())
-        mask = torch.as_tensor(live_np, device=self.device)
-        qt = torch.as_tensor(q32, device=self.device)
-        if body.lists.dtype == torch.int8:
-            qq = quantize_with_scale(qt, body.scale)
-            vals, pos = _exact_int8_topk(qq, flat, mask, k,
-                                         block_size=_AUDIT_BLOCK)
-            vals = vals.cpu().numpy() * np.float32(
-                np.float32(body.scale) * np.float32(body.scale))
-        else:
-            vals, pos = exact_topk(qt, flat, k, live_mask=mask,
-                                   block_size=_AUDIT_BLOCK)
-            vals = vals.cpu().numpy()
-        pos = pos.cpu().numpy()
-        rows = flat_rows[np.clip(pos, 0, None)]
-        rows = np.where(pos >= 0, rows, -1)
-        return self._merge_exact(vals, rows, table, t_vals, t_ids, k)
+        # a sharded body: each shard's exact top-k over its lists, then
+        # one merge with the tail (shard-major, so ties keep the order of
+        # the unsharded scan)
+        parts_v, parts_r = [], []
+        for part in body_parts(body):
+            dev = part.lists.device
+            flat = part.lists.reshape(-1, self.dim)
+            flat_rows = part.row_ids.reshape(-1).cpu().numpy()
+            live_np = flat_rows >= 0
+            if self._dead:  # exclude tombstones IN the scan
+                safe_rows = np.clip(flat_rows, 0, len(table) - 1)
+                live_np &= ~np.isin(table[safe_rows], self._dead_array())
+            mask = torch.as_tensor(live_np, device=dev)
+            qt = torch.as_tensor(q32, device=dev)
+            with on_device(dev):
+                if part.lists.dtype == torch.int8:
+                    qq = quantize_with_scale(qt, part.scale)
+                    vals, pos = _exact_int8_topk(qq, flat, mask, k,
+                                                 block_size=_AUDIT_BLOCK)
+                    vals = vals.cpu().numpy() * np.float32(
+                        np.float32(part.scale) * np.float32(part.scale))
+                else:
+                    vals, pos = exact_topk(qt, flat, k, live_mask=mask,
+                                           block_size=_AUDIT_BLOCK)
+                    vals = vals.cpu().numpy()
+            pos = pos.cpu().numpy()
+            rows = flat_rows[np.clip(pos, 0, None)]
+            parts_v.append(vals)
+            parts_r.append(np.where(pos >= 0, rows, -1))
+        return self._merge_exact(np.concatenate(parts_v, axis=1),
+                                 np.concatenate(parts_r, axis=1), table,
+                                 t_vals, t_ids, k)
 
     @staticmethod
     def _merge_exact(vals, rows, table, t_vals, t_ids, k) -> np.ndarray:
@@ -822,7 +907,7 @@ class StoreIndex:
             return None
         with self._body_lock:
             out = {
-                "kind": type(self.body).__name__,
+                "kind": type(body_parts(self.body)[0]).__name__,
                 "body_chunk_ids": np.asarray(self.body_chunk_ids),
                 "dead": self._dead_array(),
             }
@@ -836,6 +921,13 @@ class StoreIndex:
     def restore_body(self, state: dict) -> None:
         """Install a checkpointed body (tail untouched)."""
         body = body_from_state(state, self.device)
+        # as the JAX engine does, a saved body that does not split over
+        # this mesh (its nlist, a device refine table) is served whole by
+        # the one-device paths until the next rebuild
+        if self.mesh is not None \
+                and body.nlist % self.mesh.shape["shard"] == 0 \
+                and not (_is_pq(body) and body.refine.shape[0] > 0):
+            body = self._shard_body(body)
         archive = archive_from_state(state, path=self._archive_path())
         with self._body_lock:
             self.body = body

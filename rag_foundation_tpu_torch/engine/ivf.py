@@ -603,17 +603,30 @@ def ivf_search(
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """IVF top-k. Returns (values [Q,k] f32, row_ids [Q,k] int32 global
     vector ids, dropped_probes [] int32)."""
-    q_n = queries.shape[0]
-    nlist = index.nlist
-    nprobe = min(nprobe, nlist)
+    nprobe = min(nprobe, index.nlist)
     probe_lists, dispatch, slot, dropped, qdisp, scan_scale = scan_inputs(
         index, queries, nprobe, qcap, approx_select)
-    qcap = dispatch.shape[1]
     vals, flat_idx = ivf_list_scan(qdisp, index.lists, index.row_ids,
                                    dispatch, p=p, scale=scan_scale)
+    top_vals, row_ids = select_rows(index, vals, flat_idx, probe_lists, slot,
+                                    k)
+    top_vals, row_ids = _pad_k(top_vals, row_ids, k)
+    return top_vals, row_ids, dropped
 
-    # regather per query: [Q, nprobe, w] (w = sub-blocks-per-list * p)
-    w = vals.shape[-1]
+
+def select_rows(
+    index: IVFFlatIndex,
+    vals: torch.Tensor,         # [nlist, qcap, w] list-scan values
+    flat_idx: torch.Tensor,     # [nlist, qcap, w] flat corpus positions
+    probe_lists: torch.Tensor,  # [Q, nprobe]
+    slot: torch.Tensor,         # [Q, nprobe] (-1 dropped)
+    k: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Regather the list scan's candidates per query and keep the top
+    ``k_eff = min(k, nprobe * w)``: (values [Q, k_eff] f32, row ids
+    [Q, k_eff] int32 from ``index.row_ids``; -1 at -inf), not padded."""
+    q_n, nprobe = probe_lists.shape
+    qcap, w = vals.shape[1], vals.shape[2]
     safe_slot = torch.clamp(slot, 0, qcap - 1)
     cand_vals = vals[probe_lists, safe_slot]
     cand_idx = flat_idx[probe_lists, safe_slot]
@@ -627,11 +640,11 @@ def ivf_search(
     top_vals, pos = stable_topk(cand_vals, k_eff)
     top_flat = torch.gather(cand_idx, 1, pos)
     # flat corpus position -> original row id
-    safe_flat = torch.clamp(top_flat, 0, nlist * index.cap_len - 1).long()
+    safe_flat = torch.clamp(top_flat, 0, index.nlist * index.cap_len - 1
+                            ).long()
     row_ids = index.row_ids.reshape(-1)[safe_flat]
     row_ids = torch.where((top_flat >= 0) & torch.isfinite(top_vals),
                           row_ids, torch.full_like(row_ids, -1))
     top_vals = torch.where(row_ids >= 0, top_vals,
                            torch.full_like(top_vals, NEG_INF))
-    top_vals, row_ids = _pad_k(top_vals, row_ids, k)
-    return top_vals, row_ids, dropped
+    return top_vals, row_ids

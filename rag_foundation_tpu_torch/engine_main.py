@@ -18,8 +18,12 @@ format), ``RAGTPU_ENGINE_GEN_BLOCK`` and ``RAGTPU_ENGINE_GEN_CONSTRAINED``
 configure the generative decoder: once the socket is open, the process
 loads it and runs one prefill and one decode block
 (``Engine.prewarm_generator``), logs ``generator_prewarmed`` and serves
-the RPC ``generate`` stream. A setting it cannot read makes it exit
-non-zero before it opens the socket.
+the RPC ``generate`` stream. ``RAGTPU_ENGINE_MESH_SHARDS`` > 1 shards
+every store over that many cards (``parallel/``; with
+``RAGTPU_ENGINE_PLATFORM=cpu`` over as many logical CPU shards); more
+shards than visible cards exits with ``need N devices, have M``. A
+setting it cannot read makes it exit non-zero before it opens the
+socket.
 """
 
 from __future__ import annotations
@@ -107,7 +111,10 @@ def main() -> None:  # pragma: no cover — production entrypoint
         cfg, socket_path, allow_pad = config_from_env()
     except ValueError as e:
         raise SystemExit(f"engine_main: {e}") from None
-    engine = Engine(cfg)
+    try:
+        engine = Engine(cfg)
+    except ValueError as e:   # e.g. more mesh shards than visible cards
+        raise SystemExit(f"engine_main: {e}") from None
     stop = threading.Event()
 
     def _stop(signum, frame):
@@ -122,6 +129,8 @@ def main() -> None:  # pragma: no cover — production entrypoint
     log.info(json.dumps({"event": "engine_rpc_started",
                          "socket": socket_path, "device": str(engine.device),
                          "stores": len(engine.list_stores()),
+                         "mesh_shards": (engine.mesh.shape["shard"]
+                                         if engine.mesh else 1),
                          "batch_window_s": cfg.batch_window_s}))
     if cfg.generator_ckpt:
         # load and warm the decoder now, not on the first live chat

@@ -32,7 +32,6 @@ from __future__ import annotations
 
 import ctypes
 
-import numpy as np
 import torch
 
 from rag_foundation_tpu_torch.ops import cuda_lib
@@ -63,8 +62,8 @@ def flatten_luts(lut: torch.Tensor,
         dtype = {"int8": torch.int8, "bf16": torch.bfloat16,
                  "bfloat16": torch.bfloat16}.get(dtype, dtype)
     if packed:
-        perm = np.concatenate([np.arange(0, m, 2), np.arange(1, m, 2)])
-        lut = lut[:, torch.as_tensor(perm, device=lut.device), :]
+        # slices, not an index tensor: no host copy (and no wait) here
+        lut = torch.cat([lut[:, 0::2], lut[:, 1::2]], dim=1)
     flat = lut.transpose(1, 2).reshape(q, k * m)
     if dtype == torch.int8:
         scale = torch.clamp(flat.abs().amax(dim=1), min=1e-12) / 127.0

@@ -820,3 +820,107 @@ def test_decoder_on_card_matches_the_cpu_path(card, dtype, tol):
     gen.prewarm()
     text = "".join(gen.stream("how fast?", ["it is fast"]))
     assert text == "".join(gen.stream("how fast?", ["it is fast"]))
+
+
+@pytest.mark.cuda
+def test_sharded_paths_on_card_match_the_cpu(card):
+    """Four logical shards on one card (``[card] * 4``) against the same
+    mesh on the CPU: int8 IVF-Flat scores are exact int8 dots, so ids and
+    values are bit-identical; the int8-LUT ADC sums are exact too, but
+    its values add the coarse score, an f32 matmul that cuBLAS sums in
+    another order: ids equal, values within 1e-5. Each search launches
+    its kernel once a shard, and no call in it waits for the card;
+    integer-valued rows give a bit-identical sharded top-k."""
+    from rag_foundation_tpu_torch.engine import ivf as tivf
+    from rag_foundation_tpu_torch.engine import ivfpq as tpq
+    from rag_foundation_tpu_torch.engine.convert import (body_from_state,
+                                                         body_to_state)
+    from rag_foundation_tpu_torch.parallel import make_mesh, sharded_topk
+    from rag_foundation_tpu_torch.parallel import sharded_ivf as sivf
+    from rag_foundation_tpu_torch.parallel.mesh import shard_rows
+    rng = np.random.default_rng(0)
+    x = rng.standard_normal((6000, 128)).astype(np.float32)
+    x /= np.linalg.norm(x, axis=1, keepdims=True)
+    q = torch.as_tensor(x[:64] + 0.01)
+    g = torch.Generator().manual_seed(0)
+    flat = tivf.build_ivf_flat(torch.as_tensor(x), 32, generator=g,
+                               int8=True)
+    pq = tpq.build_ivf_pq(torch.as_tensor(x), 32, 16, generator=g,
+                          refine=False)
+    cpu4 = make_mesh(4, devices=["cpu"] * 4)
+    card4 = make_mesh(4, devices=[card] * 4)
+    for body, shard, search, counter in (
+            (flat, sivf.shard_ivf_index, sivf.sharded_ivf_search,
+             ivf_scan.LAUNCHES),
+            (pq, sivf.shard_ivfpq_index, sivf.sharded_ivfpq_search,
+             pq_scan.LAUNCHES)):
+        kind = "IVFPQIndex" if body is pq else "IVFFlatIndex"
+        on_card = body_from_state({"kind": kind, **body_to_state(body)},
+                                  card)
+        want = search(shard(body, cpu4), q, 10, mesh=cpu4, nprobe_local=4,
+                      p=4)
+        sbody, q_card = shard(on_card, card4), q.to(card)
+        search(sbody, q_card, 10, mesh=card4, nprobe_local=4, p=4)  # builds
+        n0 = counter.count
+        # the per-shard loop never waits for the card (shards on several
+        # cards would otherwise run in turn)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            got = search(sbody, q_card, 10, mesh=card4, nprobe_local=4, p=4)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        assert counter.count == n0 + 4
+        assert torch.equal(got[1].cpu(), want[1])
+        if body is pq:
+            torch.testing.assert_close(got[0].cpu(), want[0], rtol=1e-5,
+                                       atol=1e-6)
+        else:
+            assert torch.equal(got[0].cpu(), want[0])
+    xi = torch.as_tensor(rng.integers(-3, 4, (4096, 32)).astype(np.float32))
+    want = sharded_topk(xi[:8], shard_rows(cpu4, xi), 10, mesh=cpu4)
+    got = sharded_topk(xi[:8].to(card), shard_rows(card4, xi.to(card)), 10,
+                       mesh=card4)
+    assert torch.equal(got[0].cpu(), want[0])
+    assert torch.equal(got[1].cpu(), want[1])
+
+
+@pytest.mark.cuda
+def test_mesh_pq_store_on_card_matches_the_cpu(card):
+    """A mesh ``ivf_pq`` store with the host re-rank (``StoreIndex`` as the
+    engine serves it: bf16 query transport, the ADC top-C over four
+    logical shards of the card, the host archive's rescore) against the
+    same saved body on a CPU mesh. The coarse matmul sums in another order
+    on the card, so one ulp can move a candidate at the ADC cut: the same
+    top hit, the same row on 0.95 of the positions, and f32 rescored
+    values within 1e-5 where the rows agree. Four launches a search."""
+    from rag_foundation_tpu_torch.engine.index import StoreIndex
+    from rag_foundation_tpu_torch.parallel import make_mesh
+    from rag_foundation_tpu_torch.parallel.sharded_ivf import ShardedBody
+    rng = np.random.default_rng(9)
+    c = rng.standard_normal((32, 64)).astype(np.float32)
+    c /= np.linalg.norm(c, axis=1, keepdims=True)
+    x = c[rng.integers(0, 32, 4096)] + 0.25 * rng.standard_normal(
+        (4096, 64)).astype(np.float32)
+    x /= np.linalg.norm(x, axis=1, keepdims=True)
+    kw = dict(mode="ivf_pq", nlist=32, nprobe=32, build_threshold=4000,
+              pq_m=16, pq_packed=True, pq_refine="host")
+    cpu = StoreIndex(64, mesh=make_mesh(4, devices=["cpu"] * 4),
+                     device="cpu", **kw)
+    cpu.add(x, np.arange(4096))
+    on_card = StoreIndex(64, mesh=make_mesh(4, devices=[card] * 4),
+                         device=card, **kw)
+    on_card.restore_body(cpu.body_state())
+    assert isinstance(on_card.body, ShardedBody)
+    assert on_card.body.shards[0].codes.device.type == "cuda"
+    q = x[100:132]
+    want_v, want_i = cpu.search(q, 5)
+    on_card.search(q, 5)                                  # builds
+    n0 = pq_scan.LAUNCHES.count
+    got_v, got_i = on_card.search(q, 5)
+    assert pq_scan.LAUNCHES.count == n0 + 4
+    np.testing.assert_array_equal(got_i[:, 0], want_i[:, 0])
+    assert list(got_i[:4, 0]) == [100, 101, 102, 103]
+    same = got_i == want_i
+    assert same.mean() >= 0.95, same.mean()
+    np.testing.assert_allclose(got_v[same], want_v[same], rtol=1e-5,
+                               atol=1e-6)

@@ -64,3 +64,10 @@ def test_importing_the_port_loads_neither():
                          env=env, capture_output=True, text=True,
                          timeout=120)
     assert out.returncode == 0, out.stdout + out.stderr
+
+
+def test_the_parallel_package_is_covered():
+    # the sharded engine (mesh, top-k merge, sharded store and IVF) is
+    # checked like every other module of the port
+    names = {p.stem for p in SOURCES if p.parent.name == "parallel"}
+    assert {"mesh", "topk_merge", "sharded_index", "sharded_ivf"} <= names
