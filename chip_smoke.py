@@ -167,7 +167,10 @@ Phases (each one fails the run: non-zero exit, no result line):
     its refine table as four views and its host archive. Behind
     ``EngineRpcServer`` it serves the fact questions and a Q=1024 batch
     through ``RemoteEngine`` (bf16 query transport, the ADC top-C over
-    the shards, the host archive's re-rank): recall@10 of the fact
+    the shards, the host archive's re-rank on the native shim; the
+    in-process Q=1024 search also timed with the numpy re-rank, and the
+    re-rank of one such search's own candidates A/B'd native against
+    numpy, ten pairs, scores within ``F32_TOL``): recall@10 of the fact
     questions against phase 6's exact scan as ``Engine.search`` asks the
     index (a chunk tying the 10th score counts; >= 0.95), and
     ``pq_list_scan``'s launch counter (zeroed just before, read just
@@ -175,12 +178,33 @@ Phases (each one fails the run: non-zero exit, no result line):
     top-10 overlap of ``sharded_ivfpq_search`` with the one-device
     ``ivfpq_search`` at nprobe 32 (>= 0.9 on the fact questions), and one
     shard's kernel against its plain version with its time and bound.
+19. The JAX app's engine calls, run after phase 5 on phase 3's store
+    (its 10M int8 body adopted by an ``Engine`` restarted on phase 3's
+    ``data_dir``, phase 3's settings) behind ``EngineRpcServer``, driven
+    only through ``RemoteEngine`` in the order ``EngineRag`` makes them:
+    ``create_store`` of an app-shaped key (``stores/{user}-{slug}-{hex8}``),
+    ``ingest_document`` of ``APP_TENANT_DOCS`` new fact documents and
+    ``store_stats``; searches over [the 10M store, the tenant's store] at
+    the app's k=12 and k=128, one at a time (right document first, in
+    the right store, >= 0.95) and from 64 concurrent clients (QPS, p50,
+    p99, right document first and the probes each batch's qcap drops;
+    ``ivf_list_scan``'s launch counter, zeroed just before and read just
+    after, must move); a ``doc_filter`` and a ``meta_filter`` search;
+    ``has_store``, ``delete_document`` (gone from the next search),
+    ``delete_store``. The engine's hash encoder must have loaded the
+    native shim; ingest chunks/s (with the store's save in it timed
+    apart) and the encode alone are printed for it and for the Python
+    hasher on the same documents.
 
-``--long-docs`` sets the number of long documents of phase 13. The line
-before last is the kernels' JSON (eight entries; the flash-attention
-forward's also holds its launches on phase 16's chat path, and the two
-list scans their launches and one shard's numbers on the sharded paths
-of phases 17-18); the last line is ``{"ok": true, "device": {...}}``.
+``--long-docs`` sets the number of long documents of phase 13. Two JSON
+lines end the output before the last: the host shim's and the app
+calls' numbers (phase 18's host re-rank A/B, phase 19's ingest and
+encode rates, right-first shares, latencies and qcap drops), then the
+kernels' JSON (eight entries; the flash-attention forward's also holds
+its launches on phase 16's chat path, the two list scans their
+launches and one shard's numbers on the sharded paths of phases 17-18,
+``ivf_list_scan`` its launches on phase 19's app calls); the last line
+is ``{"ok": true, "device": {...}}``.
 The script imports neither JAX nor the JAX package.
 """
 
@@ -252,6 +276,7 @@ GRAD_COS_MIN = 0.99
 # exceeds twice this
 DECODER_LOGIT_TOL = 2.0 ** -3
 CHAT_QUESTIONS = 16    # fact questions of phase 16, each searched + answered
+APP_TENANT_DOCS = 256  # fact documents of phase 19's tenant store
 
 _SYL = ("ka", "lo", "mi", "ne", "ru", "ta", "vo", "zu", "pe", "shi", "dra",
         "gon", "bel", "tor", "qua", "xen", "fli", "mur", "sol", "yat")
@@ -289,6 +314,27 @@ def card_line() -> str:
     if out.returncode != 0:
         fail(f"nvidia-smi failed: {out.stderr.strip()}")
     return out.stdout.strip().splitlines()[0]
+
+
+def host_line() -> str:
+    """The host CPU (``lscpu``: its model name, family and model number)
+    and its core count: host-side numbers (the native shim's hasher and
+    re-rank) carry it. A virtualised host may report its name as
+    "unknown"; the family and model number still tell the part."""
+    import os
+    import re
+    try:
+        text = subprocess.run(["lscpu"], capture_output=True, text=True,
+                              timeout=60).stdout
+    except OSError:
+        text = ""
+
+    def field(name):
+        found = re.search(rf"^\s*{name}:\s*(.+)$", text, re.M)
+        return found.group(1).strip() if found else "unknown"
+
+    return (f"host {field('Model name')} (family {field('CPU family')}, "
+            f"model {field('Model')}), {os.cpu_count()} cores")
 
 
 def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
@@ -655,16 +701,22 @@ def library_ms_of(qdisp, lists, p):
     return total, chunks
 
 
-def run_concurrent(remote, key, queries, threads):
-    """Each thread sends its share of ``queries`` one at a time; returns
-    (hits per query, wall seconds)."""
+def run_concurrent(remote, key, queries, threads, k=5, lat=None):
+    """Each thread sends its share of ``queries`` one at a time to the
+    store ``key`` (or the list of stores ``key``); returns (hits per
+    query, wall seconds). Each request's ms is appended to ``lat`` when
+    it is a list."""
+    keys = key if isinstance(key, list) else [key]
     out = [None] * len(queries)
     errors = []
 
     def worker(t):
         try:
             for i in range(t, len(queries), threads):
-                out[i] = remote.search([key], queries[i], k=5)
+                t0 = time.perf_counter()
+                out[i] = remote.search(keys, queries[i], k=k)
+                if lat is not None:
+                    lat.append((time.perf_counter() - t0) * 1e3)
         except Exception as e:  # noqa: BLE001 — surfaced below
             errors.append(e)
 
@@ -757,6 +809,230 @@ def shard_kernel_line(torch, kernel, reference, args, kw, bound, what,
         f"({bound_by}) | {card}")
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "shape": c}
+
+
+def app_calls_phase(args, card, ctx, mods) -> dict:
+    """Phase 19: the engine calls the JAX app's ``EngineRag`` makes for a
+    tenant's chats, replayed through ``RemoteEngine`` against an
+    ``Engine`` restarted on phase 3's data_dir that serves phase 3's 10M
+    int8 body (adopted: its pads are not persisted) at phase 3's
+    settings: ``create_store`` of an app-shaped key, ``ingest_document``
+    and ``store_stats``, searches over [the 10M store, the tenant's
+    store] at the app's k=12 and k=128 (one at a time, then from 64
+    concurrent clients, which the batcher coalesces into batches that
+    reach ``ivf_list_scan``), a ``doc_filter`` and a ``meta_filter``
+    search, ``has_store``, ``delete_document`` and ``delete_store``. The
+    hash encoder must run on the native shim; its ingest rate (and the
+    store's save inside it) is printed beside the Python path's on the
+    same documents. Returns (the ``ivf_list_scan`` entry's keys for this
+    path, this phase's host and search numbers)."""
+    import numpy as np
+    from rag_foundation_tpu_torch import native
+    from rag_foundation_tpu_torch.models.hash_encoder import HashingEncoder
+    (Engine, EngineConfig, EngineRpcServer, RemoteEngine, tivf,
+     ivf_scan) = mods
+    (cfg, key, sock, body, body_cids, sampled, rng) = ctx
+    t_phase = time.perf_counter()
+    engine = Engine(EngineConfig(**cfg))
+    # the store's save, which each ingest_document makes, timed apart
+    save_s = [0.0]
+    save_store = engine._save_store
+
+    def timed_save(st):
+        t0 = time.perf_counter()
+        save_store(st)
+        save_s[0] += time.perf_counter() - t0
+    engine._save_store = timed_save
+    if engine.encoder._lib is None or not native.loaded():
+        fail("phase 19: the engine's hash encoder did not load the native "
+             "shim")
+    store = engine._store(key)
+    store.segment.adopt_body(body, body_cids)
+    # the pads are not persisted: do not rewrite body.npz for them, and
+    # over-fetch past them as the padding engine did
+    store.saved_body_version = store.segment.body_version
+    engine._pad_counts[key] = args.rows - args.docs
+    server = EngineRpcServer(engine, sock, allow_pad=True).start()
+    remote = RemoteEngine(sock, pool_size=80)
+    tenant_docs = range(args.docs + 1000, args.docs + 1000 + APP_TENANT_DOCS)
+    try:
+        # EngineRag.create_store: stores/{user}-{slug}-{hex8}, made once
+        tenant = f"stores/7-fact-sheets-{int(rng.integers(1 << 32)):08x}"
+        python_store = f"stores/7-python-path-{int(rng.integers(1 << 32)):08x}"
+        remote.create_store(tenant)
+        save_s[0] = 0.0
+        t0 = time.perf_counter()
+        for i in tenant_docs:
+            remote.ingest_document(tenant, f"doc-{i}", f"project-{i}.txt",
+                                   fact_doc(i))
+        native_s = time.perf_counter() - t0
+        native_save_s = save_s[0]
+        stats = remote.store_stats(tenant)
+        if stats["documents"] != APP_TENANT_DOCS:
+            fail(f"phase 19: tenant store_stats {stats}")
+        # the same documents through the Python hasher, in another store
+        engine.encoder = HashingEncoder(dim=cfg["dim"], use_native=False)
+        remote.create_store(python_store)
+        save_s[0] = 0.0
+        t0 = time.perf_counter()
+        for i in tenant_docs:
+            remote.ingest_document(python_store, f"doc-{i}",
+                                   f"project-{i}.txt", fact_doc(i))
+        python_s = time.perf_counter() - t0
+        python_save_s = save_s[0]
+        engine.encoder = HashingEncoder(dim=cfg["dim"])
+        nv = engine._store(tenant).segment.live_rows()[0]
+        pv = engine._store(python_store).segment.live_rows()[0]
+        if not np.allclose(nv, pv, rtol=1e-6, atol=0):
+            fail("phase 19: the native and Python hashers disagree")
+        remote.delete_store(python_store)
+        texts = [m.text for m in engine._store(tenant).chunks.values()]
+        enc_rates = {}
+        for name, enc in (("native", engine.encoder),
+                          ("python", HashingEncoder(dim=cfg["dim"],
+                                                    use_native=False))):
+            t0 = time.perf_counter()
+            for _ in range(5):
+                enc.encode(texts)
+            enc_rates[name] = 5 * len(texts) / (time.perf_counter() - t0)
+        n_chunks = stats["chunks"]
+        log(f"app calls: create_store {tenant}, {APP_TENANT_DOCS} fact "
+            f"documents ({n_chunks} chunks) over RPC: native hasher "
+            f"{n_chunks / native_s:,.1f} chunks/s, Python hasher "
+            f"{n_chunks / python_s:,.1f} chunks/s (ingest, save included; "
+            f"the store's save took {native_save_s:.3f} s of "
+            f"{native_s:.3f} s native, {python_save_s:.3f} s of "
+            f"{python_s:.3f} s Python); encode alone "
+            f"{enc_rates['native']:,.0f} vs "
+            f"{enc_rates['python']:,.0f} chunks/s; native shim loaded "
+            f"{native.loaded()} | {host_line()} | {card}")
+
+        stores = [key, tenant]
+        asked = [(i, key) for i in sampled] + [(i, tenant) for i in
+                                               list(tenant_docs)[:64]]
+        lat, right = [], 0
+        for k in (12, 128):
+            for i, where in asked:
+                t0 = time.perf_counter()
+                hits = remote.search(stores, fact_query(i), k=k)
+                lat.append((time.perf_counter() - t0) * 1e3)
+                right += bool(hits) and hits[0].doc_id == f"doc-{i}" \
+                    and hits[0].store_key == where
+        first = right / (2 * len(asked))
+        log(f"app calls, one search at a time over [10M store, tenant], "
+            f"k=12 and k=128: right document first "
+            f"{first:.4f} of {2 * len(asked)}; p50 "
+            f"{np.percentile(lat, 50):.3f} ms p99 "
+            f"{np.percentile(lat, 99):.3f} ms (each waits out the "
+            f"{cfg['batch_window_s'] * 1e3:.0f} ms window) | {card}")
+        if first < RECALL_MIN:
+            fail(f"phase 19: right document first {first} < {RECALL_MIN}")
+
+        # like the JAX engine, a batch drops the probes past a list's
+        # default qcap, and the fact questions share most of their words,
+        # so they crowd the same lists: the probes build_dispatch drops
+        # are counted (on the device until the searches end) and printed
+        # beside the right-first share. A batch is filled to a power of
+        # two with zero rows (all-zero coarse scores), whose probes come
+        # last in each list and are not counted
+        threads = 64
+        conc = {}
+        drops = []
+        build_dispatch = tivf.build_dispatch
+
+        def counted_dispatch(coarse, nprobe, qcap, *a, **kw):
+            out = build_dispatch(coarse, nprobe, qcap, *a, **kw)
+            real = coarse.ne(0).any(dim=1, keepdim=True)
+            lost = (out[2] < 0) & real
+            drops.append((real.sum() * nprobe, lost.sum(), lost.any(dim=1)
+                          .sum()))
+            return out
+
+        tivf.build_dispatch = counted_dispatch
+        ivf_scan.LAUNCHES.reset()                 # counts: this path only
+        try:
+            for k in (12, 128):
+                pick = rng.integers(0, len(asked), size=threads * 16)
+                qs = [asked[j] for j in pick]
+                clat = []
+                drops.clear()
+                hits, wall = run_concurrent(remote, stores,
+                                            [fact_query(i) for i, _ in qs],
+                                            threads, k=k, lat=clat)
+                ok = sum(1 for (i, _), h in zip(qs, hits)
+                         if h and h[0].doc_id == f"doc-{i}")
+                conc[k] = {
+                    "qps": len(qs) / wall,
+                    "p50_ms": float(np.percentile(clat, 50)),
+                    "p99_ms": float(np.percentile(clat, 99)),
+                    "right_first": ok / len(qs),
+                    "batches": len(drops),
+                    "probes": sum(int(n) for n, _, _ in drops),
+                    "probes_dropped": sum(int(d) for _, d, _ in drops),
+                    "queries_with_a_probe_dropped": sum(
+                        int(q) for _, _, q in drops)}
+        finally:
+            tivf.build_dispatch = build_dispatch
+        launches = ivf_scan.LAUNCHES.count           # read just after
+        for k, c in conc.items():
+            log(f"app calls, {threads} concurrent clients over [10M store, "
+                f"tenant], k={k}: {c['qps']:,.1f} QPS, p50 "
+                f"{c['p50_ms']:.3f} ms p99 {c['p99_ms']:.3f} ms over RPC; "
+                f"right document first {c['right_first']:.4f} (batched, "
+                f"the list-scan path); {c['batches']} batches through "
+                f"build_dispatch, probes of the questions dropped by qcap "
+                f"{c['probes_dropped']} of {c['probes']} (in "
+                f"{c['queries_with_a_probe_dropped']} of "
+                f"{c['probes'] // cfg['nprobe']} questions) "
+                f"| {card}")
+        log(f"app calls: ivf_list_scan launches in the concurrent searches "
+            f"{launches} | {card}")
+        if launches == 0:
+            fail("phase 19: the concurrent searches never launched "
+                 "ivf_list_scan")
+
+        # filtered searches run alone (Q=1, no kernel): only the allowed
+        # documents come back, the asked one first
+        i_big, i_ten = sampled[0], tenant_docs[3]
+        allowed = {f"doc-{i_big}", f"doc-{sampled[1]}"}
+        hits = remote.search(stores, fact_query(i_big), k=12,
+                             doc_filter=allowed)
+        if not hits or hits[0].doc_id != f"doc-{i_big}" \
+                or {h.doc_id for h in hits} - allowed:
+            fail(f"phase 19: doc_filter search returned "
+                 f"{[h.doc_id for h in hits]}")
+        names = [f"project-{i_ten}.txt", f"project-{i_big}.txt"]
+        hits = remote.search(stores, fact_query(i_ten), k=12,
+                             meta_filter={"doc_name": names})
+        if not hits or (hits[0].doc_id, hits[0].store_key) != (
+                f"doc-{i_ten}", tenant) or {h.doc_name for h in hits} \
+                - set(names):
+            fail(f"phase 19: meta_filter search returned "
+                 f"{[(h.doc_id, h.store_key) for h in hits]}")
+        if not remote.has_store(tenant):
+            fail("phase 19: has_store lost the tenant's store")
+        remote.delete_document(tenant, f"doc-{i_ten}")
+        hits = remote.search(stores, fact_query(i_ten), k=12)
+        if any(h.doc_id == f"doc-{i_ten}" for h in hits):
+            fail("phase 19: a deleted document was found")
+        remote.delete_store(tenant)
+        if remote.has_store(tenant):
+            fail("phase 19: delete_store left the tenant's store")
+    finally:
+        remote.close()
+        server.shutdown()
+    log(f"app calls: doc_filter and meta_filter searches, has_store, "
+        f"delete_document (gone from the next search) and delete_store "
+        f"checked; phase 19: {time.perf_counter() - t_phase:.1f} s")
+    return {"launches_app_calls": launches}, {
+        "right_first_one_at_a_time": first,
+        "search_one_at_a_time_p50_ms": float(np.percentile(lat, 50)),
+        "search_one_at_a_time_p99_ms": float(np.percentile(lat, 99)),
+        "concurrent": {f"k{k}": c for k, c in conc.items()},
+        "ingest_chunks_s": {"native": n_chunks / native_s,
+                            "python": n_chunks / python_s},
+        "ingest_save_s": {"native": native_save_s, "python": python_save_s},
+        "encode_chunks_s": enc_rates}
 
 
 def mesh_flat_phase(args, card, ctx, mods) -> dict:
@@ -978,6 +1254,56 @@ def mesh_flat_phase(args, card, ctx, mods) -> dict:
             "sharded_fact_recall_at_10": fact_recall}
 
 
+def host_rerank_ab(arch, q, rows, card) -> dict:
+    """The ``ivf_pq`` host tier's re-rank on one search's own candidates
+    (``q [Q, d]`` f32, ``rows [Q, C]``): the native shim against the
+    numpy path, outputs compared within ``F32_TOL`` (the same dots of
+    unit vectors summed in another order), then numpy/native/native/numpy
+    five times: ten pairs, times on the host clock."""
+    import numpy as np
+    from rag_foundation_tpu_torch import native
+    lib = native.load_hasher()
+    if lib is None:
+        fail("the native shim did not load: no g++ on this machine")
+    nat = arch._rescore_native(lib, q, rows)
+    ref = arch._rescore_numpy(q, rows)
+    live = rows >= 0
+    if not (np.array_equal(np.isneginf(nat), ~live)
+            and np.array_equal(np.isneginf(ref), ~live)):
+        fail("host re-rank: pads and scores disagree between the paths")
+    err = float(np.abs(nat[live] - ref[live]).max()) if live.any() else 0.0
+    if err > F32_TOL:
+        fail(f"host re-rank: native vs numpy {err} > {F32_TOL}")
+
+    def ms(fn):
+        t0 = time.perf_counter()
+        fn()
+        return (time.perf_counter() - t0) * 1e3
+
+    def run_native():
+        arch._rescore_native(lib, q, rows)
+
+    def run_numpy():
+        arch._rescore_numpy(q, rows)
+
+    won, t_nat, t_np = 0, [], []
+    for _ in range(5):
+        t = [ms(run_numpy), ms(run_native), ms(run_native), ms(run_numpy)]
+        won += (t[1] < t[0]) + (t[2] < t[3])
+        t_np += [t[0], t[3]]
+        t_nat += [t[1], t[2]]
+    log(f"host re-rank A/B, one Q=1024 search's candidates (Q={rows.shape[0]}"
+        f", C={rows.shape[1]}, d={arch.dim}, {int(live.sum())} live, archive"
+        f" of {arch.n} int8 rows): max |native - numpy| {err:.3g} (tolerance"
+        f" {F32_TOL}); native median {np.median(t_nat):.2f} ms (min "
+        f"{min(t_nat):.2f}, max {max(t_nat):.2f}), numpy median "
+        f"{np.median(t_np):.2f} ms (min {min(t_np):.2f}, max {max(t_np):.2f})"
+        f"; native faster in {won} of 10 pairs | {host_line()} | {card}")
+    return {"q": int(rows.shape[0]), "c": int(rows.shape[1]),
+            "max_abs_err": err, "native_ms": float(np.median(t_nat)),
+            "numpy_ms": float(np.median(t_np)), "native_won": won}
+
+
 def mesh_pq_phase(args, card, ctx, mods) -> dict:
     """Phase 18: the sharded ``ivf_pq`` engine at 10M x 768 through the
     entry points: an ``Engine`` with ``mesh_shards=4`` and
@@ -1064,11 +1390,29 @@ def mesh_pq_phase(args, card, ctx, mods) -> dict:
         # questions overflows their qcap and drops probes, as on one
         # device (phase 6 prints the same count)
         finite = int(np.isfinite(scores[:, 0]).sum())
+        # the host re-rank's own inputs of one Q=1024 search
+        taken = []
+
+        def take(q, r):
+            taken.append((np.array(q, np.float32), np.array(r)))
+            return type(arch).rescore(arch, q, r)
+
+        arch.rescore = take
         seg.search(probe_rows, 10)
+        del arch.rescore
         t0 = time.perf_counter()
         for _ in range(3):
             top = seg.search(probe_rows, 10)[1]
         swall = (time.perf_counter() - t0) / 3
+        # the same searches with the numpy re-rank, in this call
+        arch.rescore = lambda q, r: arch._rescore_numpy(
+            np.ascontiguousarray(q, np.float32), np.asarray(r))
+        seg.search(probe_rows, 10)
+        t0 = time.perf_counter()
+        for _ in range(3):
+            np_top = seg.search(probe_rows, 10)[1]
+        swall_np = (time.perf_counter() - t0) / 3
+        del arch.rescore
         dispatches = search_profile.snapshot().get("body_dispatch",
                                                    {"n": 0})["n"]
         launches = pq_scan.LAUNCHES.count          # read just after
@@ -1083,12 +1427,16 @@ def mesh_pq_phase(args, card, ctx, mods) -> dict:
         f"over RPC (encode included) {bwall * 1e3:.1f} ms, top score finite "
         f"for {finite}/1024; StoreIndex.search"
         f" Q=1024 stored rows in process (host clock, bf16 transport, host "
-        f"re-rank) {swall * 1e3:.2f} ms = {1024 / swall:,.0f} QPS, a stored "
+        f"re-rank) {swall * 1e3:.2f} ms = {1024 / swall:,.0f} QPS with the "
+        f"native re-rank, {swall_np * 1e3:.2f} ms with the numpy re-rank, "
+        f"the same top hit for "
+        f"{np.mean(np_top[:, 0] == top[:, 0]):.4f}, a stored "
         f"row first {np.mean(top[:, 0] == probe_ids):.4f} (printed); "
         f"pq_list_scan launches {launches} for {dispatches} body searches, "
         f"gather_rescore_int8 {rescores} | {card}")
     if recall_ties < RECALL_MIN:
         fail(f"mesh ivf_pq fact recall@10 {recall_ties} < {RECALL_MIN}")
+    rerank = host_rerank_ab(arch, *taken[0], card)
     if dispatches == 0 or launches != 4 * dispatches or rescores:
         fail(f"mesh ivf_pq: {launches} pq_list_scan launches for "
              f"{dispatches} body searches (4 each expected), {rescores} "
@@ -1130,7 +1478,9 @@ def mesh_pq_phase(args, card, ctx, mods) -> dict:
     log(f"phase 18: {time.perf_counter() - t_phase:.1f} s")
     return {"launches_sharded": launches, "sharded_shard": entry,
             "sharded_fact_recall_at_10": recall_ties,
-            "sharded_adc_overlap_at_10": adc_fact}
+            "sharded_adc_overlap_at_10": adc_fact,
+            "host_rerank": {**rerank, "search_ms_native": swall * 1e3,
+                            "search_ms_numpy": swall_np * 1e3}}
 
 
 def check_topk(kv, ki, rv, ri, q, c, tol, what) -> tuple[float, int]:
@@ -1409,7 +1759,7 @@ def exact_phases(args, card) -> list[dict]:
     return entries
 
 
-def pq_phases(args, card, rng, sampled, mods) -> list[dict]:
+def pq_phases(args, card, rng, sampled, mods) -> tuple[list[dict], dict]:
     """Phases 6-8: the ``ivf_pq`` store. Returns the two kernels' entries
     of the ``kernels`` line."""
     import numpy as np
@@ -1749,6 +2099,7 @@ def pq_phases(args, card, rng, sampled, mods) -> list[dict]:
         (Engine, EngineConfig, EngineRpcServer, RemoteEngine, search_profile,
          tpq, pq_scan, gather))
     shutil.rmtree(data_dir, ignore_errors=True)
+    host_rerank = sharded.pop("host_rerank")
     return [{
         "name": "pq_list_scan", "route": "cuda",
         "source": "rag_foundation_tpu_torch/csrc/pq_list_scan.cu",
@@ -1768,7 +2119,7 @@ def pq_phases(args, card, rng, sampled, mods) -> list[dict]:
         "bound_by": gather_by, "library_ms": None, "dtype": "int8",
         "shape": {"N": int(body.refine.shape[0]), "Q": q_n, "C": cands,
                   "d": 768},
-    }]
+    }], host_rerank
 
 
 _NOUNS = ("report", "budget", "engineer", "station", "survey", "network",
@@ -2949,6 +3300,7 @@ def main() -> None:
     card = card_line()
     kind = torch.cuda.get_device_name(0)
     log(card)
+    log(host_line())
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"python {sys.version.split()[0]} device {kind} "
         f"count {torch.cuda.device_count()}")
@@ -3226,6 +3578,13 @@ def main() -> None:
         "CUDA events between its stages in one call)")
     del qj
 
+    # -- phase 19: the app's engine calls over the same body ----------------
+    ivf_app, app_calls = app_calls_phase(
+        args, card, (cfg, key, sock, body, body_cids, sampled, rng),
+        (Engine, EngineConfig, EngineRpcServer, RemoteEngine, tivf,
+         ivf_scan))
+    gc.collect()
+
     # -- phase 17: the sharded engine over the same body ---------------------
     ivf_sharded = mesh_flat_phase(
         args, card, (cfg, key, sock, body, body_cids, qv1, exact, probe_rows,
@@ -3244,7 +3603,7 @@ def main() -> None:
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
 
     # -- phases 6-8: the ivf_pq store -----------------------------------------
-    pq_kernels = pq_phases(
+    pq_kernels, host_rerank = pq_phases(
         args, card, rng, sampled,
         (Engine, EngineConfig, EngineRpcServer, RemoteEngine, search_profile,
          HostArchive, tpq, pq_scan, gather, quantize))
@@ -3289,7 +3648,17 @@ def main() -> None:
         "shape": {"nlist": nlist, "qcap": qcap, "cap_len": cap_len, "d": d,
                   "p": p, **c},
         **ivf_sharded,
+        **ivf_app,
     }] + pq_kernels + exact_kernels + [attn_kernel] + bwd_kernels}
+    # the host shim's and the app calls' numbers, apart from the kernels
+    print(json.dumps({"host_shim": {"host_rerank": host_rerank,
+                                    "ingest_chunks_s": app_calls.pop(
+                                        "ingest_chunks_s"),
+                                    "ingest_save_s": app_calls.pop(
+                                        "ingest_save_s"),
+                                    "encode_chunks_s": app_calls.pop(
+                                        "encode_chunks_s")},
+                      "app_calls": app_calls}), flush=True)
     print(json.dumps(kernels), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -921,9 +921,11 @@ class StoreIndex:
     def restore_body(self, state: dict) -> None:
         """Install a checkpointed body (tail untouched)."""
         body = body_from_state(state, self.device)
-        # as the JAX engine does, a saved body that does not split over
-        # this mesh (its nlist, a device refine table) is served whole by
-        # the one-device paths until the next rebuild
+        # a saved body that does not split over this mesh (its nlist, a
+        # device refine table) is served whole by the one-device paths,
+        # and flushed into whole, until the next rebuild. The JAX engine
+        # also keeps it whole but then takes its sharded search and flush
+        # paths and raises (tests/test_torch_sharded_index.py)
         if self.mesh is not None \
                 and body.nlist % self.mesh.shape["shard"] == 0 \
                 and not (_is_pq(body) and body.refine.shape[0] > 0):

@@ -18,8 +18,10 @@ format), ``RAGTPU_ENGINE_GEN_BLOCK`` and ``RAGTPU_ENGINE_GEN_CONSTRAINED``
 configure the generative decoder: once the socket is open, the process
 loads it and runs one prefill and one decode block
 (``Engine.prewarm_generator``), logs ``generator_prewarmed`` and serves
-the RPC ``generate`` stream. ``RAGTPU_ENGINE_MESH_SHARDS`` > 1 shards
-every store over that many cards (``parallel/``; with
+the RPC ``generate`` stream. The ``engine_rpc_started`` log line says
+whether the process loaded the native host shim (``native_shim``; the
+hash encoder loads it at start). ``RAGTPU_ENGINE_MESH_SHARDS`` > 1
+shards every store over that many cards (``parallel/``; with
 ``RAGTPU_ENGINE_PLATFORM=cpu`` over as many logical CPU shards); more
 shards than visible cards exits with ``need N devices, have M``. A
 setting it cannot read makes it exit non-zero before it opens the
@@ -102,6 +104,7 @@ def config_from_env(env: dict[str, str] | None = None
 
 
 def main() -> None:  # pragma: no cover — production entrypoint
+    from rag_foundation_tpu_torch import native
     from rag_foundation_tpu_torch.engine.api import Engine
     from rag_foundation_tpu_torch.engine.rpc import EngineRpcServer
 
@@ -131,6 +134,7 @@ def main() -> None:  # pragma: no cover — production entrypoint
                          "stores": len(engine.list_stores()),
                          "mesh_shards": (engine.mesh.shape["shard"]
                                          if engine.mesh else 1),
+                         "native_shim": native.loaded(),
                          "batch_window_s": cfg.batch_window_s}))
     if cfg.generator_ckpt:
         # load and warm the decoder now, not on the first live chat

@@ -1,16 +1,26 @@
-"""Deterministic feature-hashing sentence encoder (pure Python).
+"""Deterministic feature-hashing sentence encoder.
 
 A dependency-free, fully deterministic embedder: word + character-n-gram
 feature hashing (FNV-1a 64) into ``dim`` sign buckets, L2-normalized.
 Lexically similar texts get high cosine similarity.
 
-This is the pure-Python path of ``rag_foundation_tpu.models.hash_encoder``
-(its native C++ shim is not part of the port); the JAX package's tests
-hold the two paths equal.
+Counterpart of ``rag_foundation_tpu.models.hash_encoder``, with its two
+paths:
+
+- the native C++ hasher (``native/hasher.cpp`` through ``ctypes``), the
+  default and the ingest hot path. Built with the JAX package's flags, it
+  gives the JAX package's native vectors bit for bit;
+- the pure-Python path (``use_native=False``, or no ``g++``), bit-equal
+  to the JAX package's Python path. Its normalization differs from the
+  native one in the last float32 ulp (equal within rtol 1e-6, not bit
+  for bit), so anything tie-sensitive stays on one path.
+
+The ``name`` is the JAX package's, so stores move between the packages.
 """
 
 from __future__ import annotations
 
+import ctypes
 import re
 
 import numpy as np
@@ -32,10 +42,25 @@ class HashingEncoder:
 
     name = "hash-fnv-v2"
 
-    def __init__(self, dim: int = 384, ngram: int = 3, seed: int = 0):
+    def __init__(self, dim: int = 384, ngram: int = 3, seed: int = 0,
+                 use_native: bool = True):
         self.dim = dim
         self.ngram = ngram
         self.seed = seed
+        self._lib = None
+        if use_native:
+            from rag_foundation_tpu_torch.native import load_hasher
+            self._lib = load_hasher()
+
+    def _encode_native(self, texts: list[str]) -> np.ndarray:
+        blobs = [t.encode("utf-8", "ignore") for t in texts]
+        lens = (ctypes.c_long * len(blobs))(*[len(b) for b in blobs])
+        out = np.zeros((len(texts), self.dim), np.float32)
+        self._lib.ragtpu_hash_encode(
+            b"".join(blobs), lens, len(blobs),
+            out.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
+            self.dim, self.ngram, ctypes.c_uint64(self.seed))
+        return out
 
     def _encode_python(self, texts: list[str]) -> np.ndarray:
         out = np.zeros((len(texts), self.dim), np.float32)
@@ -64,6 +89,8 @@ class HashingEncoder:
     def encode(self, texts: list[str]) -> np.ndarray:
         if not texts:
             return np.zeros((0, self.dim), np.float32)
+        if self._lib is not None:
+            return self._encode_native(texts)
         return self._encode_python(texts)
 
     def encode_queries(self, texts: list[str]) -> np.ndarray:

@@ -10,7 +10,7 @@ convex blend
 
 One dense index serves both signals, and every index path (IVF, PQ,
 int8) works unchanged because it only ever sees unit vectors. The hash
-channel is the port's pure-Python ``HashingEncoder``.
+channel is the port's ``HashingEncoder``, native by default as in JAX.
 """
 
 from __future__ import annotations

@@ -40,16 +40,49 @@ def _nvcc() -> str:
                        "toolkit (PATH or CUDA_HOME)")
 
 
+def hashed_library(build_dir: Path, stem: str, inputs: list[bytes]) -> Path:
+    """``build_dir/lib<stem>-<hash>.so``, named by a hash of ``inputs``
+    (sources, flags, target): a change to any of them names a new
+    library, so a stale one is never loaded."""
+    h = hashlib.sha256()
+    for part in inputs:
+        h.update(part)
+    return build_dir / f"lib{stem}-{h.hexdigest()[:16]}.so"
+
+
+def start_build(cmd: list[str], out: Path) -> tuple[subprocess.Popen, Path]:
+    """Start the compiler ``cmd`` writing to a temporary file of this
+    process and thread beside ``out``; ``finish_build`` moves it there."""
+    out.parent.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
+    proc = subprocess.Popen([*cmd, "-o", str(tmp)], stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    return proc, tmp
+
+
+def finish_build(proc: subprocess.Popen, tmp: Path, out: Path,
+                 timeout: float | None = None) -> str:
+    """Wait for a build of ``start_build`` and return the compiler's
+    output. On success the library is renamed into place (atomic:
+    concurrent builders agree); on failure the temporary is removed and
+    the output raised."""
+    log, _ = proc.communicate(timeout=timeout)
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"{Path(proc.args[0]).name} exit "
+                           f"{proc.returncode} building {out.name}\n{log}")
+    os.replace(tmp, out)
+    return log
+
+
 def library_path(name: str) -> Path:
     """Library of ``csrc/<name>.cu``, named by a hash of that source, of
     every header beside it (a source may include any of them) and of the
-    flags: an edit to either builds a new library."""
-    h = hashlib.sha256((CSRC_DIR / f"{name}.cu").read_bytes())
-    for header in sorted(CSRC_DIR.glob("*.cuh")):
-        h.update(header.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
-    digest = h.hexdigest()
-    return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
+    flags."""
+    headers = [h.read_bytes() for h in sorted(CSRC_DIR.glob("*.cuh"))]
+    return hashed_library(
+        BUILD_DIR, name, [(CSRC_DIR / f"{name}.cu").read_bytes(), *headers,
+                          " ".join(NVCC_FLAGS).encode()])
 
 
 def build(names: list[str]) -> dict[str, dict]:
@@ -58,27 +91,22 @@ def build(names: list[str]) -> dict[str, dict]:
     ``{"seconds", "ptxas"}`` (the ``-Xptxas -v`` report; empty when the
     library was already built). Raises with the compiler's output on a
     failed build."""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
     started = {}
     for name in names:
         out = library_path(name)
         if out.exists():
             continue
-        tmp = out.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-               str(CSRC_DIR / f"{name}.cu")]
-        started[name] = (time.perf_counter(), tmp, out, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-            text=True))
+        cmd = [_nvcc(), *NVCC_FLAGS, str(CSRC_DIR / f"{name}.cu")]
+        started[name] = (time.perf_counter(), out, *start_build(cmd, out))
     report = {name: {"seconds": 0.0, "ptxas": ""} for name in names}
     failed = []
-    for name, (t0, tmp, out, proc) in started.items():
-        log, _ = proc.communicate()
-        report[name] = {"seconds": time.perf_counter() - t0, "ptxas": log}
-        if proc.returncode != 0:
-            failed.append(f"{name}: nvcc exit {proc.returncode}\n{log}")
+    for name, (t0, out, proc, tmp) in started.items():
+        try:
+            log = finish_build(proc, tmp, out)
+        except RuntimeError as e:
+            failed.append(f"{name}: {e}")
             continue
-        os.replace(tmp, out)    # atomic: concurrent builders agree
+        report[name] = {"seconds": time.perf_counter() - t0, "ptxas": log}
     if failed:
         raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
     return report

@@ -34,6 +34,7 @@ from rag_foundation_tpu.models.hybrid_encoder import \
     HybridEncoder as JaxHybrid
 from rag_foundation_tpu.models.tokenizer import Tokenizer
 from rag_foundation_tpu_torch.models import encoder as tenc
+from rag_foundation_tpu_torch.models.hash_encoder import HashingEncoder
 from rag_foundation_tpu_torch.models.hybrid_encoder import HybridEncoder
 from rag_foundation_tpu_torch.ops import flash_attention as fa
 
@@ -268,6 +269,7 @@ def test_hybrid_encoder_matches_jax():
     jax_h.hash_enc = JaxHashingEncoder(dim=96, use_native=False)
     port = HybridEncoder(96, tenc.MiniLMEncoder(dim=64, cfg=tcfg, params=tp,
                                                 device="cpu"), w_mini=0.35)
+    port.hash_enc = HashingEncoder(dim=96, use_native=False)
     assert port.name == jax_h.name and port.dim == jax_h.dim == 160
     queries = TEXTS + ["Considering all of the projects described in the "
                        "document, could you please tell me the codename "

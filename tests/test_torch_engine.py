@@ -5,9 +5,10 @@ JAX engine writes it and the port loads it, and the reverse), so the
 port scans the very body JAX trained. ``search`` must return the same
 ``SearchHit`` lists in the same order. Tolerances: ``ivf_flat_int8``
 scores are bit-equal (exact int8 dots); ``exact`` and ``ivf_flat``
-scores agree within 1e-5 relative (f32 matmul summation order). The
-JAX engine is given the pure-Python hasher the port uses, so both embed
-bit-identically.
+scores agree within 1e-5 relative (f32 matmul summation order). Both
+engines embed on one hasher path, so they embed bit-identically: the
+pure-Python path, or (the ``native`` cases) each package's own native
+hasher, which both engines take by default.
 """
 
 import shutil
@@ -60,14 +61,16 @@ def _cfg(mode: str, data_dir: str) -> dict:
                 data_dir=data_dir)
 
 
-def _jax_engine(mode, data_dir):
+def _jax_engine(mode, data_dir, native=False):
     e = JaxEngine(JaxConfig(**_cfg(mode, data_dir)))
-    e.encoder = JaxHashingEncoder(dim=DIM, use_native=False)
+    e.encoder = JaxHashingEncoder(dim=DIM, use_native=native)
     return e
 
 
-def _port_engine(mode, data_dir):
-    return Engine(EngineConfig(**_cfg(mode, data_dir), device="cpu"))
+def _port_engine(mode, data_dir, native=False):
+    e = Engine(EngineConfig(**_cfg(mode, data_dir), device="cpu"))
+    e.encoder = HashingEncoder(dim=DIM, use_native=native)
+    return e
 
 
 def _ingest(engine, lo, hi):
@@ -118,17 +121,23 @@ def _search_all(engine):
 
 def test_hash_encoder_bit_identical_to_jax_python_path():
     texts = [_doc(i) for i in range(20)] + QUERIES
-    ours = HashingEncoder(dim=DIM)
+    ours = HashingEncoder(dim=DIM, use_native=False)
     ref = JaxHashingEncoder(dim=DIM, use_native=False)
     np.testing.assert_array_equal(ours.encode(texts), ref.encode(texts))
     np.testing.assert_array_equal(ours.encode_queries(texts),
                                   ref.encode_queries(texts))
 
 
-@pytest.mark.parametrize("mode", ["exact", "ivf_flat", "ivf_flat_int8"])
-def test_port_serves_jax_data_dir_with_same_hits(mode, tmp_path):
+# the Python hasher on both sides, and (ids "-native") the engines'
+# default, each package's native hasher
+@pytest.mark.parametrize("mode,native", [
+    ("exact", False), ("ivf_flat", False), ("ivf_flat_int8", False),
+    ("exact", True), ("ivf_flat_int8", True)], ids=[
+    "exact", "ivf_flat", "ivf_flat_int8", "exact-native",
+    "ivf_flat_int8-native"])
+def test_port_serves_jax_data_dir_with_same_hits(mode, native, tmp_path):
     jdir = str(tmp_path / "jax")
-    jax_e = _jax_engine(mode, jdir)
+    jax_e = _jax_engine(mode, jdir, native)
     jax_e.create_store(STORE)
     n_docs = 120 if mode == "exact" else 240   # JAX exact ingest is slow
     _ingest(jax_e, 0, n_docs)
@@ -138,7 +147,7 @@ def test_port_serves_jax_data_dir_with_same_hits(mode, tmp_path):
     # the port loads a copy, so the two engines mutate separate dirs
     pdir = str(tmp_path / "port")
     shutil.copytree(jdir, pdir)
-    port = _port_engine(mode, pdir)
+    port = _port_engine(mode, pdir, native)
     assert port.has_store(STORE)
     _assert_same_hits(_search_all(port), _search_all(jax_e),
                       _int8_body_ids(port))
@@ -167,15 +176,17 @@ def test_port_serves_jax_data_dir_with_same_hits(mode, tmp_path):
                       _int8_body_ids(port))
 
 
-@pytest.mark.parametrize("mode", ["exact", "ivf_flat_int8"])
-def test_jax_serves_port_data_dir_with_same_hits(mode, tmp_path):
+@pytest.mark.parametrize("mode,native", [
+    ("exact", False), ("ivf_flat_int8", False), ("ivf_flat_int8", True)],
+    ids=["exact", "ivf_flat_int8", "ivf_flat_int8-native"])
+def test_jax_serves_port_data_dir_with_same_hits(mode, native, tmp_path):
     pdir = str(tmp_path / "port")
-    port = _port_engine(mode, pdir)
+    port = _port_engine(mode, pdir, native)
     port.create_store(STORE)
     _ingest(port, 0, 200)
     port.delete_document(STORE, "doc-3")
     _ingest(port, 200, 230)       # a streaming tail beside the body
-    jax_e = _jax_engine(mode, pdir)
+    jax_e = _jax_engine(mode, pdir, native)
     assert jax_e.has_store(STORE)
     _assert_same_hits(_search_all(jax_e), _search_all(port),
                       _int8_body_ids(port))
@@ -270,6 +281,7 @@ def test_approx_routing_is_accepted_and_matches_jax(tmp_path):
     shutil.copytree(jdir, pdir)
     port = Engine(EngineConfig(**_cfg("ivf_flat_int8", pdir), device="cpu",
                                approx_routing=True))
+    port.encoder = HashingEncoder(dim=DIM, use_native=False)
     for e in (jax_e, port):
         assert e._store(STORE).segment.approx_routing is True
     assert port._store(STORE).segment.body is not None
@@ -327,14 +339,16 @@ def _pq_cfg(data_dir, refine="device", packed=False):
                 pq_packed=packed)
 
 
-def _pq_jax(data_dir, **kw):
+def _pq_jax(data_dir, native=False, **kw):
     e = JaxEngine(JaxConfig(**_pq_cfg(data_dir, **kw)))
-    e.encoder = JaxHashingEncoder(dim=DIM, use_native=False)
+    e.encoder = JaxHashingEncoder(dim=DIM, use_native=native)
     return e
 
 
-def _pq_port(data_dir, **kw):
-    return Engine(EngineConfig(**_pq_cfg(data_dir, **kw), device="cpu"))
+def _pq_port(data_dir, native=False, **kw):
+    e = Engine(EngineConfig(**_pq_cfg(data_dir, **kw), device="cpu"))
+    e.encoder = HashingEncoder(dim=DIM, use_native=native)
+    return e
 
 
 def _assert_pq_hits(a, b, body_ids, refine="device"):
@@ -369,17 +383,21 @@ def _assert_pq_hits(a, b, body_ids, refine="device"):
     assert same >= 0.95 * total, (same, total)
 
 
-@pytest.mark.parametrize("refine", ["device", "host", "none"])
-def test_ivf_pq_port_serves_jax_data_dir(refine, tmp_path):
+@pytest.mark.parametrize("refine,native", [
+    ("device", False), ("host", False), ("none", False), ("host", True)],
+    ids=["device", "host", "none", "host-native"])
+def test_ivf_pq_port_serves_jax_data_dir(refine, native, tmp_path):
+    """Both packages' host re-rank runs natively whenever its library
+    builds; ``native`` sets the hasher of both engines."""
     jdir = str(tmp_path / "jax")
-    jax_e = _pq_jax(jdir, refine=refine)
+    jax_e = _pq_jax(jdir, native, refine=refine)
     jax_e.create_store(STORE)
     _ingest(jax_e, 0, 200)
     jseg = jax_e._store(STORE).segment
     assert type(jseg.body).__name__ == "IVFPQIndex" and jseg.tail.count > 0
     pdir = str(tmp_path / "port")
     shutil.copytree(jdir, pdir)
-    port = _pq_port(pdir, refine=refine)
+    port = _pq_port(pdir, native, refine=refine)
     seg = port._store(STORE).segment
     # the saved body (codes, ids, codebooks, refine) and archive reload
     # verbatim, refine padded to 8 rows as saved
@@ -630,10 +648,11 @@ def _enc_cfg(encoder, ckpt, data_dir=None, mode="exact"):
 
 def _enc_engines(encoder, ckpt, jdir=None, pdir=None, mode="exact"):
     jax_e = JaxEngine(JaxConfig(**_enc_cfg(encoder, ckpt, jdir, mode)))
-    if encoder == "hybrid":     # the hash channel on the Python path
-        jax_e.encoder.hash_enc = JaxHashingEncoder(dim=64, use_native=False)
     port = Engine(EngineConfig(**_enc_cfg(encoder, ckpt, pdir, mode),
                                device="cpu"))
+    if encoder == "hybrid":     # the hash channels on the Python path
+        jax_e.encoder.hash_enc = JaxHashingEncoder(dim=64, use_native=False)
+        port.encoder.hash_enc = HashingEncoder(dim=64, use_native=False)
     return jax_e, port
 
 

@@ -31,6 +31,7 @@ from rag_foundation_tpu_torch.engine.metrics import (EngineMetrics, Gauge,
                                                      Histogram)
 from rag_foundation_tpu_torch.engine.rpc import EngineRpcServer, RemoteEngine
 from rag_foundation_tpu_torch.engine.segments import VectorSegment
+from rag_foundation_tpu_torch.models.hash_encoder import HashingEncoder
 
 ROOT = Path(__file__).resolve().parents[1]
 DIM = 64
@@ -153,6 +154,7 @@ def test_metrics_text_matches_jax_engine(tmp_path):
         jserver.shutdown()
 
     engine = Engine(EngineConfig(dim=DIM, device="cpu"))
+    engine.encoder = HashingEncoder(dim=DIM, use_native=False)
     sock = str(tmp_path / "port.sock")
     server = EngineRpcServer(engine, sock).start()
     try:

@@ -34,6 +34,7 @@ from rag_foundation_tpu_torch.engine import Engine, EngineConfig
 from rag_foundation_tpu_torch.engine.index import StoreIndex
 from rag_foundation_tpu_torch.engine.segments import VectorSegment
 from rag_foundation_tpu_torch.engine_main import config_from_env
+from rag_foundation_tpu_torch.models.hash_encoder import HashingEncoder
 from rag_foundation_tpu_torch.parallel.mesh import make_mesh
 from rag_foundation_tpu_torch.parallel.sharded_index import \
     ShardedVectorStore
@@ -240,7 +241,8 @@ def test_mesh_store_saved_state_reloads_across_shard_counts(mesh):
 
 def test_only_a_restored_body_may_stay_whole_on_a_mesh(mesh):
     # nlist 12 does not split 8 ways: a body handed to the store raises,
-    # a saved one is served whole by the one-device paths (as in JAX)
+    # a saved one is served whole by the one-device paths (JAX raises on
+    # it: the next test)
     v = _clustered(2048, seed=3)
     kw = dict(mode="ivf_flat_int8", nlist=12, nprobe=12,
               build_threshold=4000)
@@ -260,6 +262,45 @@ def test_only_a_restored_body_may_stay_whole_on_a_mesh(mesh):
     t.add(v[:8], np.arange(5000, 5008))
     t.rebuild()
     assert isinstance(t.body, ShardedBody) and t.body.nlist % 8 == 0
+
+
+def test_restored_unsplittable_body_jax_raises_the_port_serves(jmesh,
+                                                                mesh):
+    """A saved body whose nlist (12) does not split over 8 shards. The JAX
+    ``StoreIndex`` keeps it whole on restore but still takes its sharded
+    search and flush paths, where ``shard_map`` raises; the port serves
+    it whole, and its first streaming flush lands in it."""
+    kw = dict(mode="ivf_flat_int8", nlist=12, nprobe=12,
+              build_threshold=4000)
+    v = _clustered(2048, seed=3)
+    one = JaxStoreIndex(D, **kw)
+    one.add(v, np.arange(2048))
+    one.rebuild()
+    assert one.body.nlist == 12
+    state = one.body_state()
+    j = JaxStoreIndex(D, mesh=jmesh, **kw)
+    t = StoreIndex(D, mesh=mesh, device="cpu", **kw)
+    j.restore_body(state)
+    t.restore_body(state)
+    assert not isinstance(t.body, ShardedBody)
+    for q in (v[:1], v[:32]):
+        with pytest.raises(ValueError, match="not evenly divisible"):
+            j.search(q, 5)
+        want = one.search(q, 5)
+        got = t.search(q, 5)
+        np.testing.assert_array_equal(got[1], want[1])
+        np.testing.assert_array_equal(got[0], want[0])   # int8 dots
+    new = _clustered(1100, seed=4)
+    new_ids = np.arange(10_000, 11_100)
+    with pytest.raises(ValueError, match="not evenly divisible"):
+        j.add(new, new_ids)              # the tail passes 1024: a flush
+    version = t.body_version
+    t.add(new, new_ids)
+    assert t.body_version > version and t.tail.count == 0
+    assert not isinstance(t.body, ShardedBody) and t.body.nlist == 12
+    assert (t.body_chunk_ids >= 10_000).sum() == 1100
+    assert t.count == 2048 + 1100
+    assert np.mean(t.search(new[:64], 1)[1][:, 0] == new_ids[:64]) >= 0.95
 
 
 def test_mesh_ivfpq_host_refine_like_jax_and_across_shard_counts(jmesh,
@@ -326,6 +367,7 @@ def test_engine_mesh_shards_serves_jax_data_dir_with_same_hits(tmp_path):
     shutil.copytree(jdir, pdir)
     port = Engine(EngineConfig(**_cfg("ivf_flat_int8", pdir),
                                mesh_shards=8, device="cpu"))
+    port.encoder = HashingEncoder(dim=cfg["dim"], use_native=False)
     seg = port._store(STORE).segment
     assert isinstance(seg.body, ShardedBody) and len(seg.body.shards) == 8
     assert isinstance(seg.tail, ShardedVectorStore) and seg.tail.count > 0
