@@ -196,7 +196,29 @@ Phases (each one fails the run: non-zero exit, no result line):
     apart) and the encode alone are printed for it and for the Python
     hasher on the same documents.
 
-``--long-docs`` sets the number of long documents of phase 13. Two JSON
+20. The generative decoder's trainer at full width, after phase 16, on
+    phase 15's corpus: ``tools.train_decoder.train`` with the recipe of
+    ``checkpoints/decoder_distill.npz`` (vocab 8192, hidden 384, 6 layers,
+    6 heads, ffn 1536, max_len 512, ans_len 96, batch 64, lr 4e-4, bf16)
+    cut to ``--decoder-steps`` of 4,000 steps, ``--decoder-triples`` of
+    60,000 triples and ``--decoder-eval`` of 128 eval questions (each cut
+    printed beside the recipe's value). It fails unless the vocabulary has
+    8192 pieces, the parameters stayed on the card, the loss is finite and
+    its last tenth's mean below its first tenth's, the saved checkpoint has
+    ``decoder_distill.npz``'s keys and shapes, reloads through
+    ``load_decoder`` equal to the trained parameters and streams through
+    ``TextGenerator``, and one step's gradients on the card (bf16) reach
+    cosine ``GRAD_COS_MIN`` a leaf against the port's CPU path in f32 on
+    the same parameters and batch. Printed: the host's seconds (vocabulary,
+    triples, tokens), ms a step beside ``utils/roofline.decoder_train_bound``,
+    positions, real and answer tokens/s, peak device memory, the device's
+    busy share over three steps with device time by kernel family
+    (``torch.profiler``), and the eval's ``answerable_f1``, ``cloze_f1``,
+    ``refusal_acc`` and ``grounded_rate``.
+
+``--long-docs`` sets the number of long documents of phase 13;
+``--decoder-steps``, ``--decoder-triples`` and ``--decoder-eval`` phase
+20's cuts. Two JSON
 lines end the output before the last: the host shim's and the app
 calls' numbers (phase 18's host re-rank A/B, phase 19's ingest and
 encode rates, right-first shares, latencies and qcap drops), then the
@@ -2694,21 +2716,33 @@ STEP_PARTS = (("attention kernels", ("flash_fwd", "flash_bwd")),
               ("layernorm", ("layer_norm", "gammabeta")),
               ("embedding", ("embedding", "index")),
               ("optimizer (foreach AdamW)", ("multi_tensor", "adam")))
+# the decoder's step: the f32 backward products (cuBLAS's f32 GEMMs name
+# their types, "sgemm" or "f32f32_f32f32") before the other products
+DECODER_STEP_PARTS = (
+    ("f32 products (backward)", ("sgemm", "f32f32_f32f32", "gemm_f32")),
+    ("other products (cuBLAS)", ("gemm", "xmma", "nvjet", "cutlass", "gemv")),
+    ("softmax", ("softmax",)),
+    ("layernorm", ("layer_norm", "gammabeta")),
+    ("embedding", ("embedding", "index")),
+    ("optimizer (foreach AdamW)", ("multi_tensor", "adam")))
 
 
-def profile_train_steps(torch, step, params, qb, db, steps, card) -> None:
+def profile_train_steps(torch, step, params, inputs, steps, card, what,
+                        parts=STEP_PARTS) -> float | None:
     """Device time of ``steps`` training steps by kernel, from
-    torch.profiler: the parts of STEP_PARTS, the top kernels and the
-    device's busy share of the window (kernel time over wall time; the
-    profiler's own cost is in the wall time)."""
+    torch.profiler: the ``parts`` (name, kernel-name fragments), the top
+    kernels and the device's busy share of the window (kernel time over
+    wall time; the profiler's own cost is in the wall time). Returns the
+    device time a step in ms, None where the profiler saw no device
+    time."""
     from torch.profiler import ProfilerActivity, profile
-    step(params, qb, db)
+    step(params, *inputs)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(steps):
-            step(params, qb, db)
+            step(params, *inputs)
         torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
     # kernels only: a user annotation ("Optimizer.step#AdamW.step") also
@@ -2719,31 +2753,49 @@ def profile_train_steps(torch, step, params, qb, db, steps, card) -> None:
                and not getattr(e, "is_user_annotation", False)]
     total = sum(e.self_device_time_total for e in kernels) / 1e3
     if total == 0:
-        log(f"training step profile: the profiler saw no device time (not "
+        log(f"{what} profile: the profiler saw no device time (not "
             f"measured) | {card}")
-        return
-    parts = {name: 0.0 for name, _ in STEP_PARTS}
-    parts["other (elementwise, reductions)"] = 0.0
+        return None
+    by_part = {name: 0.0 for name, _ in parts}
+    by_part["other (elementwise, reductions)"] = 0.0
     for e in kernels:
         key = e.key.lower()
-        name = next((n for n, frags in STEP_PARTS
+        name = next((n for n, frags in parts
                      if any(f in key for f in frags)),
                     "other (elementwise, reductions)")
-        parts[name] += e.self_device_time_total / 1e3
+        by_part[name] += e.self_device_time_total / 1e3
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
-    log(f"training step profile ({steps} steps under torch.profiler, batch "
-        f"{qb.shape[0]}, q_len {qb.shape[1]}, d_len {db.shape[1]}): device "
+    log(f"{what} profile ({steps} steps under torch.profiler): device "
         f"time {total / steps:.2f} ms a step, wall {wall_ms / steps:.2f} ms "
         f"a step, device busy {total / wall_ms:.1%}; "
         + ", ".join(f"{n} {t / steps:.2f} ms ({t / total:.1%})"
-                    for n, t in parts.items())
+                    for n, t in by_part.items())
         + "; top kernels: "
         + "; ".join(f"{e.key[:60]} x{e.count // steps} "
                     f"{e.self_device_time_total / 1e3 / steps:.3f} ms"
                     for e in top) + f" | {card}")
+    return total / steps
 
 
-def train_phases(args, card, rng, sampled, mods) -> list[dict]:
+def build_corpus(args, out_dir: str) -> str:
+    """The training corpus of phases 15 and 20: the recipe's own
+    ``scripts/build_text_corpus.py`` over the card machine's installed
+    packages, ``--corpus-passages`` passages. Returns its path."""
+    corpus = str(Path(out_dir) / "corpus.jsonl")
+    t0 = time.perf_counter()
+    built = subprocess.run(
+        [sys.executable, str(ROOT / "scripts" / "build_text_corpus.py"),
+         "--out", corpus, "--max-passages", str(args.corpus_passages)],
+        capture_output=True, text=True, timeout=600)
+    if built.returncode != 0:
+        fail(f"build_text_corpus.py failed: {built.stderr[-2000:]}")
+    log(f"corpus: scripts/build_text_corpus.py --max-passages "
+        f"{args.corpus_passages} in {time.perf_counter() - t0:.1f} s: "
+        f"{built.stderr.strip().splitlines()[-1]}")
+    return corpus
+
+
+def train_phases(args, card, rng, sampled, corpus, mods) -> list[dict]:
     """Phase 15: MiniLM-L6 training at full width through the port's
     trainer (ICT on a corpus built by the recipe's own tool), serving from
     the checkpoint it saved, a few steps at d_len 512, the kernel path's
@@ -2760,20 +2812,8 @@ def train_phases(args, card, rng, sampled, mods) -> list[dict]:
     from rag_foundation_tpu_torch.tools import train_encoder
     Engine, EngineConfig = mods
     tmp = tempfile.mkdtemp(prefix="ragtpu-chip-smoke-train-")
-    corpus = str(Path(tmp) / "corpus.jsonl")
-    t0 = time.perf_counter()
-    built = subprocess.run(
-        [sys.executable, str(ROOT / "scripts" / "build_text_corpus.py"),
-         "--out", corpus, "--max-passages", str(args.corpus_passages)],
-        capture_output=True, text=True, timeout=600)
-    if built.returncode != 0:
-        fail(f"build_text_corpus.py failed: {built.stderr[-2000:]}")
-    corpus_s = time.perf_counter() - t0
     chunks = train_encoder.load_chunks(corpus)
-    log(f"corpus: scripts/build_text_corpus.py --max-passages "
-        f"{args.corpus_passages} in {corpus_s:.1f} s: "
-        f"{built.stderr.strip().splitlines()[-1]}, {len(chunks)} chunks of "
-        f"25-100 words")
+    log(f"the corpus holds {len(chunks)} chunks of 25-100 words")
 
     # -- the trainer, ICT mode, the recipe's shapes --------------------------
     ckpt = str(Path(tmp) / "minilm_ict_port.npz")
@@ -2891,7 +2931,9 @@ def train_phases(args, card, rng, sampled, mods) -> list[dict]:
     profile_train_steps(
         torch, tenc.make_train_step(cfg, optim.adamw(3e-4), max_grad_norm=1.0,
                                     temperature=0.05, symmetric=True),
-        trained, qb, db, 3, card)
+        trained, (qb, db), 3, card,
+        f"training step (batch {qb.shape[0]}, q_len {qb.shape[1]}, d_len "
+        f"{db.shape[1]})")
 
     # -- d_len 512: the shape at which JAX's TPU path takes the kernels -------
     cfg512 = tenc.EncoderConfig(max_len=512)
@@ -3249,6 +3291,189 @@ def generator_phase(args, card, sampled, mods) -> int:
     return chat_launches
 
 
+def decoder_grads(torch, tdec, tenc, params, cfg, tokens, mask):
+    """One step's gradients of ``lm_loss`` on the card in the trained
+    dtype and through the port's CPU path in f32 on the same parameters
+    and batch: (worst cosine a leaf, worst relative norm error, seconds of
+    the CPU pass). The key third of ``qkv_b`` is left out: its gradient is
+    0 in exact arithmetic (a constant added to a row's scores leaves its
+    softmax unchanged), so both sides hold rounding noise there."""
+    leaves = tenc._leaves(params)
+    card_g = torch.autograd.grad(
+        tdec.lm_loss(params, tokens, mask, cfg), list(leaves.values()))
+    p32 = tenc._map(params, lambda _, t: t.detach().float().cpu()
+                    .requires_grad_(True))
+    t0 = time.perf_counter()
+    cpu_g = torch.autograd.grad(
+        tdec.lm_loss(p32, tokens.cpu(), mask.cpu(),
+                     cfg._replace(dtype="float32")),
+        list(tenc._leaves(p32).values()))
+    cpu_s = time.perf_counter() - t0
+    h = cfg.hidden
+    worst_cos, worst_rel = 1.0, 0.0
+    for key, a, r in zip(leaves, card_g, cpu_g):
+        a, r = a.double().cpu().ravel(), r.double().ravel()
+        if not bool(torch.isfinite(a).all()):
+            fail(f"phase 20: the card's gradient of {key} is not finite")
+        if key.endswith("['qkv_b']"):
+            a, r = torch.cat([a[:h], a[2 * h:]]), torch.cat([r[:h],
+                                                             r[2 * h:]])
+        if float(r.norm()) == 0.0:
+            continue
+        worst_cos = min(worst_cos, float(a @ r / (a.norm() * r.norm())))
+        worst_rel = max(worst_rel, float((a - r).norm() / r.norm()))
+    return worst_cos, worst_rel, cpu_s
+
+
+def decoder_train_phase(args, card, corpus) -> None:
+    """Phase 20: the generative decoder's trainer at full width
+    (``tools.train_decoder.train``, the recipe of
+    ``checkpoints/decoder_distill.npz`` cut in steps, triples and eval
+    questions) on phase 15's corpus, the checkpoint it saved served by
+    ``TextGenerator``, one step's gradients against the CPU's f32 path,
+    and the step's time beside its bound, its busy share and memory."""
+    import numpy as np
+    import torch
+    from rag_foundation_tpu_torch.models import decoder as tdec
+    from rag_foundation_tpu_torch.models import encoder as tenc
+    from rag_foundation_tpu_torch.tools import train_decoder
+    from rag_foundation_tpu_torch.utils import roofline
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="ragtpu-chip-smoke-decoder-")
+    ckpt = str(Path(tmp) / "decoder_port.npz")
+    targs = train_decoder.parse_args([
+        "--corpus", corpus, "--steps", str(args.decoder_steps),
+        "--n-examples", str(args.decoder_triples), "--eval-n",
+        str(args.decoder_eval), "--seed", str(args.seed), "--out", ckpt,
+        "--device", "cuda"])
+    recipe = train_decoder.parse_args(["--corpus", corpus])
+    log(f"train_decoder, the recipe of decoder_distill.npz (vocab "
+        f"{recipe.vocab_size}, hidden {recipe.hidden}, {recipe.layers} "
+        f"layers, {recipe.heads} heads, ffn {recipe.ffn}, max_len "
+        f"{recipe.max_len}, ans_len {recipe.ans_len}, batch {recipe.batch}, "
+        f"lr {recipe.lr}, bf16) cut to {targs.steps} of {recipe.steps} "
+        f"steps, {targs.n_examples} of {recipe.n_examples} triples, "
+        f"{targs.eval_n} of {recipe.eval_n} eval questions")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    run = train_decoder.train(targs, log=lambda m: log(f"  {m}"))
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    params, cfg, summary = run["params"], run["cfg"], run["summary"]
+    leaves = tenc._leaves(params)
+    if cfg.vocab_size != 8192:
+        fail(f"phase 20: the vocabulary has {cfg.vocab_size} pieces, not "
+             f"8192 (the vocab sample is too small)")
+    if tuple(cfg)[:7] != (8192, 384, 6, 6, 1536, 512, 96) \
+            or cfg.dtype != "bfloat16":
+        fail(f"phase 20: trained {cfg}, not decoder_distill.npz's config")
+    off = [k for k, t in leaves.items() if t.device.type != "cuda"]
+    if off:
+        fail(f"phase 20: parameters off the card after training: {off}")
+    # the vocabulary's JSON bytes are as long as its pieces
+    with np.load(ckpt) as got, \
+            np.load(ROOT / "checkpoints" / "decoder_distill.npz") as want:
+        if set(got.files) != set(want.files) or any(
+                got[k].shape != want[k].shape for k in want.files
+                if k != "__vocab_json"):
+            fail("phase 20: the checkpoint's keys or shapes differ from "
+                 "decoder_distill.npz's")
+    losses = run["losses"]
+    steps, secs = targs.steps, run["seconds"]["train"]
+    tenth = max(1, steps // 10)
+    first, last = float(losses[:tenth].mean()), float(losses[-tenth:].mean())
+    if not np.isfinite(losses).all():
+        fail(f"phase 20: non-finite loss at step "
+             f"{int(np.argmin(np.isfinite(losses)))}")
+    if not last < first:
+        fail(f"phase 20: the loss did not fall: first tenth {first}, last "
+             f"{last}")
+    tokens, mask = run["tokens"], run["loss_mask"]
+    batch = targs.batch
+    real = float((tokens[:, :-1] != tdec.PAD_ID).sum(1).mean()) * batch
+    answer = float(mask[:, 1:].sum(1).mean()) * batch
+    positions = batch * (cfg.max_len - 1)
+    host = run["seconds"]
+    log(f"train_decoder on the card: {len(tokens)} training rows of "
+        f"{summary['triples']} triples (vocab {host['vocab']:.1f} s, "
+        f"triples {host['triples']:.1f} s, tokens {host['tokenize']:.2f} s "
+        f"on the host), {run['n_params'] / 1e6:.2f}M parameters; {steps} "
+        f"steps in {secs:.2f} s = {secs / steps * 1e3:.2f} ms/step (batch "
+        f"draws, host loop, logging and the first step's set-up included); "
+        f"loss {float(losses[0]):.4f} -> {float(losses[-1]):.4f}, mean of "
+        f"the first tenth {first:.4f}, of the last {last:.4f}; peak device "
+        f"memory {peak:.2f} GiB | {card}")
+
+    # -- the checkpoint reloads and streams ----------------------------------
+    loaded, lcfg, _ = tdec.load_decoder(ckpt, device="cuda")
+    for key, t in tenc._leaves(loaded).items():
+        if not torch.equal(t, leaves[key].detach()):
+            fail(f"phase 20: the saved {key} differs from the trained one")
+    gen = tdec.TextGenerator(ckpt, block=16, device="cuda")
+    q = run["eval_triples"][0]
+    texts = ["".join(gen.stream(q["q"], q["evs"])) for _ in range(2)]
+    if texts[0] != texts[1]:
+        fail(f"phase 20: two streams of one question differ: {texts}")
+    log(f"the checkpoint reloads through load_decoder (every parameter "
+        f"equal to the trained one, {lcfg}) and TextGenerator streams from "
+        f"it: {q['q'][:60]!r} -> {texts[0][:60]!r} | {card}")
+    log(f"eval through TextGenerator ({summary['n_answerable']} answerable, "
+        f"{summary['n_refusal']} refusal questions, {host['eval']:.1f} s; "
+        f"printed, no floor): answerable_f1 {summary['answerable_f1']}, "
+        f"cloze_f1 {summary['cloze_f1']}, other_f1 {summary['other_f1']}, "
+        f"refusal_acc {summary['refusal_acc']}, grounded_rate "
+        f"{summary['grounded_rate']} | {card}")
+    del loaded, gen
+
+    # -- one step's gradients: the card's bf16 against the CPU's f32 ---------
+    rows = torch.arange(batch, device="cuda") % len(tokens)
+    tb = torch.as_tensor(tokens, device="cuda")[rows]
+    mb = torch.as_tensor(mask, device="cuda")[rows]
+    worst_cos, worst_rel, cpu_s = decoder_grads(torch, tdec, tenc, params,
+                                                cfg, tb, mb)
+    log(f"one step's gradients (the trained parameters, batch {batch} x "
+        f"{cfg.max_len}), card bf16 vs the port's CPU path in f32 "
+        f"({cpu_s:.1f} s there), {len(leaves)} leaves: worst cosine "
+        f"{worst_cos:.6f} (floor {GRAD_COS_MIN}), worst relative norm error "
+        f"{worst_rel:.4g} | {card}")
+    if worst_cos < GRAD_COS_MIN:
+        fail(f"phase 20: gradient cosine {worst_cos} < {GRAD_COS_MIN}")
+
+    # -- the step's time, bound, busy share -----------------------------------
+    step = run["step"]                 # the trainer's own step and optimizer
+    step(params, tb, mb)
+    torch.cuda.synchronize()
+    n = 10
+    t0 = time.perf_counter()
+    for _ in range(n):
+        step(params, tb, mb)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / n * 1e3
+    bound_ms, bound_by, c = roofline.decoder_train_bound(cfg, batch)
+    log(f"decoder train step (batch {batch} x {cfg.max_len - 1} positions, "
+        f"one batch, host clock, synchronized, mean of {n}): {ms:.2f} ms = "
+        f"{positions / ms * 1e3:,.0f} positions/s, {real / ms * 1e3:,.0f} "
+        f"real tokens/s ({real / batch:.1f} a row), {answer / ms * 1e3:,.0f}"
+        f" answer tokens/s; bound {bound_ms:.2f} ms ({bound_by}: "
+        f"{c['forward_operations'] / 1e12:.3f} T forward operations at the "
+        f"bf16 peak, {c['backward_operations'] / 1e12:.3f} T backward at the"
+        f" f32 peak; {c['bytes'] / 1e9:.2f} GB of f32 logits and scores) = "
+        f"{bound_ms / ms:.1%} of it | {card}")
+    device_ms = profile_train_steps(
+        torch, step, params, (tb, mb), 3, card,
+        f"decoder train step (batch {batch}, max_len {cfg.max_len}, bf16)",
+        DECODER_STEP_PARTS)
+    if device_ms is not None:
+        log(f"decoder train step: device time {device_ms:.2f} ms a step = "
+            f"{device_ms / ms:.1%} of the unprofiled step's {ms:.2f} ms "
+            f"(the card's busy share without the profiler's cost) | {card}")
+    del run, params, leaves, step, tb, mb
+    shutil.rmtree(tmp, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"phase 20: {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rows", type=int, default=10_000_000,
@@ -3266,6 +3491,13 @@ def main() -> None:
                     help="passages of phase 15's ICT corpus")
     ap.add_argument("--train-steps", type=int, default=300,
                     help="steps of phase 15's training run")
+    ap.add_argument("--decoder-steps", type=int, default=300,
+                    help="steps of phase 20's decoder training (recipe "
+                         "4000)")
+    ap.add_argument("--decoder-triples", type=int, default=6000,
+                    help="triples of phase 20 (recipe 60000)")
+    ap.add_argument("--decoder-eval", type=int, default=64,
+                    help="eval questions of phase 20 (recipe 128)")
     ap.add_argument("--lengths-out", default=None,
                     help="write phase 15's layer-0 row lengths (JSON by S) "
                          "here, for time_kernels --lengths")
@@ -3623,13 +3855,19 @@ def main() -> None:
 
     # -- phases 14-15: encoder training and the attention backward kernels ---
     phase_small_attention_bwd(flash_attention, torch)
-    bwd_kernels = train_phases(args, card, rng, sampled,
+    corpus_dir = tempfile.mkdtemp(prefix="ragtpu-chip-smoke-corpus-")
+    corpus = build_corpus(args, corpus_dir)
+    bwd_kernels = train_phases(args, card, rng, sampled, corpus,
                                (Engine, EngineConfig))
 
     # -- phase 16: the generative chat path -------------------------------
     attn_kernel["launches_generative_chat"] = generator_phase(
         args, card, sampled,
         (Engine, EngineConfig, EngineRpcServer, RemoteEngine))
+
+    # -- phase 20: the generative decoder's trainer ---------------------------
+    decoder_train_phase(args, card, corpus)
+    shutil.rmtree(corpus_dir, ignore_errors=True)
     log(f"total {time.perf_counter() - t_start:.1f} s")
 
     kernels = {"kernels": [{

@@ -24,6 +24,16 @@ out as JAX writes it: f32 scores times ``head_dim ** -0.5``, masked with
 accumulated in f32. No attention library call stands in for it, so its
 numbers follow JAX's.
 
+Training differentiates through autograd with JAX's rounding: each
+product's operand gradients are the f32 cotangent times the other operand
+widened to f32, rounded once to the operand's dtype, and a bias's
+gradient is the cotangent summed in f32, rounded to the bias's dtype
+(``_F32Product``, the transpose rule of a ``dot_general`` with
+``preferred_element_type=f32``). The other casts (the layernorms' f32
+statistics, the working-dtype roundings) differentiate as ``Tensor.to``
+does, as JAX's ``convert_element_type`` does. The backward products run
+in f32 on both devices.
+
 Serving runs one prefill over the right-padded prefix, then
 ``decode_block``: ``k_steps`` greedy steps against a static-shape KV
 cache, as a Python loop with the position a host integer, so nothing in
@@ -96,23 +106,69 @@ def _layernorm(x: torch.Tensor, g: torch.Tensor,
                         eps=1e-6).to(x.dtype)
 
 
+def _f32_product(a: torch.Tensor, b: torch.Tensor,
+                 bias: torch.Tensor | None) -> torch.Tensor:
+    """``a @ b (+ bias)`` over ``[m, k] x [k, n]`` or ``[B, m, k] x [B, k,
+    n]``, accumulated and returned in f32 (JAX's ``dot_general`` with
+    ``preferred_element_type=f32``), the bias added in f32. On the card
+    one cuBLAS call with an f32 output; on the CPU the operands widened to
+    f32 first, which gives the same exact products."""
+    if a.is_cuda:
+        if a.dim() == 3:
+            return torch.bmm(a, b, out_dtype=torch.float32)
+        if bias is None:
+            return torch.mm(a, b, out_dtype=torch.float32)
+        return torch.addmm(bias.float(), a, b, out_dtype=torch.float32)
+    y = (torch.mm if a.dim() == 2 else torch.bmm)(a.float(), b.float())
+    return y if bias is None else y + bias.float()
+
+
+class _F32Product(torch.autograd.Function):
+    """``_f32_product`` with JAX's transpose rule as its backward
+    (``jax/_src/lax/lax.py``, ``_dot_general_transpose_lhs``), one code
+    for both devices: the f32 cotangent ``g`` times the other operand
+    widened to f32, an f32 product, rounded once to the operand's dtype;
+    the bias's gradient is ``g`` summed in f32 and rounded to its dtype.
+    These backward products run at the card's f32 rate, not its bf16
+    tensor-core rate (PyTorch's ``*.dtype`` overloads of
+    ``mm``/``addmm``/``bmm`` that the forward uses have no derivative of
+    their own)."""
+
+    @staticmethod
+    def forward(ctx, a, b, bias):
+        ctx.save_for_backward(a, b)
+        ctx.bias_dtype = None if bias is None else bias.dtype
+        return _f32_product(a, b, bias)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        ga = gb = gbias = None
+        if ctx.needs_input_grad[0]:
+            ga = torch.matmul(g, b.float().transpose(-1, -2)).to(a.dtype)
+        if ctx.needs_input_grad[1]:
+            gb = torch.matmul(a.float().transpose(-1, -2), g).to(b.dtype)
+        if ctx.needs_input_grad[2]:
+            gbias = g.sum(0).to(ctx.bias_dtype)
+        return ga, gb, gbias
+
+
+def _product(a: torch.Tensor, b: torch.Tensor,
+             bias: torch.Tensor | None) -> torch.Tensor:
+    # serving (no gradient wanted) skips the autograd.Function's own
+    # host cost, a few microseconds a call on a launch-bound decode
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (a, b, bias)):
+        return _F32Product.apply(a, b, bias)
+    return _f32_product(a, b, bias)
+
+
 def _dot(x: torch.Tensor, w: torch.Tensor,
          b: torch.Tensor | None = None) -> torch.Tensor:
     """``x @ w (+ b)`` over the last axis of ``x``, accumulated and
-    returned in f32 (JAX's ``preferred_element_type=f32``), the bias
-    added in f32. On the card a bf16 product runs as one cuBLAS call with
-    an f32 output; on the CPU the operands are widened to f32 first,
-    which gives the same exact products."""
-    x2 = x.reshape(-1, x.shape[-1])
-    if x.is_cuda:
-        if b is None:
-            y = torch.mm(x2, w, out_dtype=torch.float32)
-        else:
-            y = torch.addmm(b.float(), x2, w, out_dtype=torch.float32)
-    else:
-        y = x2.float() @ w.float()
-        if b is not None:
-            y = y + b.float()
+    returned in f32, the bias added in f32 (``_f32_product``;
+    differentiable through ``_F32Product``)."""
+    y = _product(x.reshape(-1, x.shape[-1]), w, b)
     return y.view(*x.shape[:-1], w.shape[1])
 
 
@@ -120,12 +176,8 @@ def _bmm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Batched ``a @ b`` over ``[..., m, k] x [..., k, n]``, accumulated
     and returned in f32 (``_dot``'s rule)."""
     lead = a.shape[:-2]
-    a3 = a.reshape(-1, *a.shape[-2:])
-    b3 = b.reshape(-1, *b.shape[-2:])
-    if a.is_cuda:
-        y = torch.bmm(a3, b3, out_dtype=torch.float32)
-    else:
-        y = torch.bmm(a3.float(), b3.float())
+    y = _product(a.reshape(-1, *a.shape[-2:]),
+                 b.reshape(-1, *b.shape[-2:]), None)
     return y.view(*lead, *y.shape[-2:])
 
 
@@ -210,6 +262,19 @@ def lm_loss(params: dict, tokens: torch.Tensor, loss_mask: torch.Tensor,
     ce = -(ll * mask).sum() / n
     zl = ((logz ** 2) * mask).sum() / n
     return ce + z_reg * zl
+
+
+def make_train_step(cfg: DecoderConfig, optimizer, *,
+                    max_grad_norm: float | None = None, **loss_kwargs):
+    """A ``(params, tokens, loss_mask) -> loss`` step of ``lm_loss(...,
+    **loss_kwargs)`` that updates ``params`` in place: the encoder's
+    ``make_step`` (clip by global norm, then the optimizer's step in each
+    leaf's dtype), the one step of ``scripts/train_decoder.py``'s
+    ``lax.scan``."""
+    return _enc.make_step(
+        lambda params, tokens, loss_mask: lm_loss(
+            params, tokens, loss_mask, cfg, **loss_kwargs),
+        optimizer, max_grad_norm=max_grad_norm)
 
 
 # ---------------------------------------------------------------------------

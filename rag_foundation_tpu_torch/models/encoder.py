@@ -236,11 +236,11 @@ def contrastive_loss(params: dict, q_ids: torch.Tensor, d_ids: torch.Tensor,
     return loss
 
 
-def make_train_step(cfg: EncoderConfig, optimizer: OptimizerFactory, *,
-                    max_grad_norm: float | None = None, **loss_kwargs):
-    """A ``(params, q_ids, d_ids) -> loss`` step that updates ``params`` in
-    place: gradients of ``contrastive_loss(..., **loss_kwargs)``, clipped
-    to ``max_grad_norm`` by ``clip_by_global_norm_`` when it is given
+def make_step(loss_fn, optimizer: OptimizerFactory, *,
+              max_grad_norm: float | None = None):
+    """A ``(params, *batch) -> loss`` step that updates ``params`` in
+    place: gradients of ``loss_fn(params, *batch)``, clipped to
+    ``max_grad_norm`` by ``clip_by_global_norm_`` when it is given
     (optax's ``chain(clip_by_global_norm, ...)``), then one step of the
     optimizer that ``optimizer`` builds over the leaves at the first call
     and keeps (it holds the state JAX threads as ``opt_state``). The
@@ -249,8 +249,7 @@ def make_train_step(cfg: EncoderConfig, optimizer: OptimizerFactory, *,
     host sync)."""
     state: dict = {}
 
-    def step(params: dict, q_ids: torch.Tensor,
-             d_ids: torch.Tensor) -> torch.Tensor:
+    def step(params: dict, *batch: torch.Tensor) -> torch.Tensor:
         leaves = list(_leaves(params).values())
         if "opt" not in state:
             for p in leaves:
@@ -262,7 +261,7 @@ def make_train_step(cfg: EncoderConfig, optimizer: OptimizerFactory, *,
                              "first called with; make a new step for others")
         opt = state["opt"]
         opt.zero_grad(set_to_none=True)
-        loss = contrastive_loss(params, q_ids, d_ids, cfg, **loss_kwargs)
+        loss = loss_fn(params, *batch)
         loss.backward()
         if max_grad_norm is not None:
             clip_by_global_norm_(leaves, max_grad_norm)
@@ -270,6 +269,16 @@ def make_train_step(cfg: EncoderConfig, optimizer: OptimizerFactory, *,
         return loss.detach()
 
     return step
+
+
+def make_train_step(cfg: EncoderConfig, optimizer: OptimizerFactory, *,
+                    max_grad_norm: float | None = None, **loss_kwargs):
+    """A ``(params, q_ids, d_ids) -> loss`` step (``make_step``) of
+    ``contrastive_loss(..., **loss_kwargs)``."""
+    return make_step(
+        lambda params, q_ids, d_ids: contrastive_loss(
+            params, q_ids, d_ids, cfg, **loss_kwargs),
+        optimizer, max_grad_norm=max_grad_norm)
 
 
 # -- host-facing encoder ------------------------------------------------------

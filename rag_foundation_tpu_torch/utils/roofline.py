@@ -6,7 +6,8 @@ and its operations over the peak rate for their type. Where the work
 depends on the data (dead rows, dispatch slots, segments), the counts are
 those of the inputs given. Every function returns ``(ms, bound_by, ...)``
 from tensors on any device, or, for the generative decoder
-(``decode_bound``, ``prefill_bound``), from its config's shapes;
+(``decode_bound``, ``prefill_bound``, ``decoder_train_bound``), from
+its config's shapes;
 ``chip_smoke.py`` and ``tools/time_kernels.py`` read them.
 """
 
@@ -273,3 +274,37 @@ def prefill_bound(cfg, length: int, batch: int = 1
         + 2 * cfg.layers * batch * length * h * esize
     ms, by = _pick(nbytes / HBM_BYTES_S, ops / PEAK_OPS_S[kind])
     return ms, by, {"bytes": nbytes, "operations": ops}
+
+
+def decoder_train_bound(cfg, batch: int) -> tuple[float, str, dict]:
+    """(ms, "bytes" | "operations", counts): least time of one training
+    step of the generative decoder (``models/decoder.make_train_step``)
+    on ``batch`` rows of ``max_len`` tokens, which feed ``max_len - 1``
+    positions each (``lm_loss`` predicts token t+1 from the first t).
+    Operations: 2 a weight of each product a position forward
+    (``_decoder_linear_params``, the tied head included) at the config's
+    dtype's peak and 4 backward (each operand's gradient) at the f32 peak,
+    where ``_F32Product``'s backward runs them; the attention's two
+    products 4 a hidden unit for each causal (query, key) pair forward at
+    the dtype's peak and 8 backward at the f32 peak. The times of the two
+    rates add. Bytes: the f32 logits ``[batch, s, vocab]`` and each
+    layer's f32 scores ``[batch, heads, s, s]``, each written and read
+    once forward and their gradients written and read once backward.
+    Every position of the rows counts: the step computes the padded
+    rows whole."""
+    s = cfg.max_len - 1
+    positions = batch * s
+    pairs = batch * s * (s + 1) // 2
+    kind = "bf16" if cfg.dtype == "bfloat16" else "f32"
+    linear = _decoder_linear_params(cfg)
+    attn = 4.0 * cfg.layers * cfg.hidden * pairs
+    fwd = 2.0 * positions * linear + attn
+    bwd = 4.0 * positions * linear + 2 * attn
+    logits = batch * s * cfg.vocab_size * 4
+    scores = cfg.layers * batch * cfg.heads * s * s * 4
+    nbytes = 4 * (logits + scores)
+    ms, by = _pick(nbytes / HBM_BYTES_S,
+                   fwd / PEAK_OPS_S[kind] + bwd / PEAK_OPS_S["f32"])
+    return ms, by, {"bytes": nbytes, "logits_bytes": logits,
+                    "scores_bytes": scores, "forward_operations": fwd,
+                    "backward_operations": bwd, "positions": positions}

@@ -38,7 +38,10 @@ decoder (plain PyTorch products, no kernel of its own) on the card
 against its CPU path: bf16 logits against f32 within 2^-3
 (``chip_smoke.DECODER_LOGIT_TOL``'s reason), f32 within 1e-4 (f32 sums in
 another order), and greedy ids equal wherever the CPU's top-1/top-2
-margin exceeds twice the tolerance.
+margin exceeds twice the tolerance; its products' gradients
+(``_F32Product``) on the card against the CPU path within one bf16
+rounding plus 1e-5 of the sums' magnitudes, and ``lm_loss``'s gradients
+in bf16 at cosine >= 0.99 against the CPU's f32.
 """
 
 import numpy as np
@@ -820,6 +823,105 @@ def test_decoder_on_card_matches_the_cpu_path(card, dtype, tol):
     gen.prewarm()
     text = "".join(gen.stream("how fast?", ["it is fast"]))
     assert text == "".join(gen.stream("how fast?", ["it is fast"]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", ["dot", "dot+bias", "bmm"])
+def test_decoder_products_differentiate_on_card_as_on_the_cpu(card, dtype,
+                                                              shape):
+    """``_F32Product`` (``_dot``/``_bmm``): the card's forward (one cuBLAS
+    call with an f32 output) and backward against the CPU path on the
+    same operands and cotangent. Both sum exact products in f32 in
+    another order: the forward within 1e-5 of sum|a||b|; each operand's
+    gradient is an f32 product rounded once to the operand's dtype, so in
+    bf16 a sum in another order can land one ulp (2^-8 relative) away:
+    within 2^-8 |plain| + 1e-5 of its sum of magnitudes."""
+    from rag_foundation_tpu_torch.models import decoder as tdec
+    g = torch.Generator().manual_seed(7)
+
+    def make(*size):
+        return torch.randn(*size, generator=g).to(dtype)
+
+    if shape == "bmm":
+        a, b, bias, gy = make(6, 33, 40), make(6, 40, 17), None, \
+            torch.randn(6, 33, 17, generator=g)
+    else:
+        a, b, gy = make(65, 96), make(96, 130), torch.randn(65, 130,
+                                                            generator=g)
+        bias = make(130) if shape == "dot+bias" else None
+    outs = {}
+    for dev in ("cpu", card):
+        ins = [x.detach().to(dev).requires_grad_(True) if x is not None
+               else None for x in (a, b, bias)]
+        y = tdec._F32Product.apply(*ins)
+        y.backward(gy.to(dev))
+        assert y.dtype == torch.float32
+        outs[str(dev)] = [y.detach().cpu()] + [
+            x.grad.cpu() for x in ins if x is not None]
+    cpu, gpu = outs["cpu"], outs[str(card)]
+    aa, ab = a.float().abs(), b.float().abs()
+    ag = gy.abs()
+    sums = [aa @ ab, ag @ ab.transpose(-1, -2), aa.transpose(-1, -2) @ ag]
+    if bias is not None:
+        sums.append(ag.sum(0))
+    for i, (got, want, mag) in enumerate(zip(gpu, cpu, sums)):
+        assert got.dtype == want.dtype and got.shape == want.shape, i
+        rel = 0.0 if i == 0 or dtype == torch.float32 else 2.0 ** -8
+        err = (got.float() - want.float()).abs()
+        assert bool((err <= rel * want.float().abs() + 1e-5 * mag).all()), i
+
+
+@pytest.mark.cuda
+def test_decoder_train_step_on_card(card):
+    """``lm_loss`` on the card in bf16 against the CPU path in f32 on
+    ``decoder_smoke.npz``: every leaf's gradient at cosine >= 0.99 (the
+    card rounds activations to bf16, 2^-8 relative, through two layers;
+    a wrong product or mask turns whole gradients) but the key third of
+    ``qkv_b``, whose gradient is 0 in exact arithmetic; then ten steps of
+    ``make_train_step`` on one batch lower its loss."""
+    from pathlib import Path
+
+    from rag_foundation_tpu_torch.models import decoder as tdec
+    ckpt = str(Path(__file__).resolve().parents[1] / "checkpoints"
+               / "decoder_smoke.npz")
+    p_cpu, cfg, tok = tdec.load_decoder(ckpt, device="cpu")
+    rng = np.random.default_rng(0)
+    toks = rng.integers(5, cfg.vocab_size, (8, cfg.max_len)).astype(np.int32)
+    toks[2, 100:] = tdec.PAD_ID
+    mask = np.zeros(toks.shape, np.int8)
+    mask[:, 60:120] = 1
+    mask[2, 100:] = 0
+    grads = {}
+    for name, dev, params, c in (
+            ("card", card, tenc._map(p_cpu, lambda _, t: t.detach().to(card)),
+             cfg),
+            ("f32", "cpu", tenc._map(p_cpu, lambda _, t: t.detach().float()),
+             cfg._replace(dtype="float32"))):
+        leaves = tenc._leaves(params)
+        for t in leaves.values():
+            t.requires_grad_(True)
+        loss = tdec.lm_loss(params, torch.from_numpy(toks).to(dev),
+                            torch.from_numpy(mask).to(dev), c)
+        loss.backward()
+        grads[name] = {k: t.grad.double().cpu().ravel()
+                       for k, t in leaves.items()}
+    h = cfg.hidden
+    for key, want in grads["f32"].items():
+        got = grads["card"][key]
+        if key.endswith("['qkv_b']"):
+            got, want = torch.cat([got[:h], got[2 * h:]]), \
+                torch.cat([want[:h], want[2 * h:]])
+        if float(want.norm()) == 0.0:
+            assert float(got.norm()) == 0.0, key
+            continue
+        cos = float(got @ want / (got.norm() * want.norm()))
+        assert cos >= 0.99, (key, cos)
+    params = tenc._map(p_cpu, lambda _, t: t.detach().to(card))
+    step = tdec.make_train_step(cfg, optim.adamw(1e-3), max_grad_norm=1.0)
+    tb, mb = torch.from_numpy(toks).to(card), torch.from_numpy(mask).to(card)
+    losses = [float(step(params, tb, mb)) for _ in range(10)]
+    assert all(np.isfinite(losses)) and losses[-1] < losses[0], losses
 
 
 @pytest.mark.cuda

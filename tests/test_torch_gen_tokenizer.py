@@ -48,6 +48,28 @@ def test_train_gen_vocab_equal(size, min_pair):
         jgt.train_gen_vocab(CORPUS, size, min_pair_count=min_pair)
 
 
+# prose with many ties among pair counts and runs of one letter (a pair
+# of a piece with itself, merged left to right)
+DOCS = [p.read_text() for p in sorted(
+    (ROOT / "benchmarks" / "quality" / "docs").glob("*.md"))] + [
+    "zzzz zzzzz zzzzzz mmmmmmm aaa aaaa baaab " * 4, "ssss sss ss s " * 3]
+
+
+@pytest.mark.parametrize("size,min_pair", [(300, 2), (1200, 2), (5000, 2),
+                                           (2000, 1)])
+def test_train_gen_vocab_equal_merge_for_merge_on_prose(size, min_pair):
+    """The port's incremental trainer against the JAX package's recount
+    of every pair: the same pieces with the same ids, in the same order,
+    up to where the merges run out (``min_pair_count``)."""
+    want = jgt.train_gen_vocab(DOCS, size, min_pair_count=min_pair)
+    got = tgt.train_gen_vocab(DOCS, size, min_pair_count=min_pair)
+    assert list(got.items()) == list(want.items())
+    if size == 300:
+        assert len(got) == size           # it fills
+    if size == 5000:
+        assert len(got) < size            # it runs out of pairs
+
+
 @pytest.mark.parametrize("text", TEXTS)
 def test_ids_and_decode_bit_identical(vocabs, text):
     j, t = (jgt.GenTokenizer(vocabs[0]), tgt.GenTokenizer(vocabs[1]))

@@ -238,3 +238,44 @@ def test_prefill_bound_at_decoder_distill(length):
                                           length)
     assert c32["operations"] == c["operations"]
     assert ms32 >= ms
+
+
+def test_decoder_train_bound_at_decoder_distill():
+    cfg = _distill_cfg()
+    h, f, v, layers, heads, batch = 384, 1536, 8192, 6, 6, 64
+    s = 511                                    # lm_loss feeds tokens[:, :-1]
+    # the products' weights a position passes through: qkv, proj, fc1, fc2
+    # of each block and the tied head; counted by hand from the npz
+    with np.load(DISTILL) as z:
+        linear = sum(z[k].size for k in z.files if k.endswith(
+            ("['qkv']", "['proj']", "['fc1']", "['fc2']"))) \
+            + z["['tok_emb']"].size
+    assert linear == layers * (3 * h * h + h * h + 2 * h * f) + v * h \
+        == 13_762_560
+    pairs = batch * s * (s + 1) // 2           # causal (query, key) pairs
+    fwd = 2.0 * batch * s * linear + 4.0 * layers * h * pairs
+    bwd = 4.0 * batch * s * linear + 8.0 * layers * h * pairs
+    ms, by, c = roofline.decoder_train_bound(cfg, batch)
+    assert c["positions"] == 32_704
+    assert c["forward_operations"] == pytest.approx(fwd, rel=REL)
+    assert c["backward_operations"] == pytest.approx(bwd, rel=REL)
+    # f32 logits [64, 511, 8192] (1.07 GB) and six layers' f32 scores
+    # [64, 6, 511, 511] (2.41 GB), each written and read forward and
+    # backward
+    assert c["logits_bytes"] == batch * s * v * 4 == 1_071_644_672
+    assert c["scores_bytes"] == layers * batch * heads * s * s * 4 \
+        == 2_406_491_136
+    assert c["bytes"] == 4 * (c["logits_bytes"] + c["scores_bytes"])
+    # the forward at the bf16 tensor-core peak, the backward at the f32
+    # peak: 30.16 ms, bound by the f32 backward products
+    want = fwd / 0.989e15 + bwd / 67e12
+    assert want > c["bytes"] / 3.35e12 and by == "operations"
+    assert ms == pytest.approx(want * 1e3, rel=REL)
+    assert 30.0 < ms < 30.3
+    # f32 weights: every product at the f32 peak; twice the rows, twice
+    # the time
+    ms32, _, c32 = roofline.decoder_train_bound(
+        cfg._replace(dtype="float32"), batch)
+    assert ms32 == pytest.approx((fwd + bwd) / 67e12 * 1e3, rel=REL)
+    assert roofline.decoder_train_bound(cfg, 2 * batch)[0] == \
+        pytest.approx(2 * ms, rel=REL)
