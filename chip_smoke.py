@@ -215,6 +215,39 @@ Phases (each one fails the run: non-zero exit, no result line):
     busy share over three steps with device time by kernel family
     (``torch.profiler``), and the eval's ``answerable_f1``, ``cloze_f1``,
     ``refusal_acc`` and ``grounded_rate``.
+21. Processes joined into one mesh, after phase 17 on phase 3's body: two
+    processes (``torch.multiprocessing`` spawn) on the one card, each
+    joined by ``init_distributed(..., backend="gloo")`` to a mesh of two
+    shards, one a process, under one timeout (a process that fails, or
+    the pod past it, kills both and fails with their stderr). Each keeps
+    its half: of 1M x 768 f32 rows for ``sharded_topk`` (Q=1024, k=10),
+    bit-identical to this process's ``exact_topk``; of phase 3's 10M int8
+    body's lists (2,048 of 4,096) for ``sharded_ivf_search`` on the fact
+    questions (Q=1024, nprobe_local 16, p 3); of a 1M-row IVF-PQ body
+    built in the phase (phase 6's comes later in the run) for
+    ``sharded_ivfpq_search``; each equal, ids and values, to the two-shard
+    search in this process on ``[card] * 2``, and the two processes'
+    results equal. The body and rows reach the processes as CUDA IPC
+    handles of this process's tensors (the saved ``body.npz`` holds only
+    the real documents: pads are not persisted). Printed: each process's
+    ``ivf_list_scan`` and ``pq_list_scan`` launches (counters zeroed just
+    before), the Q=1024 times beside the single-process ones, the
+    candidates' all-gather share, the backend.
+22. The sharded training step at full width, after phase 15 on its
+    corpus: ``make_sharded_train_step`` at the flagship ``EncoderConfig()``
+    (bf16), batch ``TRAIN_BATCH`` (q_len 32, d_len 128), the recipe's
+    loss and optimizer, on ``[card] * 4`` at data 2 x shard 2, with
+    ``sharded_topk`` over 1M x 384 f32 rows and ``assign_clusters`` to
+    4,096 centroids. It fails unless the loss is finite and within
+    ``DP_LOSS_RTOL`` of the ``data=1`` step's on the same batch and
+    parameters, every leaf's gradient reaches ``GRAD_COS_MIN`` against
+    it, the ids and values equal ``exact_topk`` of the step's query
+    embeddings and the assignment ``assign_clusters`` (but near-ties
+    within ``F32_TOL``), the parameters stayed on the card and the three
+    attention counters (zeroed just before the step) moved. Printed: ms a
+    step beside the ``data=1`` step and phase 15's step on the same batch,
+    the attention launches a step, the device's busy share over three
+    steps; then ``tools.dryrun_multichip --devices 8`` on the card.
 
 ``--long-docs`` sets the number of long documents of phase 13;
 ``--decoder-steps``, ``--decoder-triples`` and ``--decoder-eval`` phase
@@ -225,7 +258,9 @@ encode rates, right-first shares, latencies and qcap drops), then the
 kernels' JSON (eight entries; the flash-attention forward's also holds
 its launches on phase 16's chat path, the two list scans their
 launches and one shard's numbers on the sharded paths of phases 17-18,
-``ivf_list_scan`` its launches on phase 19's app calls); the last line
+``ivf_list_scan`` its launches on phase 19's app calls, the two list
+scans their launches in each process of phase 21, the three attention
+kernels theirs in one step of phase 22); the last line
 is ``{"ok": true, "device": {...}}``.
 The script imports neither JAX nor the JAX package.
 """
@@ -1217,6 +1252,11 @@ def mesh_flat_phase(args, card, ctx, mods) -> dict:
             f"ivf_list_scan int8, shard 0 of 4 ({shard0.nlist} lists, "
             f"qcap {qcap}), Q=1024 stored rows; the 4 shards' launches "
             f"together {scans_ms:.3f} ms", card)
+        entry["library_ms"], lib_chunks = library_ms_of(qdisp, shard0.lists,
+                                                        3)
+        log(f"shard 0's library yardstick: torch.bmm+topk (f32, every slot, "
+            f"{lib_chunks} list chunks) {entry['library_ms']:.3f} ms | "
+            f"{card}")
         del routed, probe_lists, dispatch, qdisp
 
         # a few fact documents into the sharded tail over RPC
@@ -3474,6 +3514,544 @@ def decoder_train_phase(args, card, corpus) -> None:
     log(f"phase 20: {time.perf_counter() - t_phase:.1f} s")
 
 
+# -- phases 21-22: processes joined into one mesh; the sharded training step --
+
+POD_TIMEOUT_S = 420    # phase 21's two processes together, start to end
+POD_ROWS = 1_000_000   # phase 21's flat rows and PQ body rows
+POD_BLOCK = 10_000     # divides each process's 500,000 rows: every block
+                       # product has one shape in both processes and in
+                       # the single-process scan
+# phase 22: the loss of a data=2 step against the data=1 step on the same
+# global batch and parameters. The two encode 128 and 256 rows a call, so
+# cuBLAS may sum a bf16 product in another order: each embedding moves by
+# about a bf16 rounding (2^-8 relative), the logits by 1/temperature = 20
+# times that on unit vectors' dots. A loss per data row (negatives from
+# the row's own 128) is another function: ln 128 against ln 256 at
+# chance, 12% of the loss, far outside. Relative tolerance
+DP_LOSS_RTOL = 2 ** -7
+
+
+def host_ms(torch, fn, reps: int) -> float:
+    """Host-clock ms a call of ``fn`` (after one warm-up), ending in a
+    synchronize: what a caller waits for."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / reps * 1e3
+
+
+def pod_child(rank: int, port: int, root: str, err_path: str, shared: dict,
+              results) -> None:
+    """Phase 21's process ``rank`` of two: joins the process group over
+    gloo on the one card, keeps its half of each shared corpus and body
+    (views of the parent's tensors, received as CUDA IPC handles), runs
+    the three sharded searches across the process boundary, and puts its
+    results, launches and times (numpy and plain values) on
+    ``results``."""
+    import os
+    fd = os.open(err_path, os.O_WRONLY | os.O_CREAT | os.O_TRUNC)
+    os.dup2(fd, 2)                       # tracebacks go to the parent
+    sys.path.insert(0, root)
+    import torch
+    import torch.distributed as dist
+    import rag_foundation_tpu_torch.engine  # noqa: F401 (before parallel)
+    from rag_foundation_tpu_torch.engine.ivf import IVFFlatIndex
+    from rag_foundation_tpu_torch.engine.ivfpq import IVFPQIndex
+    from rag_foundation_tpu_torch.ops import ivf_scan, pq_scan
+    from rag_foundation_tpu_torch.parallel import sharded_ivf as sivf
+    from rag_foundation_tpu_torch.parallel.mesh import (init_distributed,
+                                                        make_mesh,
+                                                        shard_rows)
+    from rag_foundation_tpu_torch.parallel.topk_merge import (
+        gather_over_processes, sharded_topk)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    if not init_distributed(coordinator=f"127.0.0.1:{port}",
+                            num_processes=2, process_id=rank,
+                            backend="gloo"):
+        raise RuntimeError("init_distributed did not join")
+    card = torch.device("cuda", torch.cuda.current_device())
+    mesh = make_mesh(2, devices=[card])
+    out = {"rank": rank, "backend": dist.get_backend(),
+           "mesh": dict(mesh.shape), "shard_offset": mesh.shard_offset}
+
+    # flat: this process's 500,000 rows
+    blocks = shard_rows(mesh, shared["corpus"])
+    fq = shared["flat_queries"]
+    out["flat_rows_held"] = int(blocks[0].shape[0])
+    v, i = sharded_topk(fq, blocks, 10, mesh=mesh, block_size=POD_BLOCK)
+    out["flat"] = (v.cpu().numpy(), i.cpu().numpy())
+    out["flat_ms"] = host_ms(torch, lambda: sharded_topk(
+        fq, blocks, 10, mesh=mesh, block_size=POD_BLOCK), 3)
+
+    # IVF-Flat: this process's half of the 10M body's lists
+    body = sivf.shard_ivf_index(IVFFlatIndex(**shared["ivf"]), mesh)
+    qv = shared["ivf_queries"]
+    out["ivf_lists_held"] = int(body.shards[0].nlist)
+    out["ivf_rows_held"] = int(body.shards[0].n)
+
+    def ivf():
+        return sivf.sharded_ivf_search(body, qv, 10, mesh=mesh,
+                                       nprobe_local=16, p=3)
+
+    ivf_scan.LAUNCHES.reset()                   # counts: this path only
+    v, i = ivf()
+    torch.cuda.synchronize()
+    out["ivf_launches"] = ivf_scan.LAUNCHES.count   # read just after
+    out["ivf"] = (v.cpu().numpy(), i.cpu().numpy())
+    out["ivf_ms"] = host_ms(torch, ivf, 5)
+    cand = ([v], [i])
+    out["gather_ms"] = host_ms(torch, lambda: gather_over_processes(
+        *cand, 10, card), 5)
+
+    # IVF-PQ: this process's half of the PQ body's lists
+    pq = sivf.shard_ivfpq_index(IVFPQIndex(**shared["pq"]), mesh)
+    pq_q = shared["pq_queries"]
+
+    def adc():
+        return sivf.sharded_ivfpq_search(pq, pq_q, 10, mesh=mesh,
+                                         nprobe_local=16, p=4)
+
+    pq_scan.LAUNCHES.reset()                    # counts: this path only
+    v, i = adc()
+    torch.cuda.synchronize()
+    out["pq_launches"] = pq_scan.LAUNCHES.count     # read just after
+    out["pq"] = (v.cpu().numpy(), i.cpu().numpy())
+    out["pq_ms"] = host_ms(torch, adc, 5)
+    results.put(out)
+    dist.barrier()
+    dist.destroy_process_group()
+    # release the parent's tensors before exiting (CUDA IPC counts them)
+    del blocks, body, pq, qv, pq_q, fq, cand, v, i
+    shared.clear()
+    gc.collect()
+    torch.cuda.synchronize()
+
+
+def run_pod(torch, shared: dict, timeout_s: float) -> list[dict]:
+    """Phase 21's two processes (``pod_child``), started together with
+    ``torch.multiprocessing``'s spawn; a process that exits non-zero, or
+    a pod past ``timeout_s``, kills both and fails with their stderr.
+    Returns the two results, rank 0 first."""
+    import queue
+    import socket
+    mp = torch.multiprocessing.get_context("spawn")
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    err_dir = tempfile.mkdtemp(prefix="ragtpu-chip-smoke-pod-")
+    errs = [str(Path(err_dir) / f"rank{r}.err") for r in range(2)]
+    results = mp.Queue()
+    procs = [mp.Process(target=pod_child, args=(r, port, str(ROOT), errs[r],
+                                                shared, results))
+             for r in range(2)]
+
+    def stderr() -> str:
+        return "\n".join(
+            f"--- rank {r} stderr ---\n"
+            + (Path(e).read_text()[-3000:] if Path(e).exists() else "")
+            for r, e in enumerate(errs))
+
+    got = {}
+    deadline = time.monotonic() + timeout_s
+    try:
+        for p in procs:
+            p.start()
+        while len(got) < 2:
+            try:
+                item = results.get(timeout=1.0)
+                got[item["rank"]] = item
+                continue
+            except queue.Empty:
+                pass
+            if any(p.exitcode not in (None, 0) for p in procs):
+                fail(f"phase 21: a process failed "
+                     f"({[p.exitcode for p in procs]}):\n{stderr()}")
+            if all(p.exitcode is not None for p in procs):
+                fail(f"phase 21: the processes ended without their "
+                     f"results:\n{stderr()}")
+            if time.monotonic() > deadline:
+                fail(f"phase 21: the pod did not finish in {timeout_s} s:"
+                     f"\n{stderr()}")
+        for p in procs:
+            p.join(timeout=max(1.0, deadline - time.monotonic()))
+        if any(p.exitcode != 0 for p in procs):
+            fail(f"phase 21: exit codes {[p.exitcode for p in procs]}:\n"
+                 f"{stderr()}")
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+        shutil.rmtree(err_dir, ignore_errors=True)
+    return [got[0], got[1]]
+
+
+def pod_phase(args, card, body, fact_vectors) -> dict:
+    """Phase 21: two processes on the one card joined into one mesh by
+    ``init_distributed`` (gloo), each holding half of the shards:
+    ``sharded_topk`` over 1M x 768 rows, ``sharded_ivf_search`` over
+    phase 3's 10M int8 body and ``sharded_ivfpq_search`` over a 1M-row PQ
+    body, each against the single-process result (``exact_topk``; the
+    two-shard search on ``[card] * 2``), and each list scan on shard 0's
+    dispatch against its plain version. Returns the two list scans'
+    launches in the processes and their shard-0 checks."""
+    import numpy as np
+    import torch
+    from rag_foundation_tpu_torch.engine import ivfpq as tpq
+    from rag_foundation_tpu_torch.engine.ivf import default_qcap
+    from rag_foundation_tpu_torch.engine.ivfpq import build_ivf_pq
+    from rag_foundation_tpu_torch.ops import ivf_scan, pq_scan
+    from rag_foundation_tpu_torch.ops.topk import exact_topk
+    from rag_foundation_tpu_torch.parallel import sharded_ivf as sivf
+    from rag_foundation_tpu_torch.parallel.mesh import make_mesh
+    from rag_foundation_tpu_torch.utils import roofline
+    t_phase = time.perf_counter()
+    g = torch.Generator(device="cuda").manual_seed(args.seed + 21)
+    mesh2 = card_mesh(torch, make_mesh, 2)
+
+    # the flat corpus and its single-process scan
+    corpus = torch.randn((POD_ROWS, 768), generator=g, device="cuda")
+    corpus /= corpus.norm(dim=1, keepdim=True)
+    flat_q = torch.randn((1024, 768), generator=g, device="cuda")
+    flat_q /= flat_q.norm(dim=1, keepdim=True)
+    flat_ref = exact_topk(flat_q, corpus, 10, block_size=POD_BLOCK)
+    flat_ms = host_ms(torch, lambda: exact_topk(flat_q, corpus, 10,
+                                                block_size=POD_BLOCK), 3)
+
+    # IVF-Flat: phase 3's 10M body on two shards in this process
+    ivf_q = torch.as_tensor(fact_vectors, device="cuda")
+    two = sivf.shard_ivf_index(body, mesh2)
+
+    def ivf_one():
+        return sivf.sharded_ivf_search(two, ivf_q, 10, mesh=mesh2,
+                                       nprobe_local=16, p=3)
+
+    ivf_ref = ivf_one()
+    ivf_ms = host_ms(torch, ivf_one, 5)
+    # shard 0's kernel on the dispatch the process holding shard 0 scans
+    # (the same queries routed over the same 2,048 lists), against its
+    # plain version, as phase 17 holds a shard of four
+    qcap = default_qcap(1024, 16, two.nlist_local)
+    _, dispatch, _, dropped, qdisp, scale = sivf.route_shards(
+        two, ivf_q, 16, qcap, mesh2)[0]
+    shard0 = two.shards[0]
+    ivf_shard = shard_kernel_line(
+        torch, ivf_scan.ivf_list_scan, ivf_scan.ivf_list_scan_reference,
+        (qdisp, shard0.lists, shard0.row_ids, dispatch),
+        dict(p=3, scale=scale),
+        roofline.scan_bound(shard0.row_ids, ivf_scan.live_slots(dispatch),
+                            qcap, 3, 1, 768, "int8"),
+        f"phase 21 ivf_list_scan int8, shard 0 of 2 ({shard0.nlist} lists, "
+        f"qcap {qcap}, dropped {int(dropped)}), Q=1024 fact questions",
+        card)
+    del dispatch, qdisp, shard0
+
+    # IVF-PQ: phase 6's body is not built yet at this point of the run
+    # (its store comes after the int8 store is released), so a 1M-row
+    # body of phase 6's layout (d 768, m 192 unpacked 4-bit codes, no
+    # device refine) is built here
+    centers = torch.randn((4096, 768), generator=g, device="cuda")
+    pq_rows = centers[torch.randint(0, 4096, (POD_ROWS,), generator=g,
+                                    device="cuda")]
+    pq_rows += 0.5 * torch.randn(pq_rows.shape, generator=g, device="cuda")
+    pq_rows /= pq_rows.norm(dim=1, keepdim=True)
+    t0 = time.perf_counter()
+    pq = build_ivf_pq(pq_rows, nlist=1024, m=192, generator=g, refine=False)
+    torch.cuda.synchronize()
+    pq_build_s = time.perf_counter() - t0
+    pq_q = pq_rows[:1024] + 0.05 * torch.randn((1024, 768), generator=g,
+                                               device="cuda")
+    del centers
+    pq_two = sivf.shard_ivfpq_index(pq, mesh2)
+
+    def pq_one():
+        return sivf.sharded_ivfpq_search(pq_two, pq_q, 10, mesh=mesh2,
+                                         nprobe_local=16, p=4)
+
+    pq_ref = pq_one()
+    pq_ms = host_ms(torch, pq_one, 5)
+    # shard 0's ADC scan on its own dispatch of the same queries, as the
+    # process holding it routes them (adc_top_rows), against its plain
+    # version
+    shard0 = pq_two.shards[0]
+    q32, _, _, dispatch, _, dropped = tpq.route(
+        shard0, pq_q, 16, default_qcap(1024, 16, pq_two.nlist_local))
+    lut_disp, _ = tpq.scan_inputs(shard0, q32, dispatch, torch.int8)
+    pq_shard = shard_kernel_line(
+        torch, pq_scan.pq_list_scan, pq_scan.pq_list_scan_reference,
+        (lut_disp, shard0.codes, shard0.row_ids, dispatch), dict(p=4),
+        roofline.pq_scan_bound(shard0.row_ids, pq_scan.live_slots(dispatch),
+                               dispatch.shape[1], 4, shard0.m,
+                               shard0.codes.shape[2], 1),
+        f"phase 21 pq_list_scan int8 LUT, shard 0 of 2 ({shard0.nlist} "
+        f"lists, qcap {dispatch.shape[1]}, dropped {int(dropped)}), Q=1024 "
+        f"stored rows + noise", card)
+    del q32, dispatch, lut_disp, shard0
+    log(f"phase 21 inputs: flat {POD_ROWS} x 768 f32 (Q=1024 random, "
+        f"k=10, block {POD_BLOCK}); IVF-Flat phase 3's 10M int8 body "
+        f"(nlist {body.nlist}, {body.n} rows; the data_dir's body.npz holds "
+        f"only the real documents, since pads are not persisted, so the "
+        f"processes get the 10M body as CUDA IPC handles of this process's "
+        f"tensors), Q=1024 fact questions, nprobe_local 16, p 3; IVF-PQ: "
+        f"phase 6's body not there yet, a {POD_ROWS}-row body built here "
+        f"in {pq_build_s:.1f} s (nlist {pq.nlist}, m {pq.m}, 4-bit, no "
+        f"refine), "
+        f"Q=1024 stored rows + noise, nprobe_local 16, p 4 | {card}")
+
+    shared = {"corpus": corpus, "flat_queries": flat_q,
+              "ivf": body._asdict(), "ivf_queries": ivf_q,
+              "pq": pq._asdict(), "pq_queries": pq_q}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = run_pod(torch, shared, POD_TIMEOUT_S)
+    pod_s = time.perf_counter() - t0
+    for r, res in enumerate(got):
+        if res["mesh"] != {"data": 1, "shard": 2} \
+                or res["shard_offset"] != r:
+            fail(f"phase 21: rank {r}'s mesh {res['mesh']} offset "
+                 f"{res['shard_offset']}")
+        if res["flat_rows_held"] != POD_ROWS // 2 \
+                or res["ivf_lists_held"] != body.nlist // 2:
+            fail(f"phase 21: rank {r} holds {res['flat_rows_held']} rows, "
+                 f"{res['ivf_lists_held']} lists")
+        if res["ivf_launches"] == 0 or res["pq_launches"] == 0:
+            fail(f"phase 21: rank {r} launched ivf_list_scan "
+                 f"{res['ivf_launches']}, pq_list_scan "
+                 f"{res['pq_launches']} times")
+    for name in ("flat", "ivf", "pq"):
+        a, b = got[0][name], got[1][name]
+        if not (np.array_equal(a[0], b[0]) and np.array_equal(a[1], b[1])):
+            fail(f"phase 21: the two processes' {name} results differ")
+    rv, ri = (t.cpu().numpy() for t in flat_ref)
+    fv, fi = got[0]["flat"]
+    if not (np.array_equal(fv, rv) and np.array_equal(fi, ri)):
+        fail(f"phase 21: cross-process sharded_topk differs from "
+             f"exact_topk in {int((fi != ri).sum())} ids, "
+             f"{int((fv != rv).sum())} values")
+    for name, ref in (("ivf", ivf_ref), ("pq", pq_ref)):
+        v, i = got[0][name]
+        want_v, want_i = (t.cpu().numpy() for t in ref)
+        if not np.array_equal(i, want_i):
+            fail(f"phase 21: cross-process {name} ids differ from the "
+                 f"single-process two-shard search in "
+                 f"{int((i != want_i).sum())} of {i.size}")
+        if not np.array_equal(v, want_v):
+            fail(f"phase 21: cross-process {name} values differ from the "
+                 f"single-process two-shard search")
+    r0 = got[0]
+    log(f"phase 21: 2 processes on one card, backend {r0['backend']} (the "
+        f"candidates staged through host memory), mesh {r0['mesh']}, each "
+        f"holding {r0['flat_rows_held']} flat rows and "
+        f"{r0['ivf_lists_held']} lists ({got[0]['ivf_rows_held']} + "
+        f"{got[1]['ivf_rows_held']} rows of the 10M body); both processes "
+        f"equal: sharded_topk bit-identical to exact_topk, the IVF-Flat and "
+        f"IVF-PQ ids and values bit-identical to the two-shard search in "
+        f"one process; launches a process: ivf_list_scan "
+        f"{[g_['ivf_launches'] for g_ in got]}, pq_list_scan "
+        f"{[g_['pq_launches'] for g_ in got]} (counters zeroed just "
+        f"before) | {card}")
+    log(f"phase 21 Q=1024 times (host clock to a synchronize, each process "
+        f"while the other runs the same on the card): flat "
+        f"{[round(g_['flat_ms'], 3) for g_ in got]} ms across processes vs "
+        f"{flat_ms:.3f} single-process exact_topk; IVF-Flat "
+        f"{[round(g_['ivf_ms'], 3) for g_ in got]} ms vs {ivf_ms:.3f} "
+        f"two shards in one process, the candidates' all-gather "
+        f"{[round(g_['gather_ms'], 3) for g_ in got]} ms of it "
+        f"({got[0]['gather_ms'] / got[0]['ivf_ms']:.1%} on rank 0); IVF-PQ "
+        f"{[round(g_['pq_ms'], 3) for g_ in got]} ms vs {pq_ms:.3f}; the "
+        f"pod {pod_s:.1f} s with start-up; phase 21 "
+        f"{time.perf_counter() - t_phase:.1f} s | {card}")
+    del shared, corpus, pq, pq_two, pq_rows, two
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"ivf_list_scan": [g_["ivf_launches"] for g_ in got],
+            "pq_list_scan": [g_["pq_launches"] for g_ in got],
+            "ivf_shard": ivf_shard, "pq_shard": pq_shard,
+            "backend": r0["backend"]}
+
+
+def sharded_train_phase(args, card, corpus) -> dict:
+    """Phase 22: ``make_sharded_train_step`` at the flagship config on
+    ``[card] * 4`` (data 2 x shard 2), batch 256 from phase 15's corpus,
+    against the ``data=1`` step on the same batch and parameters and the
+    single-device searches, and the attention kernels at a data row's
+    shapes against their plain versions; then
+    ``tools.dryrun_multichip --devices 8`` on the card. Returns the three
+    attention kernels' launches in one sharded step and their errors."""
+    import numpy as np
+    import torch
+    from rag_foundation_tpu_torch.models import encoder as tenc
+    from rag_foundation_tpu_torch.models import optim
+    from rag_foundation_tpu_torch.models.tokenizer import Tokenizer
+    from rag_foundation_tpu_torch.ops import flash_attention as fa
+    from rag_foundation_tpu_torch.ops.kmeans import assign_clusters
+    from rag_foundation_tpu_torch.ops.topk import exact_topk
+    from rag_foundation_tpu_torch.parallel.mesh import make_mesh, shard_rows
+    from rag_foundation_tpu_torch.parallel.train_step import \
+        make_sharded_train_step
+    from rag_foundation_tpu_torch.tools import dryrun_multichip, train_encoder
+    t_phase = time.perf_counter()
+    cfg = tenc.EncoderConfig()
+    if (cfg.vocab_size, cfg.hidden, cfg.layers, cfg.heads, cfg.ffn,
+            cfg.dtype) != (30_522, 384, 6, 12, 1536, "bfloat16"):
+        fail(f"phase 22: the flagship config is {cfg}")
+    chunks = train_encoder.load_chunks(corpus)[:TRAIN_BATCH]
+    tok = Tokenizer(vocab_size=cfg.vocab_size)
+    qrng = np.random.default_rng(args.seed + 22)
+    qb = torch.as_tensor(tok.encode_batch(
+        [train_encoder.keyword_query(qrng, c) for c in chunks], 32),
+        device="cuda")
+    db = torch.as_tensor(tok.encode_batch(chunks, 128), device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(args.seed + 22)
+    params = tenc.init_params(g, cfg)
+    twin = tenc._map(params, lambda _, t: t.clone())
+    rows = torch.randn((1_000_000, cfg.hidden), generator=g, device="cuda")
+    rows /= rows.norm(dim=1, keepdim=True)
+    cents = torch.randn((4096, cfg.hidden), generator=g, device="cuda")
+    card_dev = torch.device("cuda", torch.cuda.current_device())
+    # a block of 10,000 rows divides each shard's 500,000: every block
+    # product has one shape in the step and in the single-device scan
+    recipe = dict(k=10, block_size=POD_BLOCK, temperature=0.05,
+                  symmetric=True, max_grad_norm=1.0)
+    mesh = make_mesh(2, data=2, devices=[card_dev] * 4)
+    mesh1 = make_mesh(2, devices=[card_dev] * 2)
+    step = make_sharded_train_step(cfg, optim.adamw(3e-4), mesh, **recipe)
+    step1 = make_sharded_train_step(cfg, optim.adamw(3e-4), mesh1, **recipe)
+    inputs = (qb, db, shard_rows(mesh, rows), cents)
+
+    counters = (fa.LAUNCHES, fa.BWD_DKV_LAUNCHES, fa.BWD_DQ_LAUNCHES)
+    for c in counters:
+        c.reset()                                 # counts: this step only
+    torch.cuda.synchronize()
+    out = step(params, *inputs)
+    torch.cuda.synchronize()
+    launches = [c.count for c in counters]        # read just after
+    out1 = step1(twin, qb, db, shard_rows(mesh1, rows), cents)
+    loss, loss1 = float(out.loss), float(out1.loss)
+    if not np.isfinite(loss):
+        fail(f"phase 22: non-finite loss {loss}")
+    if min(launches) == 0:
+        fail(f"phase 22: the sharded step launched an attention kernel no "
+             f"time: {launches}")
+    rel = abs(loss - loss1) / abs(loss1)
+    if rel > DP_LOSS_RTOL:
+        fail(f"phase 22: data=2 loss {loss} against data=1 {loss1}: "
+             f"relative {rel:.3g} > {DP_LOSS_RTOL}")
+    worst_cos = 1.0
+    for key, a in tenc._leaves(params).items():
+        r = tenc._leaves(twin)[key]
+        a, r = a.grad.double().ravel(), r.grad.double().ravel()
+        if not bool(torch.isfinite(a).all()):
+            fail(f"phase 22: the gradient of {key} is not finite")
+        if float(r.norm()) == 0.0:
+            continue
+        worst_cos = min(worst_cos, float(a @ r / (a.norm() * r.norm())))
+    if worst_cos < GRAD_COS_MIN:
+        fail(f"phase 22: gradient cosine {worst_cos} < {GRAD_COS_MIN}")
+    ev, ei = exact_topk(out.queries, rows, 10, block_size=POD_BLOCK)
+    if not (torch.equal(out.indices, ei) and torch.equal(out.values, ev)):
+        fail(f"phase 22: sharded_topk of the step's queries differs from "
+             f"exact_topk in {int((out.indices != ei).sum())} ids")
+    # each data row assigns its 128 queries: a product of another shape,
+    # so a centroid may win only where two tie within the f32 tolerance
+    ref_assign = assign_clusters(out.queries, cents)[0]
+    ties = (out.assign != ref_assign).nonzero().flatten().tolist()
+    score = out.queries @ cents.T - 0.5 * (cents * cents).sum(dim=1)
+    for j in ties:
+        gap = float(score[j, out.assign[j]] - score[j, ref_assign[j]])
+        if abs(gap) > F32_TOL:
+            fail(f"phase 22: query {j} assigned to {int(out.assign[j])}, "
+                 f"assign_clusters gives {int(ref_assign[j])} ({gap})")
+    off = [k for k, t in tenc._leaves(params).items()
+           if t.device.type != "cuda"]
+    if off:
+        fail(f"phase 22: parameters off the card after the step: {off}")
+    # the attention kernels at a data row's shapes (B=128 at S=32 and
+    # 128, which no earlier phase checks): layer 0 of each side of row 0,
+    # with the gradient its half batch's loss sends back, against their
+    # plain versions
+    half = TRAIN_BATCH // 2
+    cap = capture_calls(fa, torch, (0, cfg.layers))
+    torch.autograd.grad(
+        tenc.contrastive_loss(params, qb[:half], db[:half], cfg, 0.05, True,
+                              attention=cap),
+        list(tenc._leaves(params).values()))
+    attn_err = {"flash_attention": 0.0, "flash_attention_bwd_dkv": 0.0,
+                "flash_attention_bwd_dq": 0.0}
+    for s_len, call in ((32, 0), (128, cfg.layers)):
+        q, k, v, sq, skv, scale, do = cap.captured[call]
+        what = f"phase 22 layer 0 B={q.shape[0]} S={s_len}"
+        fwd, lse = fa.flash_attention_forward(q, k, v, sq, skv, scale,
+                                              with_lse=True)
+        err_f, _ = check_attention(
+            torch, fwd, fa.flash_attention_reference(q, k, v, sq, skv, scale),
+            v, "bf16", f"{what} flash_attention")
+        di = (fwd.float() * do.float()).sum(dim=-1)
+        err_kv, err_q = check_bwd_kernels(torch, fa, q, k, v, sq, skv, lse,
+                                          do, di, scale, "bf16", what)
+        for name, err in zip(attn_err, (err_f, err_kv, err_q)):
+            attn_err[name] = max(attn_err[name], err)
+    del cap, q, k, v, sq, skv, do, fwd, lse, di
+    log(f"phase 22: make_sharded_train_step, MiniLM-L6 (vocab 30522, hidden "
+        f"384, 6 layers, 12 heads, ffn 1536, bf16), batch {TRAIN_BATCH} "
+        f"(q_len 32, d_len 128, phase 15's corpus), symmetric InfoNCE "
+        f"t=0.05, adamw 3e-4, clip 1.0, mesh {mesh.shape} on [card] * 4; "
+        f"sharded_topk k=10 over 1,000,000 x 384 f32, assign_clusters to "
+        f"4096 centroids: loss {loss:.6f} vs the data=1 step's {loss1:.6f} "
+        f"(relative {rel:.3g}, tolerance {DP_LOSS_RTOL}); worst gradient "
+        f"cosine of {len(tenc._leaves(params))} leaves {worst_cos:.6f} "
+        f"(floor {GRAD_COS_MIN}); ids and values equal exact_topk, "
+        f"assignment equal assign_clusters but {len(ties)} near-ties, "
+        f"parameters on the card; a data row's layer 0 (B={half}, S=32 "
+        f"and 128) against the plain versions: max_abs_err forward "
+        f"{attn_err['flash_attention']:.3g}, dK/dV "
+        f"{attn_err['flash_attention_bwd_dkv']:.3g}, dQ "
+        f"{attn_err['flash_attention_bwd_dq']:.3g}; "
+        f"attention launches a step: flash_attention {launches[0]}, "
+        f"flash_attention_bwd_dkv {launches[1]}, flash_attention_bwd_dq "
+        f"{launches[2]} | {card}")
+
+    # times: the sharded step, the data=1 step, phase 15's plain step
+    plain = tenc.make_train_step(cfg, optim.adamw(3e-4), max_grad_norm=1.0,
+                                 temperature=0.05, symmetric=True)
+    spare = tenc._map(params, lambda _, t: t.detach().clone())
+    runs = {"data 2 x shard 2": lambda: step(params, *inputs),
+            "data 1 x shard 2": lambda: step1(twin, qb, db,
+                                               shard_rows(mesh1, rows), cents),
+            "phase 15's step (one device, no search)":
+                lambda: plain(spare, qb, db)}
+    times = {name: [] for name in runs}
+    for name, fn in list(runs.items()) + list(reversed(runs.items())):
+        times[name].append(host_ms(torch, fn, 3))
+    log("phase 22 ms a step (host clock to a synchronize, two runs of 3 "
+        "each, in turns): " + "; ".join(
+            f"{n} {min(t):.2f}-{max(t):.2f}" for n, t in times.items())
+        + f" | {card}")
+    device_ms = profile_train_steps(
+        torch, step, params, inputs, 3, card,
+        f"sharded training step (data 2 x shard 2 on one card, batch "
+        f"{TRAIN_BATCH}, with sharded_topk and assign_clusters)")
+    del params, twin, spare, rows, inputs, out, out1, step, step1, plain
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    dry = dryrun_multichip.dryrun_multichip(8, "cuda")
+    log(f"tools.dryrun_multichip --devices 8 on [card] * 8: mesh "
+        f"{dry['mesh']}, loss {dry['loss']:.4f}, "
+        f"{time.perf_counter() - t0:.1f} s; phase 22 "
+        f"{time.perf_counter() - t_phase:.1f} s | {card}")
+    return {"flash_attention": launches[0],
+            "flash_attention_bwd_dkv": launches[1],
+            "flash_attention_bwd_dq": launches[2],
+            "max_abs_err": attn_err,
+            "step_ms": {n: min(t) for n, t in times.items()},
+            "step_device_ms": device_ms}
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rows", type=int, default=10_000_000,
@@ -3823,6 +4401,9 @@ def main() -> None:
                      probe_ids, sampled, rng),
         (Engine, EngineConfig, EngineRpcServer, RemoteEngine, search_profile,
          make_mesh, sivf, tivf, ivf_scan, roofline))
+
+    # -- phase 21: processes joined into one mesh over the same body ---------
+    pod = pod_phase(args, card, body, qv)
     shutil.rmtree(data_dir, ignore_errors=True)
     # release the int8 store before the ivf_pq phases (the servers'
     # handler threads, which hold their engine, end once their clients'
@@ -3860,6 +4441,9 @@ def main() -> None:
     bwd_kernels = train_phases(args, card, rng, sampled, corpus,
                                (Engine, EngineConfig))
 
+    # -- phase 22: the sharded training step -------------------------------
+    dp_train = sharded_train_phase(args, card, corpus)
+
     # -- phase 16: the generative chat path -------------------------------
     attn_kernel["launches_generative_chat"] = generator_phase(
         args, card, sampled,
@@ -3887,7 +4471,19 @@ def main() -> None:
                   "p": p, **c},
         **ivf_sharded,
         **ivf_app,
+        "launches_pod": pod["ivf_list_scan"],
+        "pod_shard": pod["ivf_shard"],
     }] + pq_kernels + exact_kernels + [attn_kernel] + bwd_kernels}
+    # phase 21's launches in each of its two processes; phase 22's in one
+    # sharded training step
+    for entry in kernels["kernels"]:
+        if entry["name"] == "pq_list_scan":
+            entry["launches_pod"] = pod["pq_list_scan"]
+            entry["pod_shard"] = pod["pq_shard"]
+        if entry["name"] in dp_train:
+            entry["launches_sharded_train_step"] = dp_train[entry["name"]]
+            entry["max_abs_err_sharded_train_step"] = \
+                dp_train["max_abs_err"][entry["name"]]
     # the host shim's and the app calls' numbers, apart from the kernels
     print(json.dumps({"host_shim": {"host_rerank": host_rerank,
                                     "ingest_chunks_s": app_calls.pop(

@@ -220,20 +220,29 @@ def encode_tokens(params: dict, ids: torch.Tensor, cfg: EncoderConfig,
 
 # -- contrastive training step (in-batch negatives) --------------------------
 
-def contrastive_loss(params: dict, q_ids: torch.Tensor, d_ids: torch.Tensor,
-                     cfg: EncoderConfig, temperature: float = 0.05,
-                     symmetric: bool = False,
-                     attention: Attention = flash_attention) -> torch.Tensor:
-    """InfoNCE with in-batch negatives: align query i with doc i.
-    ``symmetric`` adds the doc->query direction. A 0-d f32 tensor."""
-    q = encode_tokens(params, q_ids, cfg, attention)
-    d = encode_tokens(params, d_ids, cfg, attention)
+def info_nce(q: torch.Tensor, d: torch.Tensor, temperature: float = 0.05,
+             symmetric: bool = False) -> torch.Tensor:
+    """InfoNCE with in-batch negatives over embeddings ``q, d [B, h]``:
+    align query i with doc i against every doc of the batch (logits
+    ``[B, B]``). ``symmetric`` adds the doc->query direction. A 0-d f32
+    tensor."""
     logits = (q @ d.T) / temperature
     labels = torch.arange(q.shape[0], device=logits.device)
     loss = F.cross_entropy(logits, labels)
     if symmetric:
         loss = 0.5 * (loss + F.cross_entropy(logits.T, labels))
     return loss
+
+
+def contrastive_loss(params: dict, q_ids: torch.Tensor, d_ids: torch.Tensor,
+                     cfg: EncoderConfig, temperature: float = 0.05,
+                     symmetric: bool = False,
+                     attention: Attention = flash_attention) -> torch.Tensor:
+    """``info_nce`` of the encoded queries and docs: query i aligned with
+    doc i. A 0-d f32 tensor."""
+    return info_nce(encode_tokens(params, q_ids, cfg, attention),
+                    encode_tokens(params, d_ids, cfg, attention),
+                    temperature, symmetric)
 
 
 def make_step(loss_fn, optimizer: OptimizerFactory, *,

@@ -44,6 +44,10 @@ class ShardedVectorStore:
     def __init__(self, dim: int, mesh: Mesh, *,
                  shard_capacity: int = _BLOCK,
                  dtype: torch.dtype = torch.float32):
+        if mesh.spans_processes:
+            raise ValueError("a ShardedVectorStore places rows on every "
+                             "shard: it needs a mesh that one process "
+                             "holds")
         self.dim = dim
         self.mesh = mesh
         self.n_shards = mesh.shape["shard"]

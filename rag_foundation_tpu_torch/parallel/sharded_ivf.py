@@ -24,6 +24,14 @@ memory), and in-place appends write the body's own storage.
 The scans are the port's CUDA kernels, one launch a shard:
 ``ivf_list_scan`` (given ``dispatch``, so empty slots are skipped) and
 ``pq_list_scan``, which here gets ``dispatch`` too (JAX passes none).
+
+On a mesh that spans processes (``mesh.init_distributed``), a process
+keeps only its own shards' lists, routes and scans them, and the
+candidates of every process merge through one all-gather
+(``topk_merge.merge_over_mesh``): the result depends on the shard count,
+not on how the shards are spread over processes. Appends stay with one
+process, as JAX's ``device_put`` cannot reach another process's
+devices either.
 """
 
 from __future__ import annotations
@@ -43,8 +51,8 @@ from rag_foundation_tpu_torch.ops.ivf_scan import ivf_list_scan
 from rag_foundation_tpu_torch.ops.kmeans import assign_clusters
 from rag_foundation_tpu_torch.ops.quantize import quantize_with_scale
 from rag_foundation_tpu_torch.parallel.mesh import Mesh, on_device, place
-from rag_foundation_tpu_torch.parallel.topk_merge import (
-    NEG_INF, merge_shard_candidates)
+from rag_foundation_tpu_torch.parallel.topk_merge import (NEG_INF,
+                                                         merge_over_mesh)
 
 # body fields indexed by list (split over the shards); the rest replicate
 LIST_FIELDS = ("centroids", "lists", "codes", "row_ids")
@@ -57,7 +65,8 @@ REPLICATED = ("scale", "codebook_centroids", "refine", "refine_scale",
 class ShardedBody(NamedTuple):
     """An IVF body whose lists are split over a mesh's "shard" axis:
     shard s holds lists ``[s*L, (s+1)*L)`` (its ``n`` counts its live
-    rows); ``n`` is the whole body's, as the unsharded body has it."""
+    rows); ``n`` is the whole body's, as the unsharded body has it. On a
+    mesh that spans processes, ``shards`` are this process's."""
     shards: tuple[IVFFlatIndex | IVFPQIndex, ...]
     n: int
 
@@ -101,9 +110,9 @@ def body_parts(body) -> tuple:
 
 
 def _check_mesh(index: ShardedBody, mesh: Mesh) -> None:
-    if len(index.shards) != mesh.shape["shard"]:
+    if len(index.shards) != len(mesh.devices):
         raise ValueError(f"body of {len(index.shards)} shards on a mesh of "
-                         f"{mesh.shape['shard']}")
+                         f"{len(mesh.devices)}")
 
 
 def _shard(index, mesh: Mesh) -> ShardedBody:
@@ -117,12 +126,12 @@ def _shard(index, mesh: Mesh) -> ShardedBody:
     # it would otherwise pin the whole body there
     copy = any(dev != src for dev in mesh.devices)
     shards = []
-    for s, dev in enumerate(mesh.devices):
+    for g, dev in enumerate(mesh.devices, mesh.shard_offset):
         fields = {}
         for name, val in index._asdict().items():
             if name in LIST_FIELDS:
                 fields[name] = place(
-                    val[s * lists_local:(s + 1) * lists_local], dev,
+                    val[g * lists_local:(g + 1) * lists_local], dev,
                     copy=copy)
             elif isinstance(val, torch.Tensor):
                 fields[name] = place(val, dev, copy=copy)
@@ -135,7 +144,8 @@ def _shard(index, mesh: Mesh) -> ShardedBody:
 
 def shard_ivf_index(index: IVFFlatIndex, mesh: Mesh) -> ShardedBody:
     """Split an IVF-Flat body's lists (with their centroids and ids) over
-    the mesh "shard" axis; the scale replicates."""
+    the mesh "shard" axis and keep this process's shards; the scale
+    replicates."""
     return _shard(index, mesh)
 
 
@@ -217,8 +227,8 @@ def sharded_ivf_search(
     routed = route_shards(index, queries, nprobe, qcap, mesh)
     scanned = scan_shards(index, routed, p, mesh)
     cands = select_shards(index, routed, scanned, k, mesh)
-    vals, rows = merge_shard_candidates([c[0] for c in cands],
-                                        [c[1] for c in cands], k, mesh.lead)
+    vals, rows = merge_over_mesh([c[0] for c in cands],
+                                 [c[1] for c in cands], k, mesh)
     return _pad_k(vals, rows, k)
 
 
@@ -238,7 +248,12 @@ def sharded_ivf_append(
 
     Same contract as ``ivf_append``: returns (updated index, dropped
     mask); dropped rows (list capacity) must be re-routed by the caller.
+    One process holds the whole mesh: raises on a mesh that spans
+    processes.
     """
+    if mesh.spans_processes:
+        raise ValueError("sharded_ivf_append writes every shard: it needs "
+                         "a mesh that one process holds")
     _check_mesh(index, mesh)
     n = vectors.shape[0]
     lists_local, cap_len = index.nlist_local, index.cap_len
@@ -319,7 +334,7 @@ def sharded_ivfpq_search(
                                       lut_dtype=lut_dtype)
             vals.append(torch.where(r >= 0, v, torch.full_like(v, NEG_INF)))
             rows.append(r)
-    m_vals, m_rows = merge_shard_candidates(vals, rows, k, mesh.lead)
+    m_vals, m_rows = merge_over_mesh(vals, rows, k, mesh)
     return _pad_k(m_vals, m_rows, k)
 
 

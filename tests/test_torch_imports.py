@@ -67,7 +67,10 @@ def test_importing_the_port_loads_neither():
 
 
 def test_the_parallel_package_is_covered():
-    # the sharded engine (mesh, top-k merge, sharded store and IVF) is
-    # checked like every other module of the port
+    # the sharded engine (mesh, top-k merge, sharded store and IVF), the
+    # sharded training step and its dryrun tool are checked like every
+    # other module of the port
     names = {p.stem for p in SOURCES if p.parent.name == "parallel"}
-    assert {"mesh", "topk_merge", "sharded_index", "sharded_ivf"} <= names
+    assert {"mesh", "topk_merge", "sharded_index", "sharded_ivf",
+            "train_step"} <= names
+    assert PORT / "tools" / "dryrun_multichip.py" in SOURCES
