@@ -249,16 +249,58 @@ Phases (each one fails the run: non-zero exit, no result line):
     the attention launches a step, the device's busy share over three
     steps; then ``tools.dryrun_multichip --devices 8`` on the card.
 
+23. The port's app, after phase 19 on phase 3's store. (a) ``python -m
+    rag_foundation_tpu_torch.app.main`` with its ``Engine`` in process on
+    the card (``exact``, the settings of ``tests/app_helpers.make_settings``,
+    dev login, the in-process worker), driven over HTTP by the port's
+    ``benchmark.runner``: register and log in, create a store, upload the
+    ten documents of ``benchmarks/quality/docs`` through ``/api/upload``,
+    poll ``op-status`` to DONE, then the 120 quality questions over SSE
+    (``run_benchmark``, 4 clients); then the same with
+    ``RAGTPU_ENGINE_PLATFORM=cpu``. It fails unless every stream keeps
+    the SSE contract (start, text-start, text-delta*,
+    text-end, source-document*, finish, [DONE]), each app logged its
+    device, and the card's answers and citations equal the CPU's on
+    every question (a pair that differs is searched again in this
+    process on both devices: both hit lists printed, and only a swap of
+    hits whose scores tie within 1e-5 passes). Printed: EM, F1, citation
+    hit, refusal accuracy, latency avg/p95, chats/s. (b)
+    ``APP_API_PROCESSES`` API processes of the app (``--workers``,
+    ``RAGTPU_ENGINE_RPC_MODE=connect``) in front of an
+    ``EngineRpcServer`` here that serves phase 3's 10M int8 body at
+    phase 3's settings: two stores made through the API, the first's
+    ``engine_key`` read from the app's sqlite and given the 10M body,
+    ``APP_FACT_DOCS`` fact documents uploaded into the second; chats
+    over both stores one at a time (right document cited first >=
+    ``RECALL_MIN``), then ``APP_CONCURRENCY`` concurrent SSE chats from
+    ``run_benchmark`` in ``APP_CLIENT_PROCESSES`` processes that start
+    together (this process's interpreter lock is the engine's): first as
+    a closed loop (printed, nothing asserted on its batches, which the
+    host keeps under the Q*nprobe*8 > nlist crossover), then in
+    ``APP_WAVES`` waves of ``APP_CONCURRENCY`` chats sent together:
+    ``ivf_list_scan``'s counter (zeroed just before each, read just
+    after) must move in the waves (where the host's pace kept every batch
+    of the measured waves at or under the crossover, up to
+    ``APP_MORE_WAVES`` more are sent, ``APP_WAVES_STEP`` at a time, until
+    one crosses; their number is printed), and the largest dispatch the chats
+    gave it is held to the plain version bit for bit and timed beside its
+    bound. Printed: time to first text-delta and answer latency p50/p99,
+    chats/s, the engine's batch sizes, each process's CPU seconds, the
+    app's and the engine's stages.
+
 ``--long-docs`` sets the number of long documents of phase 13;
 ``--decoder-steps``, ``--decoder-triples`` and ``--decoder-eval`` phase
 20's cuts. Two JSON
 lines end the output before the last: the host shim's and the app
 calls' numbers (phase 18's host re-rank A/B, phase 19's ingest and
-encode rates, right-first shares, latencies and qcap drops), then the
+encode rates, right-first shares, latencies and qcap drops, phase 23's
+app numbers), then the
 kernels' JSON (eight entries; the flash-attention forward's also holds
 its launches on phase 16's chat path, the two list scans their
 launches and one shard's numbers on the sharded paths of phases 17-18,
-``ivf_list_scan`` its launches on phase 19's app calls, the two list
+``ivf_list_scan`` its launches on phase 19's app calls and on phase
+23's concurrent chats with that path's dispatch checked and timed, the
+forward its times at phase 15's training shapes, the two list
 scans their launches in each process of phase 21, the three attention
 kernels theirs in one step of phase 22); the last line
 is ``{"ok": true, "device": {...}}``.
@@ -2679,7 +2721,9 @@ def time_attention_bwd(torch, F, fa, cap, card, what) -> dict:
     """Both backward kernels on captured layer-0 inputs ``cap`` = (q, k, v,
     seg_q, seg_kv, scale, dO): checked against their plain versions, timed
     beside them, beside scaled_dot_product_attention's backward with the
-    boolean mask (timed only), their bounds and the exponential floor."""
+    boolean mask (timed only), their bounds and the exponential floor;
+    then the forward kernel on the same inputs, likewise beside its plain
+    version, the library's forward and its bound."""
     from rag_foundation_tpu_torch.utils import roofline
     q, k, v, sq, skv, scale, do = cap
     b, h, s, d = q.shape
@@ -2721,6 +2765,28 @@ def time_attention_bwd(torch, F, fa, cap, card, what) -> dict:
                      "library_ms": library_ms, "exp_floor_ms": exp_ms,
                      "shape": {"B": b, "H": h, "S": s, "D": d, **c,
                                "empty_16x16_blocks": empty}}
+    # the forward kernel on the same inputs, beside its plain version and
+    # scaled_dot_product_attention's forward with the boolean mask
+    with torch.no_grad():
+        fout = fa.flash_attention(q, k, v, sq, skv, scale)
+        fref = fa.flash_attention_reference(q, k, v, sq, skv, scale)
+        ferr, ftol = check_attention(torch, fout, fref, v, "bf16",
+                                     f"flash_attention {what}")
+        del fout, fref
+        fms = cuda_ms(lambda: fa.flash_attention(q, k, v, sq, skv, scale),
+                      reps=20)
+        fplain = cuda_ms(lambda: fa.flash_attention_reference(
+            q, k, v, sq, skv, scale), reps=2, warmup=1)
+        flib = cuda_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask, scale=scale), reps=20)
+    fbound, fby, fc = roofline.attention_bound(sq, skv, h, d, 2)
+    log(f"flash_attention (forward) bf16 {what}, B={b} H={h} S={s} D={d}: "
+        f"max_abs_err={ferr:.3g} (tol {ftol:.3g}); kernel {fms:.4f} ms, "
+        f"plain {fplain:.3f} ms, scaled_dot_product_attention (bool mask) "
+        f"{flib:.4f} ms, bound {fbound:.4f} ms ({fby}) | {card}")
+    res["flash_attention"] = {"max_abs_err": ferr, "ms": fms,
+                              "plain_ms": fplain, "bound_ms": fbound,
+                              "bound_by": fby, "library_ms": flib}
     del out, lse, di, args, mask, ql, kl, vl, sdpa
     return res
 
@@ -2835,13 +2901,15 @@ def build_corpus(args, out_dir: str) -> str:
     return corpus
 
 
-def train_phases(args, card, rng, sampled, corpus, mods) -> list[dict]:
+def train_phases(args, card, rng, sampled, corpus, mods
+                 ) -> tuple[list[dict], dict]:
     """Phase 15: MiniLM-L6 training at full width through the port's
     trainer (ICT on a corpus built by the recipe's own tool), serving from
     the checkpoint it saved, a few steps at d_len 512, the kernel path's
     gradients against the plain attention's, and the two backward kernels
-    timed on the step's own layer-0 inputs. Returns their two entries of
-    the ``kernels`` line."""
+    and the forward timed on the step's own layer-0 inputs at S 32, 128
+    and 512. Returns the backward kernels' two entries of the ``kernels``
+    line and the forward's numbers at those shapes (``at_train_s{S}``)."""
     import numpy as np
     import torch
     import torch.nn.functional as F
@@ -3049,7 +3117,8 @@ def train_phases(args, card, rng, sampled, corpus, mods) -> list[dict]:
             "exp_floor_ms": main["exp_floor_ms"], "dtype": "bf16",
             "shape": main["shape"],
             **{f"at_s{s}": at[s][name] for s in (32, 512)}})
-    return entries
+    return entries, {f"at_train_s{s}": at[s]["flash_attention"]
+                     for s in (32, 128, 512)}
 
 
 def greedy_answer(gen, tdec, torch, np, question, evidences):
@@ -4051,6 +4120,631 @@ def sharded_train_phase(args, card, corpus) -> dict:
             "step_ms": {n: min(t) for n, t in times.items()},
             "step_device_ms": device_ms}
 
+# -- phase 23: the port's app on the card -------------------------------------
+
+# the settings of tests/app_helpers.make_settings, as RAGTPU_* variables
+APP_SETTINGS = {
+    "ENVIRONMENT": "test", "DEV_LOGIN_ENABLED": "true", "MOCK_MODE": "false",
+    "ENGINE_DIM": "128", "ENGINE_CHUNK_TOKENS": "40",
+    "ENGINE_CHUNK_OVERLAP": "8", "RATE_LIMIT_GLOBAL_PER_MIN": "100000",
+    "RATE_LIMIT_CHAT_PER_MIN": "100000", "RATE_LIMIT_UPLOAD_PER_MIN": "10000",
+    "RATE_LIMIT_LOGIN_PER_MIN": "10000", "STREAM_KEEPALIVE_S": "5.0",
+    "WORKER_RETRY_BACKOFF_S": "0.0"}
+APP_CONCURRENCY = 64      # concurrent SSE chats of phase 23 (b)
+APP_API_PROCESSES = 4     # API processes (--workers) in front of the engine
+APP_CLIENT_PROCESSES = 8  # processes the concurrent chats of (b) come from
+APP_WAVES = 32            # waves of APP_CONCURRENCY chats sent together
+# the engine's batches are the arrivals of one admission window, which the
+# host paces: on an H100 host, three runs of this script formed a batch of
+# 17-32 queries (one launch each) 2 and 4 times in 16 waves and 23 times
+# in 32. Where no measured wave crossed, more waves are sent, this many at
+# a time and at most APP_MORE_WAVES, until one does
+APP_WAVES_STEP = 16
+APP_MORE_WAVES = 160
+ENGINE_STAGES = "engine_query_stage_seconds"
+APP_FACT_DOCS = 16        # fact documents uploaded through the app in (b)
+SCORE_TIE = 1e-5          # (a): card and CPU hits may swap only near-ties
+SSE_HEAD = ["start", "text-start"]
+SSE_TAIL = ["text-end"]
+
+
+def sse_contract_ok(frames: list) -> bool:
+    """start, text-start, text-delta*, text-end, source-document*,
+    finish, [DONE]."""
+    i = 2
+    if frames[:2] != SSE_HEAD:
+        return False
+    while i < len(frames) and frames[i] == "text-delta":
+        i += 1
+    if frames[i:i + 1] != SSE_TAIL:
+        return False
+    i += 1
+    while i < len(frames) and frames[i] == "source-document":
+        i += 1
+    return frames[i:] == ["finish", "[DONE]"]
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+class AppProcess:
+    """``python -m rag_foundation_tpu_torch.app.main`` in its own process
+    group on a free port (``workers`` API processes), its log in
+    ``work/app.log``; ``stop`` ends them and returns the log."""
+
+    def __init__(self, work: Path, env_extra: dict, workers: int = 1):
+        import os
+        self.port = free_port()
+        self.base = f"http://127.0.0.1:{self.port}"
+        self.log_path = work / "app.log"
+        env = {k: v for k, v in os.environ.items()
+               if not k.startswith("RAGTPU_")}
+        env.update({f"RAGTPU_{k}": v for k, v in APP_SETTINGS.items()})
+        env.update(PYTHONPATH=str(ROOT),
+                   RAGTPU_DATA_DIR=str(work / "data"),
+                   RAGTPU_DATABASE_PATH=str(work / "app.db"))
+        env.update({f"RAGTPU_{k}": str(v) for k, v in env_extra.items()})
+        self._log = open(self.log_path, "w")
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "rag_foundation_tpu_torch.app.main",
+             "--port", str(self.port), "--workers", str(workers)],
+            cwd=ROOT, env=env, stdout=self._log, stderr=subprocess.STDOUT,
+            start_new_session=True)
+
+    def wait_live(self, timeout_s: float = 300.0) -> float:
+        import socket
+        t0 = time.perf_counter()
+        while time.perf_counter() - t0 < timeout_s:
+            if self.proc.poll() is not None:
+                fail(f"the app exited {self.proc.returncode}: "
+                     f"{self.log_path.read_text()[-3000:]}")
+            try:
+                with socket.create_connection(("127.0.0.1", self.port), 0.5):
+                    return time.perf_counter() - t0
+            except OSError:
+                time.sleep(0.2)
+        fail("the app did not start listening")
+
+    def stop(self) -> str:
+        import os
+        import signal
+        if self.proc.poll() is None:
+            os.killpg(self.proc.pid, signal.SIGTERM)
+            try:
+                self.proc.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                os.killpg(self.proc.pid, signal.SIGKILL)
+                self.proc.wait(timeout=30)
+        self._log.close()
+        return self.log_path.read_text()
+
+
+def started_devices(log_text: str) -> list[str]:
+    return [json.loads(line)["device"] for line in log_text.splitlines()
+            if '"app_started"' in line and line.startswith("{")]
+
+
+def pct(xs, q) -> float:
+    import numpy as np
+    return float(np.percentile(xs, q)) if xs else float("nan")
+
+
+def cpu_seconds(pids) -> float:
+    """User + system CPU seconds of the live processes ``pids`` so far
+    (``/proc/<pid>/stat``)."""
+    import os
+    tick = os.sysconf("SC_CLK_TCK")
+    total = 0.0
+    for pid in pids:
+        try:
+            fields = Path(f"/proc/{pid}/stat").read_text().rsplit(")", 1)[1]
+        except OSError:
+            continue
+        utime, stime = fields.split()[11:13]
+        total += (int(utime) + int(stime)) / tick
+    return total
+
+
+def process_tree(pid: int) -> list[int]:
+    """``pid`` and its children (one level: the app's forked API
+    processes)."""
+    kids = []
+    for stat in Path("/proc").glob("[0-9]*/stat"):
+        try:
+            ppid = int(stat.read_text().rsplit(")", 1)[1].split()[1])
+        except (OSError, ValueError, IndexError):
+            continue
+        if ppid == pid:
+            kids.append(int(stat.parent.name))
+    return [pid] + kids
+
+
+def stage_means(text: str, family: str) -> dict:
+    """{label: mean ms} of a latency histogram in Prometheus text, parsed
+    by hand (``_sum`` over ``_count`` of each child)."""
+    sums, counts = {}, {}
+    for line in text.splitlines():
+        if not line.startswith(family + "_") or "{" not in line:
+            continue
+        name, rest = line.split("{", 1)
+        labels, value = rest.rsplit("} ", 1)
+        label = labels.split('"')[1]
+        if name.endswith("_sum"):
+            sums[label] = float(value)
+        elif name.endswith("_count"):
+            counts[label] = float(value)
+    return {k: round(sums[k] / counts[k] * 1e3, 3)
+            for k in sums if counts.get(k)}
+
+
+def run_chats_elsewhere(base: str, token: str, stores: list[int],
+                        questions: list[dict], concurrency: int,
+                        work: Path, *, waves: bool = False,
+                        tag: str = "") -> tuple[list[dict], float]:
+    """``concurrency`` concurrent chats from ``run_benchmark`` outside
+    this process, whose interpreter lock the engine needs, from
+    ``APP_CLIENT_PROCESSES`` processes with a share of the clients each
+    (in one process, 64 client threads spend more time contending for its
+    lock than chatting, and the load they offer sags). The processes
+    start together (a barrier of files in ``work``). As a closed loop each
+    client asks its next question as soon as its last is answered; with
+    ``waves`` the questions go in waves of ``concurrency`` chats sent
+    together, each wave once every process has ended the last. Returns
+    the results in the order of ``questions`` and the wall seconds from
+    the first process's start to the last one's end. ``tag`` names the
+    barrier of a later call in the same ``work``."""
+    import os
+    n = APP_CLIENT_PROCESSES
+    step = concurrency if waves else len(questions)
+    # per process, per wave: the indices of its questions
+    shares = [[list(range(w, min(w + step, len(questions))))[j::n]
+               for w in range(0, len(questions), step)] for j in range(n)]
+    barrier = work / f"barrier-{'waves' if waves else 'loop'}{tag}"
+    barrier.mkdir()
+    code = (
+        "import json, os, sys, time\n"
+        "from rag_foundation_tpu_torch.benchmark.runner import (ApiClient,"
+        " run_benchmark)\n"
+        "base, token, stores, n, qpath, opath, bdir, j, parties = "
+        "sys.argv[1:]\n"
+        "c, out = ApiClient(base, token=token), []\n"
+        "for w, qs in enumerate(json.loads(open(qpath).read())):\n"
+        "    open(os.path.join(bdir, f'{w}-{j}'), 'w').close()\n"
+        "    while sum(f.startswith(f'{w}-') for f in os.listdir(bdir)) < "
+        "int(parties):\n"
+        "        time.sleep(0.001)\n"
+        "    out += run_benchmark(c, json.loads(stores), qs, "
+        "concurrency=int(n))['results']\n"
+        "open(opath, 'w').write(json.dumps(out))\n")
+    env = {**os.environ, "PYTHONPATH": str(ROOT)}
+    procs = []
+    t0 = time.perf_counter()
+    for j in range(n):
+        qpath = work / f"chats-in-{j}.json"
+        opath = work / f"chats-out-{j}.json"
+        qpath.write_text(json.dumps([[questions[i] for i in wave]
+                                     for wave in shares[j]]))
+        procs.append((subprocess.Popen(
+            [sys.executable, "-c", code, base, token, json.dumps(stores),
+             str(concurrency // n), str(qpath), str(opath), str(barrier),
+             str(j), str(n)], cwd=ROOT, env=env, stderr=subprocess.PIPE,
+            text=True), opath))
+    errors = []
+    for proc, _ in procs:
+        _, err = proc.communicate(timeout=900)
+        if proc.returncode != 0:
+            errors.append(err[-2000:])
+    wall = time.perf_counter() - t0
+    if errors:
+        fail(f"a chat clients' process failed: {errors[0]}")
+    results = [None] * len(questions)
+    for j, (_, opath) in enumerate(procs):
+        order = [i for wave in shares[j] for i in wave]
+        for i, r in zip(order, json.loads(opath.read_text())):
+            results[i] = r
+    return results, wall
+
+
+def app_inprocess_phase(args, card) -> dict:
+    """Phase 23 (a): the port's app with its ``Engine`` in process on the
+    card (``exact``, the settings of ``tests/app_helpers.make_settings``),
+    started through its entry point and driven by its benchmark client:
+    register and log in, create a store, upload the ten documents of
+    ``benchmarks/quality/docs`` through ``/api/upload`` (the in-process
+    worker ingests them on the card), poll ``op-status``, then the quality
+    questions over SSE (``run_benchmark``, 4 clients). The same with
+    ``RAGTPU_ENGINE_PLATFORM=cpu``: the answers and citations must be
+    equal, question by question, and every stream keep the SSE contract.
+    Returns the phase's numbers."""
+    from rag_foundation_tpu_torch.benchmark.runner import (ApiClient,
+                                                           run_benchmark)
+    quality = ROOT / "benchmarks" / "quality"
+    docs = sorted((quality / "docs").glob("*.md"))
+    questions = [json.loads(line) for line in (
+        quality / "questions.jsonl").read_text().splitlines()
+        if line.strip()]
+    runs, numbers = {}, {}
+    for platform in ("cuda", "cpu"):
+        work = Path(tempfile.mkdtemp(prefix=f"ragtpu-chip-app-{platform}-"))
+        extra = {"ENGINE_INDEX_MODE": "exact"}
+        if platform == "cpu":
+            extra["ENGINE_PLATFORM"] = "cpu"
+        app = AppProcess(work, extra)
+        try:
+            start_s = app.wait_live()
+            client = ApiClient.from_credentials(
+                app.base, "chip@example.com", "Chip-Passw0rd-1",
+                register=True)
+            client.poll_interval_s = 0.05
+            store = client.ensure_store("quality")
+            t0 = time.perf_counter()
+            for path in docs:
+                st = client.upload_and_poll(store["id"], path)
+                if st["status"] != "DONE":
+                    fail(f"phase 23 (a) {platform}: {path.name} {st}")
+            ingest_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            out = run_benchmark(client, store["id"], questions,
+                                concurrency=4)
+            wall = time.perf_counter() - t0
+        finally:
+            log_text = app.stop()
+            shutil.rmtree(work, ignore_errors=True)
+        devices = started_devices(log_text)
+        want = "cpu" if platform == "cpu" else "cuda"
+        if not devices or not all(d.startswith(want) for d in devices):
+            fail(f"phase 23 (a) {platform}: app_started devices {devices}")
+        s = out["summary"]
+        if s["errors"]:
+            fail(f"phase 23 (a) {platform}: {s['errors']} chats failed: "
+                 f"{[r.get('error') for r in out['results']][:3]}")
+        broken = [r["question"] for r in out["results"]
+                  if not sse_contract_ok(r["frames"])]
+        if broken:
+            fail(f"phase 23 (a) {platform}: SSE contract broken for "
+                 f"{broken[:3]}")
+        ttft = [r["ttft_s"] * 1e3 for r in out["results"] if r["ttft_s"]]
+        lat = [r["latency_s"] * 1e3 for r in out["results"]]
+        runs[platform] = out
+        log(f"app (a) on {devices[0]}: started in {start_s:.1f} s, "
+            f"{len(docs)} documents uploaded and ingested in "
+            f"{ingest_s:.2f} s, {len(questions)} questions over SSE (4 "
+            f"clients) in {wall:.2f} s = {len(questions) / wall:.1f} chats/s:"
+            f" EM {s['em']:.4f} F1 {s['f1']:.4f} citation hit "
+            f"{s['citation_hit']:.4f} refusal accuracy {s['refusal_ok']:.4f}"
+            f" latency avg {s['latency_avg_s'] * 1e3:.2f} ms p95 "
+            f"{s['latency_p95_s'] * 1e3:.2f} ms, time to first text-delta "
+            f"p50 {pct(ttft, 50):.2f} ms | {card}")
+        numbers[platform] = {
+            "em": s["em"], "f1": s["f1"], "citation_hit": s["citation_hit"],
+            "refusal_ok": s["refusal_ok"],
+            "latency_avg_ms": s["latency_avg_s"] * 1e3,
+            "latency_p95_ms": s["latency_p95_s"] * 1e3,
+            "ttft_p50_ms": pct(ttft, 50), "answer_p50_ms": pct(lat, 50),
+            "chats_s": len(questions) / wall, "ingest_s": ingest_s}
+    differ = [(q, a, b) for q, a, b in zip(
+        questions, runs["cuda"]["results"], runs["cpu"]["results"])
+        if (a["answer"], a["citations"]) != (b["answer"], b["citations"])]
+    if differ:
+        app_near_ties(differ, docs, card)
+    log(f"app (a): card and CPU answers and citations equal on "
+        f"{len(questions) - len(differ)} of {len(questions)} questions "
+        f"(the rest near-ties within {SCORE_TIE}) | {card}")
+    return {"questions": len(questions), "differ_near_tie": len(differ),
+            "card": numbers["cuda"], "cpu": numbers["cpu"]}
+
+
+def app_near_ties(differ, docs, card) -> None:
+    """Where the card's and the CPU's chats differ, the two engines'
+    hits for the question, printed; the run fails unless the first hit
+    that differs ties its counterpart within ``SCORE_TIE``."""
+    from rag_foundation_tpu_torch.app.config import Settings
+    from rag_foundation_tpu_torch.app.services.rag import (
+        EngineRag, engine_config_from_settings, reformulate_query)
+    from rag_foundation_tpu_torch.engine import Engine
+    settings = Settings(**{k: v for k, v in APP_SETTINGS.items()},
+                        DATA_DIR="")
+    rags = {}
+    for dev in ("cuda", "cpu"):
+        rag = EngineRag(settings, engine=Engine(
+            engine_config_from_settings(settings, device=dev)))
+        key = rag.create_store("quality", 1)
+        for i, path in enumerate(docs, start=1):
+            rag.ingest_document(key, f"doc-{i}", path.name,
+                                path.read_text())
+        rags[dev] = (rag, key)
+    for q, a, b in differ:
+        question = reformulate_query(q["question"], None)
+        hits = {dev: rag.engine.search([key], question, k=128)
+                for dev, (rag, key) in rags.items()}
+        log(f"app (a) differs on {q['question']!r}: card "
+            f"{a['answer']!r} {a['citations']}, CPU {b['answer']!r} "
+            f"{b['citations']}")
+        for dev, hs in hits.items():
+            log(f"  {dev} hits: " + ", ".join(
+                f"{h.doc_name}#{h.ordinal} {h.score:.7f}" for h in hs[:8]))
+        for hc, hp in zip(hits["cuda"], hits["cpu"]):
+            if (hc.doc_id, hc.ordinal) != (hp.doc_id, hp.ordinal):
+                if abs(hc.score - hp.score) > SCORE_TIE:
+                    fail(f"phase 23 (a): the card and the CPU differ on "
+                         f"{q['question']!r} beyond a near-tie: "
+                         f"{hc.score} vs {hp.score} | {card}")
+                break
+        else:
+            fail(f"phase 23 (a): the chats differ on {q['question']!r} but "
+                 f"the engines' hits do not")
+
+
+def app_connect_phase(args, card, ctx, mods) -> tuple[dict, dict]:
+    """Phase 23 (b): ``APP_API_PROCESSES`` API processes of the port's app
+    (``--workers``, ``RAGTPU_ENGINE_RPC_MODE=connect``) in front of an
+    ``EngineRpcServer`` in this process that serves phase 3's 10M int8
+    body at phase 3's settings (an ``Engine`` restarted on its
+    data_dir). Through the API: two stores; the first's ``engine_key``,
+    read from the app's sqlite, gets the 10M body (adopted as phase 19
+    does); ``APP_FACT_DOCS`` fact documents are uploaded into the second.
+    Then chats over [the 10M store, the fact store]: one at a time (the
+    right document cited first, >= ``RECALL_MIN``), then
+    ``APP_CONCURRENCY`` concurrent SSE chats from ``run_benchmark`` in
+    other processes (``run_chats_elsewhere``), as a closed loop and then
+    in ``APP_WAVES`` waves sent together (``ivf_list_scan``'s counter,
+    zeroed just before each and read just after, must move in the waves:
+    the closed loop's batches mostly stay under the Q*nprobe*8 > nlist
+    crossover on this host, which is printed; the largest dispatch the
+    chats gave the kernel is held to the plain version, bit for bit, and
+    timed beside its bound). Returns (the ``ivf_list_scan`` entry's keys
+    for this path, the phase's numbers)."""
+    import resource
+    import sqlite3
+    from rag_foundation_tpu_torch.benchmark.runner import (ApiClient,
+                                                           run_benchmark)
+    from rag_foundation_tpu_torch.utils import roofline
+    (Engine, EngineConfig, EngineRpcServer, tivf, ivf_scan) = mods
+    (cfg, key, sock, body, body_cids, sampled, rng) = ctx
+    t_phase = time.perf_counter()
+    engine = Engine(EngineConfig(**cfg))
+    server = EngineRpcServer(engine, sock, allow_pad=True).start()
+    work = Path(tempfile.mkdtemp(prefix="ragtpu-chip-app-connect-"))
+    app = AppProcess(work, {
+        "ENGINE_RPC_MODE": "connect", "ENGINE_RPC_SOCKET": sock,
+        "ENGINE_DIM": cfg["dim"], "MAX_CONCURRENT_STREAMS": APP_CONCURRENCY,
+        "KV_BACKEND": "sqlite"}, workers=APP_API_PROCESSES)
+    fact_ids = list(range(args.docs + 2000, args.docs + 2000 + APP_FACT_DOCS))
+    scan_calls = []
+    scan = tivf.ivf_list_scan
+    try:
+        start_s = app.wait_live()
+        client = ApiClient.from_credentials(
+            app.base, "chip@example.com", "Chip-Passw0rd-1", register=True)
+        client.poll_interval_s = 0.05
+        big = client.ensure_store("ten million")
+        facts = client.ensure_store("fact sheets")
+        with sqlite3.connect(work / "app.db") as db:
+            big_key = db.execute("SELECT engine_key FROM stores WHERE id=?",
+                                 (big["id"],)).fetchone()[0]
+        # phase 3's store under the app's key: its chunks, its tail and
+        # the 10M body (pads are not persisted: no body.npz rewrite, and
+        # over-fetch past them as the padding engine did)
+        src, dst = engine._store(key), engine._store(big_key)
+        with dst.lock:
+            dst.segment, dst.chunks = src.segment, src.chunks
+            dst.next_chunk_id = src.next_chunk_id
+            dst.segment.adopt_body(body, body_cids)
+            dst.saved_body_version = dst.segment.body_version
+        engine._pad_counts[big_key] = args.rows - args.docs
+        t0 = time.perf_counter()
+        for i in fact_ids:
+            path = work / f"project-{i}.txt"
+            path.write_text(fact_doc(i))
+            client.upload_and_poll(facts["id"], path)
+        ingest_s = time.perf_counter() - t0
+        with sqlite3.connect(work / "app.db") as db:
+            fact_key = db.execute("SELECT engine_key FROM stores WHERE id=?",
+                                  (facts["id"],)).fetchone()[0]
+        hits = engine.search([big_key, fact_key], fact_query(sampled[0]),
+                             k=12)
+        if not hits or hits[0].doc_id != f"doc-{sampled[0]}":
+            fail(f"phase 23 (b): the adopted store's top hit for project "
+                 f"{sampled[0]} is {hits[0].doc_id if hits else None}")
+        stats = engine.store_stats(dst.key)
+        log(f"app (b): {APP_API_PROCESSES} API processes (connect mode) "
+            f"started in {start_s:.1f} s; store {big['id']} -> {big_key} "
+            f"holds {stats['vectors']} vectors (the 10M body adopted), "
+            f"{APP_FACT_DOCS} fact documents uploaded and ingested over "
+            f"RPC in {ingest_s:.2f} s | {card}")
+        stores = [big["id"], facts["id"]]
+        asked = [(i, big_key) for i in sampled] + \
+            [(i, None) for i in fact_ids]
+
+        def q_of(i):
+            return {"question": fact_query(i), "answers": [f"ZEBRA{i * 7}"],
+                    "answerable": True,
+                    "expected_sources": [f"project-{i}.txt"]}
+
+        single = run_benchmark(client, stores, [q_of(i) for i, _ in asked],
+                               concurrency=1)
+        first = [bool(r.get("citations")) and r["citations"][0]
+                 == f"project-{i}.txt"
+                 for (i, _), r in zip(asked, single["results"])]
+        right_first = sum(first) / len(first)
+        s1 = single["summary"]
+        lat1 = [r["latency_s"] * 1e3 for r in single["results"]]
+        ttft1 = [r["ttft_s"] * 1e3 for r in single["results"]
+                 if r.get("ttft_s")]
+        log(f"app (b), one chat at a time over [10M store, fact store]: "
+            f"right document cited first {right_first:.4f} of "
+            f"{len(first)}; EM {s1['em']:.4f} F1 {s1['f1']:.4f}; time to "
+            f"first text-delta p50 {pct(ttft1, 50):.2f} ms p99 "
+            f"{pct(ttft1, 99):.2f} ms; answer p50 {pct(lat1, 50):.2f} ms "
+            f"p99 {pct(lat1, 99):.2f} ms (each waits out the "
+            f"{cfg['batch_window_s'] * 1e3:.0f} ms window) | {card}")
+        if s1["errors"]:
+            fail(f"phase 23 (b): {s1['errors']} single chats failed: "
+                 f"{[r.get('error') for r in single['results']][:3]}; "
+                 f"app log {app.log_path.read_text()[-2000:]}")
+        if right_first < RECALL_MIN:
+            fail(f"phase 23 (b): right document first {right_first} < "
+                 f"{RECALL_MIN}")
+
+        # concurrent chats: the batcher coalesces the API processes'
+        # searches into batches past the Q*nprobe*8 > nlist crossover
+        def keep_largest(qdisp, lists, row_ids, dispatch=None, **kw):
+            live = int((dispatch >= 0).sum()) if dispatch is not None else 0
+            if not scan_calls or live > scan_calls[0][0]:
+                scan_calls[:] = [(live, (qdisp, lists, row_ids, dispatch),
+                                  kw)]
+            return scan(qdisp, lists, row_ids, dispatch, **kw)
+
+        asks = {mode: [q_of(asked[j][0]) for j in rng.integers(
+            0, len(asked), size=APP_CONCURRENCY * rounds)]
+            for mode, rounds in (("closed_loop", 8), ("waves", APP_WAVES))}
+        bounds = engine.metrics.search_batch_size.buckets + (float("inf"),)
+        app_pids = process_tree(app.proc.pid)
+        conc, launches = {}, {}
+        tivf.ivf_list_scan = keep_largest
+        try:
+            for mode, qs in asks.items():
+                batches0 = engine.metrics.search_batch_size.labels()._counts[:]
+                cpu0 = (cpu_seconds(app_pids), time.process_time(),
+                        resource.getrusage(resource.RUSAGE_CHILDREN))
+                ivf_scan.LAUNCHES.reset()       # counts: this run only
+                results, wall = run_chats_elsewhere(
+                    app.base, client.token, stores, qs, APP_CONCURRENCY,
+                    work, waves=mode == "waves")
+                launches[mode] = ivf_scan.LAUNCHES.count   # read just after
+                kids = resource.getrusage(resource.RUSAGE_CHILDREN)
+                cpu = {"api_processes": cpu_seconds(app_pids) - cpu0[0],
+                       "engine_process": time.process_time() - cpu0[1],
+                       "client_processes": (kids.ru_utime + kids.ru_stime)
+                       - (cpu0[2].ru_utime + cpu0[2].ru_stime)}
+                sizes = [a - b for a, b in zip(
+                    engine.metrics.search_batch_size.labels()._counts,
+                    batches0)]
+                ok = [r for r in results if not r.get("error")]
+                n_err = len(results) - len(ok)
+                contract = sum(1 for r in ok if sse_contract_ok(r["frames"]))
+                ttft = [r["ttft_s"] * 1e3 for r in ok if r.get("ttft_s")]
+                lat = [r["latency_s"] * 1e3 for r in ok]
+                conc[mode] = {
+                    "clients": APP_CONCURRENCY, "chats": len(qs),
+                    "chats_s": len(qs) / wall,
+                    "ttft_p50_ms": pct(ttft, 50),
+                    "ttft_p99_ms": pct(ttft, 99),
+                    "answer_p50_ms": pct(lat, 50),
+                    "answer_p99_ms": pct(lat, 99),
+                    "right_first": sum(
+                        1 for q, r in zip(qs, results) if r.get("citations")
+                        and r["citations"][0] == q["expected_sources"][0])
+                    / len(qs),
+                    "batch_sizes": {str(b): n for b, n in zip(bounds, sizes)
+                                    if n},
+                    "cpu_s": {k: round(v, 2) for k, v in cpu.items()},
+                    "launches": launches[mode]}
+                c = conc[mode]
+                how = (f"a closed loop" if mode == "closed_loop" else
+                       f"{len(qs) // APP_CONCURRENCY} waves of "
+                       f"{APP_CONCURRENCY} chats sent together")
+                how += f" from {APP_CLIENT_PROCESSES} client processes"
+                log(f"app (b), {APP_CONCURRENCY} concurrent SSE chats over "
+                    f"[10M store, fact store] ({how}): {len(qs)} chats in "
+                    f"{wall:.2f} s = {c['chats_s']:.1f} chats/s, errors "
+                    f"{n_err}; time to first text-delta p50 "
+                    f"{c['ttft_p50_ms']:.2f} ms p99 {c['ttft_p99_ms']:.2f} ms;"
+                    f" answer p50 {c['answer_p50_ms']:.2f} ms p99 "
+                    f"{c['answer_p99_ms']:.2f} ms; right document first "
+                    f"{c['right_first']:.4f} (batched: probes past qcap are "
+                    f"dropped, not asserted); SSE contract kept by "
+                    f"{contract} of {len(ok)}; engine batches by size (le "
+                    f"bucket: count) {c['batch_sizes']}; ivf_list_scan "
+                    f"launches {launches[mode]}; CPU seconds {c['cpu_s']} "
+                    f"(8 cores) | {card}")
+                if n_err or contract != len(qs):
+                    fail(f"phase 23 (b): {n_err} chats failed, "
+                         f"{len(qs) - contract} broke the SSE contract")
+            # no measured wave crossed: more waves, the counter still
+            # running from just before the first wave
+            more = 0
+            while launches["waves"] == 0 and more < APP_MORE_WAVES:
+                qs = [q_of(asked[j][0]) for j in rng.integers(
+                    0, len(asked), size=APP_CONCURRENCY * APP_WAVES_STEP)]
+                results, _ = run_chats_elsewhere(
+                    app.base, client.token, stores, qs, APP_CONCURRENCY,
+                    work, waves=True, tag=f"-more-{more}")
+                launches["waves"] = ivf_scan.LAUNCHES.count  # read just after
+                more += APP_WAVES_STEP
+                ok = [r for r in results if not r.get("error")]
+                broken = sum(1 for r in ok if not sse_contract_ok(r["frames"]))
+                if len(ok) != len(qs) or broken:
+                    fail(f"phase 23 (b): {len(qs) - len(ok)} chats of the "
+                         f"more waves failed, {broken} broke the SSE "
+                         f"contract")
+            conc["waves"]["more_waves"] = more
+            if more:
+                log(f"app (b): no batch of the {APP_WAVES} measured waves "
+                    f"crossed Q*nprobe*8 > nlist; {more} more waves of "
+                    f"{APP_CONCURRENCY} sent, ivf_list_scan launches "
+                    f"{launches['waves']} over all {APP_WAVES + more} | "
+                    f"{card}")
+        finally:
+            tivf.ivf_list_scan = scan
+        app_metrics = client._request("GET", "/metrics", stream=True).read(
+            ).decode()
+        log(f"app (b), where the chats' time went: one API process's chat "
+            f"stages, mean ms {stage_means(app_metrics, 'chat_stage_seconds')}"
+            f", its engine calls "
+            f"{stage_means(app_metrics, 'engine_latency_seconds')}; the "
+            f"engine's stages a batch (all its searches), mean ms "
+            f"{stage_means(engine.metrics.render(), ENGINE_STAGES)} | {card}")
+        if launches["waves"] == 0:
+            fail("phase 23 (b): the concurrent chats never launched "
+                 "ivf_list_scan")
+        # the largest dispatch the chats gave the kernel, against the plain
+        # version and timed beside its bound
+        live, (qdisp, lists, row_ids, dispatch), kw = scan_calls[0]
+        kv, ki = scan(qdisp, lists, row_ids, dispatch, **kw)
+        rv, ri = ivf_scan.ivf_list_scan_reference(qdisp, lists, row_ids,
+                                                  dispatch, **kw)
+        err = check_scan(kv, ki, rv, ri, True, qdisp, lists,
+                         "ivf_list_scan int8, phase 23 chats' dispatch")
+        del kv, ki, rv, ri
+        ms = cuda_ms(lambda: scan(qdisp, lists, row_ids, dispatch, **kw),
+                     reps=10)
+        live_n = ivf_scan.live_slots(dispatch)
+        bound_ms, bound_by, c = roofline.scan_bound(
+            row_ids, live_n, qdisp.shape[1], kw["p"], 1, qdisp.shape[2],
+            "int8")
+        log(f"ivf_list_scan int8 on the largest dispatch of the chats "
+            f"({live} live slots, qcap {qdisp.shape[1]}, {c['lists_read']} "
+            f"lists read): bit-identical to the plain version; kernel "
+            f"{ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}) | {card}")
+    finally:
+        log_text = app.stop()
+        server.shutdown()
+        shutil.rmtree(work, ignore_errors=True)
+    devices = started_devices(log_text)
+    if not devices or set(devices) != {"remote"}:
+        fail(f"phase 23 (b): app_started devices {devices}")
+    log(f"phase 23 (b): {time.perf_counter() - t_phase:.1f} s")
+    entry = {"launches_app_chat": launches["waves"],
+             "app_chat_more_waves": conc["waves"]["more_waves"],
+             "launches_app_chat_closed_loop": launches["closed_loop"],
+             "app_chat_dispatch": {
+        "live_slots": live, "qcap": int(qdisp.shape[1]), "max_abs_err": err,
+        "ms": ms, "bound_ms": bound_ms, "bound_by": bound_by}}
+    return entry, {
+        "api_processes": APP_API_PROCESSES,
+        "right_first_one_at_a_time": right_first,
+        "single": {"ttft_p50_ms": pct(ttft1, 50),
+                   "ttft_p99_ms": pct(ttft1, 99),
+                   "answer_p50_ms": pct(lat1, 50),
+                   "answer_p99_ms": pct(lat1, 99), "em": s1["em"],
+                   "f1": s1["f1"]},
+        "concurrent": conc}
+
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -4395,6 +5089,13 @@ def main() -> None:
          ivf_scan))
     gc.collect()
 
+    # -- phase 23: the port's app on the card --------------------------------
+    app_inproc = app_inprocess_phase(args, card)
+    ivf_app_chat, app_chat = app_connect_phase(
+        args, card, (cfg, key, sock, body, body_cids, sampled, rng),
+        (Engine, EngineConfig, EngineRpcServer, tivf, ivf_scan))
+    gc.collect()
+
     # -- phase 17: the sharded engine over the same body ---------------------
     ivf_sharded = mesh_flat_phase(
         args, card, (cfg, key, sock, body, body_cids, qv1, exact, probe_rows,
@@ -4438,8 +5139,9 @@ def main() -> None:
     phase_small_attention_bwd(flash_attention, torch)
     corpus_dir = tempfile.mkdtemp(prefix="ragtpu-chip-smoke-corpus-")
     corpus = build_corpus(args, corpus_dir)
-    bwd_kernels = train_phases(args, card, rng, sampled, corpus,
-                               (Engine, EngineConfig))
+    bwd_kernels, fwd_train = train_phases(args, card, rng, sampled, corpus,
+                                          (Engine, EngineConfig))
+    attn_kernel.update(fwd_train)
 
     # -- phase 22: the sharded training step -------------------------------
     dp_train = sharded_train_phase(args, card, corpus)
@@ -4471,6 +5173,7 @@ def main() -> None:
                   "p": p, **c},
         **ivf_sharded,
         **ivf_app,
+        **ivf_app_chat,
         "launches_pod": pod["ivf_list_scan"],
         "pod_shard": pod["ivf_shard"],
     }] + pq_kernels + exact_kernels + [attn_kernel] + bwd_kernels}
@@ -4492,7 +5195,9 @@ def main() -> None:
                                         "ingest_save_s"),
                                     "encode_chunks_s": app_calls.pop(
                                         "encode_chunks_s")},
-                      "app_calls": app_calls}), flush=True)
+                      "app_calls": app_calls,
+                      "app": {"in_process": app_inproc,
+                              "connect": app_chat}}), flush=True)
     print(json.dumps(kernels), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

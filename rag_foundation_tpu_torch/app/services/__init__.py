@@ -1,2 +1,1 @@
-"""JAX-free copies of the JAX app's answer-text services (see
-``rag_foundation_tpu_torch.app``)."""
+"""Business-logic services over the engine and the database."""

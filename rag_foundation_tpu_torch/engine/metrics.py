@@ -2,11 +2,14 @@
 
 Counterpart of the engine series of ``rag_foundation_tpu/app/metrics.py``
 (the ones the JAX engine feeds from ``api.py``), without
-``prometheus_client``: a histogram with fixed buckets and a gauge, both
-with labels, and ``render`` in the text exposition format 0.0.4
-(``# HELP``/``# TYPE``, cumulative ``_bucket{le=...}`` ending in
-``+Inf``, ``_sum`` and ``_count``). ``EngineRpcServer``'s
-``metrics_text`` op returns ``Engine.metrics.render()``.
+``prometheus_client``: a counter, a histogram with fixed buckets and a
+gauge, all with labels, and ``render`` in the text exposition format
+0.0.4 as ``prometheus_client.generate_latest`` writes it (``# HELP``/
+``# TYPE``, a counter's ``_total``, cumulative ``_bucket{le=...}`` ending
+in ``+Inf``, ``_sum`` and ``_count``, and the ``_created`` gauge family of
+each counter and histogram child). ``EngineRpcServer``'s ``metrics_text``
+op returns ``Engine.metrics.render()``; the port's app renders its own
+series with the same classes (``app/metrics.py``).
 """
 
 from __future__ import annotations
@@ -14,6 +17,7 @@ from __future__ import annotations
 import bisect
 import math
 import threading
+import time
 
 # prometheus_client's default latency buckets (Histogram.DEFAULT_BUCKETS)
 DEFAULT_BUCKETS = (0.005, 0.01, 0.025, 0.05, 0.075, 0.1, 0.25, 0.5, 0.75,
@@ -43,12 +47,19 @@ def _labels(pairs) -> str:
 
 class _Metric:
     kind = ""
+    has_created = False    # counters and histograms: a _created family
 
     def __init__(self, name: str, doc: str, labelnames=()):
         self.name, self.doc = name, doc
         self.labelnames = tuple(labelnames)
         self._children: dict[tuple[str, ...], object] = {}
+        self._created: dict[tuple[str, ...], float] = {}
         self._lock = threading.Lock()
+
+    @property
+    def base(self) -> str:
+        """The family name (a counter's without ``_total``)."""
+        return self.name
 
     def labels(self, *values, **kw):
         if kw:
@@ -60,6 +71,7 @@ class _Metric:
             child = self._children.get(values)
             if child is None:
                 child = self._children[values] = self._child()
+                self._created[values] = time.time()
         return child
 
     def _child(self):
@@ -73,8 +85,51 @@ class _Metric:
         lines = [f"# HELP {self.name} {self.doc}",
                  f"# TYPE {self.name} {self.kind}"]
         for suffix, pairs, value in self._samples():
-            lines.append(f"{self.name}{suffix}{_labels(pairs)} {_num(value)}")
+            lines.append(f"{self.base}{suffix}{_labels(pairs)} {_num(value)}")
+        created = sorted(self._created.items()) if self.has_created else []
+        if created:
+            name = f"{self.base}_created"
+            lines += [f"# HELP {name} {self.doc}", f"# TYPE {name} gauge"]
+            lines += [f"{name}{_labels(zip(self.labelnames, values))} "
+                      f"{_num(ts)}" for values, ts in created]
         return "\n".join(lines) + "\n"
+
+
+class _CounterChild:
+    def __init__(self):
+        self.value = 0.0
+        self._lock = threading.Lock()
+
+    def inc(self, amount: float = 1.0) -> None:
+        if amount < 0:
+            raise ValueError("counters can only be incremented")
+        with self._lock:
+            self.value += amount
+
+
+class Counter(_Metric):
+    kind = "counter"
+    has_created = True
+
+    def __init__(self, name, doc, labelnames=()):
+        super().__init__(name, doc, labelnames)
+        if not self.labelnames:
+            self.labels()
+
+    @property
+    def base(self) -> str:
+        return self.name[:-len("_total")] if self.name.endswith("_total") \
+            else self.name
+
+    def _child(self):
+        return _CounterChild()
+
+    def inc(self, amount: float = 1.0) -> None:
+        self.labels().inc(amount)
+
+    def _samples(self):
+        for values, child in sorted(self._children.items()):
+            yield "_total", list(zip(self.labelnames, values)), child.value
 
 
 class _HistogramChild:
@@ -93,12 +148,13 @@ class _HistogramChild:
 
 class Histogram(_Metric):
     kind = "histogram"
+    has_created = True
 
     def __init__(self, name, doc, labelnames=(), buckets=DEFAULT_BUCKETS):
         super().__init__(name, doc, labelnames)
         self.buckets = tuple(float(b) for b in buckets)
         if not self.labelnames:
-            self._children[()] = self._child()
+            self.labels()
 
     def _child(self):
         return _HistogramChild(self.buckets)
@@ -133,7 +189,7 @@ class Gauge(_Metric):
     def __init__(self, name, doc, labelnames=()):
         super().__init__(name, doc, labelnames)
         if not self.labelnames:
-            self._children[()] = self._child()
+            self.labels()
 
     def _child(self):
         return _GaugeChild()

@@ -1,6 +1,8 @@
 """The port and its chip smoke script stand alone: no JAX, nothing of the
-JAX package. Checked statically (AST of every source) and dynamically
-(importing the whole port in a fresh interpreter)."""
+JAX package, and neither pydantic nor prometheus_client, which the card
+machine lacks (the JAX app needs both; the port's app does without).
+Checked statically (AST of every source) and dynamically (importing the
+whole port in a fresh interpreter)."""
 
 import ast
 import os
@@ -13,7 +15,8 @@ import pytest
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "rag_foundation_tpu_torch"
 SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
-FORBIDDEN = ("jax", "jaxlib", "rag_foundation_tpu")
+FORBIDDEN = ("jax", "jaxlib", "rag_foundation_tpu", "pydantic",
+             "prometheus_client")
 
 
 def _imported_modules(path: Path) -> list[str]:
@@ -64,6 +67,15 @@ def test_importing_the_port_loads_neither():
                          env=env, capture_output=True, text=True,
                          timeout=120)
     assert out.returncode == 0, out.stdout + out.stderr
+
+
+def test_the_app_is_covered():
+    # the app, its runtime and its benchmark client are checked like
+    # every other module of the port
+    names = {str(p.relative_to(PORT)) for p in SOURCES if PORT in p.parents}
+    assert {"app/main.py", "app/config.py", "app/metrics.py",
+            "app/routes/chat.py", "app/services/rag.py",
+            "runtime/http.py", "benchmark/runner.py"} <= names
 
 
 def test_the_parallel_package_is_covered():
