@@ -287,6 +287,33 @@ Phases (each one fails the run: non-zero exit, no result line):
     bound. Printed: time to first text-delta and answer latency p50/p99,
     chats/s, the engine's batch sizes, each process's CPU seconds, the
     app's and the engine's stages.
+24. The split topology production runs, after phase 23 (b) behind the
+    same ``EngineRpcServer`` (phase 3's 10M int8 body): a new deployment
+    whose first admin ``python -m
+    rag_foundation_tpu_torch.tools.create_first_admin`` makes,
+    ``APP_API_PROCESSES`` API processes in connect mode with
+    ``WORKER_IN_PROCESS=0`` and ``APP_SPLIT_WORKERS`` ``python -m
+    rag_foundation_tpu_torch.app.worker_main`` processes in connect mode
+    (their ``recall_audit`` cron every ``APP_AUDIT_S`` s). It fails unless
+    ``APP_FACT_DOCS`` fact documents uploaded together reach DONE through
+    the workers (each job leased once; both logged ``worker_started``),
+    a chat on each fact cites its document first, a deleted document is
+    no longer cited and is listed by ``/api/admin/deletions``, its admin
+    restore is re-ingested by a worker and cited first again,
+    ``/api/admin/engine/recall-probe`` on a store holding the 10M body (k
+    10, sample 32) launches ``ivf_list_scan`` (counter zeroed just before,
+    read just after; the probe's own dispatch bit-identical to the plain
+    version and timed beside its bound) and gives the recall the
+    workers' ``recall_audit`` line gives for that store,
+    ``/api/admin/system`` equals the sqlite rows, ``/api/costs/summary``
+    counts the user's chats, ``/api/settings`` round-trips, ``/`` and
+    ``/static/app.js`` serve their files, ``python -m
+    rag_foundation_tpu_torch.benchmark.loadgen`` (``LOADGEN_*``: the
+    reference's profile) reports no errors, and SIGTERM stops both
+    workers with ``worker_stopped``. Printed: upload to DONE p50 and max,
+    delete to unserved ms, restore to cited s, the probe's HTTP ms,
+    recall and kernel ms beside its bound, loadgen's rps, ok rps and p95
+    a task.
 
 ``--long-docs`` sets the number of long documents of phase 13;
 ``--decoder-steps``, ``--decoder-triples`` and ``--decoder-eval`` phase
@@ -294,12 +321,13 @@ Phases (each one fails the run: non-zero exit, no result line):
 lines end the output before the last: the host shim's and the app
 calls' numbers (phase 18's host re-rank A/B, phase 19's ingest and
 encode rates, right-first shares, latencies and qcap drops, phase 23's
-app numbers), then the
+and phase 24's app numbers), then the
 kernels' JSON (eight entries; the flash-attention forward's also holds
 its launches on phase 16's chat path, the two list scans their
 launches and one shard's numbers on the sharded paths of phases 17-18,
-``ivf_list_scan`` its launches on phase 19's app calls and on phase
-23's concurrent chats with that path's dispatch checked and timed, the
+``ivf_list_scan`` its launches on phase 19's app calls, on phase
+23's concurrent chats and on phase 24's admin recall probe, with those
+paths' dispatches checked and timed, the
 forward its times at phase 15's training shapes, the two list
 scans their launches in each process of phase 21, the three attention
 kernels theirs in one step of phase 22); the last line
@@ -4146,6 +4174,13 @@ APP_FACT_DOCS = 16        # fact documents uploaded through the app in (b)
 SCORE_TIE = 1e-5          # (a): card and CPU hits may swap only near-ties
 SSE_HEAD = ["start", "text-start"]
 SSE_TAIL = ["text-end"]
+# phase 24: the split topology
+APP_SPLIT_WORKERS = 2     # worker_main processes draining the job queue
+APP_AUDIT_S = 10.0        # their recall audit cron's period, seconds
+LOADGEN_USERS = 16        # benchmark.loadgen: users, seconds, the most
+LOADGEN_DURATION_S = 20   # think time (seconds) and the reference's
+LOADGEN_THINK_S = 0.5     # chat share (4 chats : 1 upload)
+LOADGEN_CHAT_RATIO = 0.8
 
 
 def sse_contract_ok(frames: list) -> bool:
@@ -4171,29 +4206,41 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
+def app_env(work: Path, env_extra: dict) -> dict:
+    """The environment of the app's processes over the deployment in
+    ``work`` (its sqlite and data dir): ``APP_SETTINGS`` and
+    ``env_extra`` as ``RAGTPU_*`` variables."""
+    import os
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith("RAGTPU_")}
+    env.update({f"RAGTPU_{k}": v for k, v in APP_SETTINGS.items()})
+    env.update(PYTHONPATH=str(ROOT),
+               RAGTPU_DATA_DIR=str(work / "data"),
+               RAGTPU_DATABASE_PATH=str(work / "app.db"))
+    env.update({f"RAGTPU_{k}": str(v) for k, v in env_extra.items()})
+    return env
+
+
 class AppProcess:
     """``python -m rag_foundation_tpu_torch.app.main`` in its own process
     group on a free port (``workers`` API processes), its log in
-    ``work/app.log``; ``stop`` ends them and returns the log."""
+    ``work/<name>.log``; ``stop`` ends them and returns the log. With
+    ``module`` ``rag_foundation_tpu_torch.app.worker_main`` it is a worker
+    process instead (no port)."""
 
-    def __init__(self, work: Path, env_extra: dict, workers: int = 1):
-        import os
+    def __init__(self, work: Path, env_extra: dict, workers: int = 1, *,
+                 module: str = "rag_foundation_tpu_torch.app.main",
+                 name: str = "app"):
         self.port = free_port()
         self.base = f"http://127.0.0.1:{self.port}"
-        self.log_path = work / "app.log"
-        env = {k: v for k, v in os.environ.items()
-               if not k.startswith("RAGTPU_")}
-        env.update({f"RAGTPU_{k}": v for k, v in APP_SETTINGS.items()})
-        env.update(PYTHONPATH=str(ROOT),
-                   RAGTPU_DATA_DIR=str(work / "data"),
-                   RAGTPU_DATABASE_PATH=str(work / "app.db"))
-        env.update({f"RAGTPU_{k}": str(v) for k, v in env_extra.items()})
+        self.log_path = work / f"{name}.log"
+        argv = ["--port", str(self.port), "--workers", str(workers)] \
+            if module.endswith(".app.main") else []
         self._log = open(self.log_path, "w")
         self.proc = subprocess.Popen(
-            [sys.executable, "-m", "rag_foundation_tpu_torch.app.main",
-             "--port", str(self.port), "--workers", str(workers)],
-            cwd=ROOT, env=env, stdout=self._log, stderr=subprocess.STDOUT,
-            start_new_session=True)
+            [sys.executable, "-m", module, *argv],
+            cwd=ROOT, env=app_env(work, env_extra), stdout=self._log,
+            stderr=subprocess.STDOUT, start_new_session=True)
 
     def wait_live(self, timeout_s: float = 300.0) -> float:
         import socket
@@ -4226,6 +4273,20 @@ class AppProcess:
 def started_devices(log_text: str) -> list[str]:
     return [json.loads(line)["device"] for line in log_text.splitlines()
             if '"app_started"' in line and line.startswith("{")]
+
+
+def log_events(log_text: str, msg: str) -> list[dict]:
+    """The JSON log lines of ``log_text`` whose ``msg`` is ``msg``."""
+    out = []
+    for line in log_text.splitlines():
+        if line.startswith("{") and f'"{msg}"' in line:
+            try:
+                event = json.loads(line)
+            except ValueError:
+                continue
+            if event.get("msg") == msg:
+                out.append(event)
+    return out
 
 
 def pct(xs, q) -> float:
@@ -4479,7 +4540,21 @@ def app_near_ties(differ, docs, card) -> None:
                  f"the engines' hits do not")
 
 
-def app_connect_phase(args, card, ctx, mods) -> tuple[dict, dict]:
+def adopt_store(engine, key: str, new_key: str, body, body_cids,
+                pads: int) -> None:
+    """Phase 3's store under an app store's key: its chunks, its tail and
+    the 10M body (pads are not persisted: no body.npz rewrite, and the
+    engine over-fetches past them as the padding engine did)."""
+    src, dst = engine._store(key), engine._store(new_key)
+    with dst.lock:
+        dst.segment, dst.chunks = src.segment, src.chunks
+        dst.next_chunk_id = src.next_chunk_id
+        dst.segment.adopt_body(body, body_cids)
+        dst.saved_body_version = dst.segment.body_version
+    engine._pad_counts[new_key] = pads
+
+
+def app_connect_phase(args, card, ctx, mods) -> tuple[dict, dict, dict]:
     """Phase 23 (b): ``APP_API_PROCESSES`` API processes of the port's app
     (``--workers``, ``RAGTPU_ENGINE_RPC_MODE=connect``) in front of an
     ``EngineRpcServer`` in this process that serves phase 3's 10M int8
@@ -4496,8 +4571,10 @@ def app_connect_phase(args, card, ctx, mods) -> tuple[dict, dict]:
     the closed loop's batches mostly stay under the Q*nprobe*8 > nlist
     crossover on this host, which is printed; the largest dispatch the
     chats gave the kernel is held to the plain version, bit for bit, and
-    timed beside its bound). Returns (the ``ivf_list_scan`` entry's keys
-    for this path, the phase's numbers)."""
+    timed beside its bound). Then, its API processes stopped, phase 24
+    behind the same server (``app_split_phase``). Returns (the
+    ``ivf_list_scan`` entry's keys for both paths, phase 24's numbers,
+    this phase's numbers)."""
     import resource
     import sqlite3
     from rag_foundation_tpu_torch.benchmark.runner import (ApiClient,
@@ -4526,16 +4603,8 @@ def app_connect_phase(args, card, ctx, mods) -> tuple[dict, dict]:
         with sqlite3.connect(work / "app.db") as db:
             big_key = db.execute("SELECT engine_key FROM stores WHERE id=?",
                                  (big["id"],)).fetchone()[0]
-        # phase 3's store under the app's key: its chunks, its tail and
-        # the 10M body (pads are not persisted: no body.npz rewrite, and
-        # over-fetch past them as the padding engine did)
-        src, dst = engine._store(key), engine._store(big_key)
-        with dst.lock:
-            dst.segment, dst.chunks = src.segment, src.chunks
-            dst.next_chunk_id = src.next_chunk_id
-            dst.segment.adopt_body(body, body_cids)
-            dst.saved_body_version = dst.segment.body_version
-        engine._pad_counts[big_key] = args.rows - args.docs
+        adopt_store(engine, key, big_key, body, body_cids,
+                    args.rows - args.docs)
         t0 = time.perf_counter()
         for i in fact_ids:
             path = work / f"project-{i}.txt"
@@ -4550,7 +4619,7 @@ def app_connect_phase(args, card, ctx, mods) -> tuple[dict, dict]:
         if not hits or hits[0].doc_id != f"doc-{sampled[0]}":
             fail(f"phase 23 (b): the adopted store's top hit for project "
                  f"{sampled[0]} is {hits[0].doc_id if hits else None}")
-        stats = engine.store_stats(dst.key)
+        stats = engine.store_stats(big_key)
         log(f"app (b): {APP_API_PROCESSES} API processes (connect mode) "
             f"started in {start_s:.1f} s; store {big['id']} -> {big_key} "
             f"holds {stats['vectors']} vectors (the 10M body adopted), "
@@ -4721,6 +4790,12 @@ def app_connect_phase(args, card, ctx, mods) -> tuple[dict, dict]:
             f"({live} live slots, qcap {qdisp.shape[1]}, {c['lists_read']} "
             f"lists read): bit-identical to the plain version; kernel "
             f"{ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}) | {card}")
+        log_text = app.stop()
+        t_b = time.perf_counter() - t_phase
+        # -- phase 24: the split topology behind the same engine server
+        split_entry, split = app_split_phase(
+            args, card, (engine, sock, key, body, body_cids, cfg),
+            (tivf, ivf_scan))
     finally:
         log_text = app.stop()
         server.shutdown()
@@ -4728,14 +4803,15 @@ def app_connect_phase(args, card, ctx, mods) -> tuple[dict, dict]:
     devices = started_devices(log_text)
     if not devices or set(devices) != {"remote"}:
         fail(f"phase 23 (b): app_started devices {devices}")
-    log(f"phase 23 (b): {time.perf_counter() - t_phase:.1f} s")
+    log(f"phase 23 (b): {t_b:.1f} s")
     entry = {"launches_app_chat": launches["waves"],
              "app_chat_more_waves": conc["waves"]["more_waves"],
              "launches_app_chat_closed_loop": launches["closed_loop"],
              "app_chat_dispatch": {
         "live_slots": live, "qcap": int(qdisp.shape[1]), "max_abs_err": err,
-        "ms": ms, "bound_ms": bound_ms, "bound_by": bound_by}}
-    return entry, {
+        "ms": ms, "bound_ms": bound_ms, "bound_by": bound_by},
+             **split_entry}
+    return entry, split, {
         "api_processes": APP_API_PROCESSES,
         "right_first_one_at_a_time": right_first,
         "single": {"ttft_p50_ms": pct(ttft1, 50),
@@ -4744,6 +4820,391 @@ def app_connect_phase(args, card, ctx, mods) -> tuple[dict, dict]:
                    "answer_p99_ms": pct(lat1, 99), "em": s1["em"],
                    "f1": s1["f1"]},
         "concurrent": conc}
+
+
+def app_split_phase(args, card, ctx, mods) -> tuple[dict, dict]:
+    """Phase 24: the app in the split topology production runs, behind
+    phase 23 (b)'s ``EngineRpcServer`` (phase 3's 10M int8 body).
+    ``APP_API_PROCESSES`` API processes in connect mode with
+    ``WORKER_IN_PROCESS=0`` and ``APP_SPLIT_WORKERS`` ``python -m
+    rag_foundation_tpu_torch.app.worker_main`` processes in connect mode
+    (the recall audit cron every ``APP_AUDIT_S`` s) over one sqlite
+    deployment whose first admin ``tools.create_first_admin`` makes.
+    Through the API: ``APP_FACT_DOCS`` fact documents uploaded together
+    reach DONE through the workers, each job leased once; a chat on each
+    fact cites its document first; a deleted document is no longer cited
+    and is listed under ``/api/admin/deletions``; restored, it is cited
+    first again; ``/api/admin/engine/recall-probe`` on a store holding the
+    10M body (k 10, the default sample 32) launches ``ivf_list_scan``
+    (the counter zeroed just before, read just after; the probe's own
+    dispatch held to the plain version bit for bit and timed beside its
+    bound) and gives the recall a worker's ``recall_audit`` line gives for
+    that store; ``/api/admin/system`` equals the sqlite rows,
+    ``/api/costs/summary`` counts the user's chats, ``/api/settings``
+    round-trips, ``/`` and ``/static/app.js`` serve their files; then
+    ``benchmark.loadgen`` (``LOADGEN_*``) runs with no errors. Returns (the
+    ``ivf_list_scan`` entry's keys for the probe, the phase's numbers)."""
+    import os
+    import sqlite3
+    from rag_foundation_tpu_torch.benchmark.runner import ApiClient
+    from rag_foundation_tpu_torch.utils import roofline
+    (engine, sock, key, body, body_cids, cfg) = ctx
+    (tivf, ivf_scan) = mods
+    t_phase = time.perf_counter()
+    work = Path(tempfile.mkdtemp(prefix="ragtpu-chip-app-split-"))
+    env_extra = {"ENGINE_RPC_MODE": "connect", "ENGINE_RPC_SOCKET": sock,
+                 "ENGINE_DIM": cfg["dim"], "KV_BACKEND": "sqlite",
+                 "WORKER_IN_PROCESS": "false", "ARCHIVE_UPLOADS": "true",
+                 "ENGINE_RECALL_AUDIT_S": APP_AUDIT_S,
+                 "MAX_CONCURRENT_STREAMS": APP_CONCURRENCY}
+    admin_pw = "Admin-Passw0rd-24"
+    made = subprocess.run(
+        [sys.executable, "-m", "rag_foundation_tpu_torch.tools."
+         "create_first_admin", "--email", "admin@example.com",
+         "--password", admin_pw], cwd=ROOT, env=app_env(work, env_extra),
+        capture_output=True, text=True, timeout=120)
+    if made.returncode != 0 or "created admin" not in made.stdout:
+        fail(f"phase 24: create_first_admin exited {made.returncode}: "
+             f"{made.stdout[-500:]} {made.stderr[-1500:]}")
+    app = AppProcess(work, env_extra, workers=APP_API_PROCESSES)
+    workers = [AppProcess(work, env_extra, name=f"worker-{i}",
+                          module="rag_foundation_tpu_torch.app.worker_main")
+               for i in range(APP_SPLIT_WORKERS)]
+    fact_ids = list(range(args.docs + 4000,
+                          args.docs + 4000 + APP_FACT_DOCS))
+    scan = tivf.ivf_list_scan
+    real_probe = engine.recall_probe
+    local = threading.local()
+    probes = []        # (store key, result, the scans it launched)
+
+    def traced_probe(store_key, **kw):
+        local.calls = []
+        try:
+            out = real_probe(store_key, **kw)
+            probes.append((store_key, out, local.calls))
+            return out
+        finally:
+            local.calls = None
+
+    def traced_scan(qdisp, lists, row_ids, dispatch=None, **kw):
+        calls = getattr(local, "calls", None)
+        if calls is not None:
+            calls.append((qdisp, lists, row_ids, dispatch, kw))
+        return scan(qdisp, lists, row_ids, dispatch, **kw)
+
+    try:
+        start_s = app.wait_live()
+        t0 = time.perf_counter()
+        while not all(log_events(w.log_path.read_text(), "worker_started")
+                      for w in workers):
+            for w in workers:
+                if w.proc.poll() is not None:
+                    fail(f"phase 24: a worker exited {w.proc.returncode}: "
+                         f"{w.log_path.read_text()[-3000:]}")
+            if time.perf_counter() - t0 > 300:
+                fail("phase 24: the workers did not log worker_started")
+            time.sleep(0.2)
+        w_devices = [log_events(w.log_path.read_text(), "worker_started")[0]
+                     ["device"] for w in workers]
+        if set(w_devices) != {"remote"}:
+            fail(f"phase 24: worker_started devices {w_devices}")
+        admin = ApiClient.from_credentials(app.base, "admin@example.com",
+                                           admin_pw)
+        user = ApiClient.from_credentials(
+            app.base, "split@example.com", "Split-Passw0rd-1",
+            register=True)
+        user.poll_interval_s = 0.05
+        big = user.ensure_store("ten million")
+        facts = user.ensure_store("split facts")
+        db_path = work / "app.db"
+        with sqlite3.connect(db_path) as db:
+            big_key = db.execute("SELECT engine_key FROM stores WHERE id=?",
+                                 (big["id"],)).fetchone()[0]
+        adopt_store(engine, key, big_key, body, body_cids,
+                    args.rows - args.docs)
+        t_adopted = time.time()     # the workers' log lines' clock
+
+        # 1. the fact documents, uploaded together, drained by the workers
+        upload_s = [None] * len(fact_ids)
+
+        def upload(j):
+            path = work / f"project-{fact_ids[j]}.txt"
+            path.write_text(fact_doc(fact_ids[j]))
+            t = time.perf_counter()
+            try:
+                user.upload_and_poll(facts["id"], path, timeout_s=300)
+            except Exception as e:  # noqa: BLE001 — reported below
+                upload_s[j] = e
+                return
+            upload_s[j] = time.perf_counter() - t
+
+        threads = [threading.Thread(target=upload, args=(j,))
+                   for j in range(len(fact_ids))]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(600)
+        bad = [u for u in upload_s if not isinstance(u, float)]
+        if bad:
+            fail(f"phase 24: {len(bad)} uploads did not reach DONE: "
+                 f"{bad[:2]}")
+        with sqlite3.connect(db_path) as db:
+            jobs = db.execute("SELECT status, attempts FROM jobs").fetchall()
+        if jobs != [("done", 1)] * len(fact_ids):
+            fail(f"phase 24: jobs (status, attempts) {jobs}: a job failed "
+                 f"or was leased twice")
+        drained_by = [sum(1 for _ in log_events(w.log_path.read_text(),
+                                                "ingestion_done"))
+                      for w in workers]
+
+        def first_cited(i) -> str | None:
+            out = user.ask(fact_query(i), [facts["id"]])
+            if out["error"]:
+                fail(f"phase 24: chat on project {i}: {out['error']}")
+            return out["citations"][0]["title"] if out["citations"] \
+                else None
+
+        # 2. a chat on each fact cites its document first
+        wrong = [i for i in fact_ids
+                 if first_cited(i) != f"project-{i}.txt"]
+        if wrong:
+            fail(f"phase 24: chats on {wrong} did not cite their document "
+                 f"first")
+        log(f"app split (24): {APP_API_PROCESSES} API processes "
+            f"(WORKER_IN_PROCESS=0) up in {start_s:.1f} s, "
+            f"{APP_SPLIT_WORKERS} worker processes (connect mode); "
+            f"{len(fact_ids)} uploads sent together, upload to DONE p50 "
+            f"{pct(upload_s, 50):.3f} s max {max(upload_s):.3f} s, jobs "
+            f"drained per worker {drained_by}, each leased once; each fact "
+            f"cited first | {card}")
+
+        # 3. delete one document: no longer cited, listed as deleted
+        victim = fact_ids[0]
+        title = f"project-{victim}.txt"
+        with sqlite3.connect(db_path) as db:
+            doc_id = db.execute("SELECT id FROM documents WHERE filename=?",
+                                (title,)).fetchone()[0]
+        t = time.perf_counter()
+        user._request("DELETE", f"/api/documents/{doc_id}")
+        out = user.ask(fact_query(victim), [facts["id"]])
+        delete_ms = (time.perf_counter() - t) * 1e3
+        if out["error"] or title in [c["title"] for c in out["citations"]]:
+            fail(f"phase 24: deleted {title} still cited: {out}")
+        _, dels = admin._request("GET", "/api/admin/deletions")
+        if doc_id not in [d["id"] for d in dels["documents"]]:
+            fail(f"phase 24: /api/admin/deletions {dels}")
+        # 4. restore: re-ingested by a worker, cited first again
+        t = time.perf_counter()
+        _, r = admin._request("POST",
+                              f"/api/admin/documents/{doc_id}/restore")
+        if not r.get("reingest"):
+            fail(f"phase 24: restore {r}")
+        while True:
+            _, st = user._request("GET",
+                                  f"/api/upload/op-status/doc-{doc_id}")
+            if st["done"]:
+                break
+            if time.perf_counter() - t > 300:
+                fail(f"phase 24: the restored document stays {st}")
+            time.sleep(0.05)
+        if st["status"] != "DONE" or first_cited(victim) != title:
+            fail(f"phase 24: restored {title}: {st}")
+        restore_s = time.perf_counter() - t
+        log(f"app split (24): delete to unserved (DELETE, then a chat that "
+            f"no longer cites it) {delete_ms:.2f} ms; restore to cited first "
+            f"again (through a worker) {restore_s:.3f} s | {card}")
+
+        # 5. the recall probe on the 10M store, through the route
+        engine.recall_probe = traced_probe
+        tivf.ivf_list_scan = traced_scan
+        try:
+            ivf_scan.LAUNCHES.reset()       # counts: the probe only
+            n_probes = len(probes)
+            t = time.perf_counter()
+            _, probe = admin._request("POST",
+                                      "/api/admin/engine/recall-probe",
+                                      json_body={"store_id": big["id"],
+                                                 "k": 10})
+            http_ms = (time.perf_counter() - t) * 1e3
+            launches = ivf_scan.LAUNCHES.count      # read just after
+        finally:
+            engine.recall_probe = real_probe
+            tivf.ivf_list_scan = scan
+        mine = [p for p in probes[n_probes:] if p[0] == big_key
+                and p[1] == probe]
+        if probe.get("recall") is None or not mine or not mine[0][2]:
+            fail(f"phase 24: recall probe {probe}, its scans "
+                 f"{[len(p[2]) for p in mine]}")
+        if launches == 0 or probe["k"] != 10:
+            fail(f"phase 24: the recall probe launched ivf_list_scan "
+                 f"{launches} times: {probe}")
+        qdisp, lists, row_ids, dispatch, kw = mine[0][2][0]
+        kv, ki = scan(qdisp, lists, row_ids, dispatch, **kw)
+        rv, ri = ivf_scan.ivf_list_scan_reference(qdisp, lists, row_ids,
+                                                  dispatch, **kw)
+        err = check_scan(kv, ki, rv, ri, True, qdisp, lists,
+                         "ivf_list_scan int8, phase 24 recall probe's "
+                         "dispatch")
+        del kv, ki, rv, ri
+        ms = cuda_ms(lambda: scan(qdisp, lists, row_ids, dispatch, **kw),
+                     reps=10)
+        plain_ms = cuda_ms(lambda: ivf_scan.ivf_list_scan_reference(
+            qdisp, lists, row_ids, dispatch, **kw), reps=3, warmup=1)
+        library_ms, lib_chunks = library_ms_of(qdisp, lists, kw["p"])
+        live_n = ivf_scan.live_slots(dispatch)
+        bound_ms, bound_by, c = roofline.scan_bound(
+            row_ids, live_n, qdisp.shape[1], kw["p"], 1, qdisp.shape[2],
+            "int8")
+        live, qcap = int((dispatch >= 0).sum()), int(qdisp.shape[1])
+        log(f"app split (24): POST /api/admin/engine/recall-probe on the "
+            f"10M store (k 10, sample 32) in {http_ms:.1f} ms: recall@10 "
+            f"{probe['recall']:.4f}; ivf_list_scan launches {launches} "
+            f"(counter zeroed just before); its dispatch ({live} live "
+            f"slots, qcap {qcap}, {c['lists_read']} lists read) "
+            f"bit-identical to the plain version, kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.3f} ms, torch.bmm+topk (f32, every slot, "
+            f"{lib_chunks} list chunks) {library_ms:.3f} ms, bound "
+            f"{bound_ms:.4f} ms ({bound_by}) | {card}")
+        del qdisp, lists, row_ids, dispatch, mine
+        probes.clear()
+
+        # 6. system counts against the sqlite rows
+        _, counts = admin._request("GET", "/api/admin/system")
+        with sqlite3.connect(db_path) as db:
+            rows = {t: db.execute(f"SELECT COUNT(*) FROM {t}").fetchone()[0]
+                    for t in ("users", "stores", "documents", "query_log",
+                              "chat_sessions")}
+            by_status = dict(db.execute(
+                "SELECT status, COUNT(*) FROM documents WHERE deleted_at IS"
+                " NULL GROUP BY status").fetchall())
+            jobs = dict(db.execute(
+                "SELECT status, COUNT(*) FROM jobs GROUP BY status"
+                ).fetchall())
+            (chats,) = db.execute(
+                "SELECT COUNT(*) FROM query_log q JOIN users u ON"
+                " u.id = q.user_id WHERE u.email=? AND q.model != 'INDEX'",
+                ("split@example.com",)).fetchone()
+        if {t: counts.get(t) for t in rows} != rows \
+                or counts.get("documents_by_status") != by_status \
+                or counts.get("jobs") != jobs:
+            fail(f"phase 24: /api/admin/system {counts} != sqlite {rows} "
+                 f"{by_status} {jobs}")
+        # 7. the user's costs count their chats
+        _, costs = user._request("GET", "/api/costs/summary")
+        if costs["queries"] != chats or chats != len(fact_ids) + 2:
+            fail(f"phase 24: /api/costs/summary {costs}, query_log chats "
+                 f"{chats}")
+        # 8. branding settings round-trip
+        want = {"app_name": "ragtpu on the card", "theme": "dark"}
+        admin._request("PUT", "/api/settings", json_body=want)
+        _, got = ApiClient(app.base)._request("GET", "/api/settings")
+        if any(got["settings"].get(k) != v for k, v in want.items()):
+            fail(f"phase 24: /api/settings {got}")
+        # 9. the SPA
+        static = ROOT / "rag_foundation_tpu_torch" / "app" / "static"
+        for path, name in (("/", "index.html"),
+                           ("/static/app.js", "app.js")):
+            resp = ApiClient(app.base)._request("GET", path, stream=True)
+            if resp.status != 200 or resp.read() != (
+                    static / name).read_bytes():
+                fail(f"phase 24: GET {path} did not serve {name}")
+        log(f"app split (24): /api/admin/system equals the sqlite rows "
+            f"({rows}, jobs {jobs}); costs count the user's {chats} chats "
+            f"(month to date {costs['month_to_date_usd']} USD); settings "
+            f"round-trip; / and /static/app.js served byte for byte | "
+            f"{card}")
+
+        # 10. the reference's load profile, in its own process
+        t = time.perf_counter()
+        out = subprocess.run(
+            [sys.executable, "-m", "rag_foundation_tpu_torch.benchmark."
+             "loadgen", "--base-url", app.base, "--users",
+             str(LOADGEN_USERS), "--duration", str(LOADGEN_DURATION_S),
+             "--think", str(LOADGEN_THINK_S), "--chat-ratio",
+             str(LOADGEN_CHAT_RATIO), "--register", "--tmp",
+             str(work / "load")], cwd=ROOT,
+            env={**os.environ, "PYTHONPATH": str(ROOT)},
+            capture_output=True, text=True, timeout=300)
+        load_wall = time.perf_counter() - t
+        if out.returncode != 0:
+            fail(f"phase 24: loadgen exited {out.returncode}: "
+                 f"{out.stderr[-2000:]}")
+        load = json.loads(out.stdout)
+        if any(load[task]["error_rate"] != 0 or not load[task]["requests"]
+               for task in ("chat", "upload")):
+            fail(f"phase 24: loadgen {load}")
+        log(f"app split (24): loadgen {LOADGEN_USERS} users, "
+            f"{LOADGEN_DURATION_S} s, think <= {LOADGEN_THINK_S} s, chat "
+            f"share {LOADGEN_CHAT_RATIO} ({load_wall:.1f} s with start and "
+            f"join): " + "; ".join(
+                f"{task} {v['requests']} requests, {v['rps']:.2f} rps, ok "
+                f"{v['ok_rps']:.2f} rps, p95 {v['latency_p95_s'] * 1e3:.1f} "
+                f"ms, errors {v['errors']}" for task, v in load.items())
+            + f" | {card}")
+
+        # the workers' recall audit of the same store, same seed (an
+        # audit begun before the body's adoption saw an empty store)
+        t = time.perf_counter()
+        while True:
+            audits = [e for w in workers
+                      for e in log_events(w.log_path.read_text(),
+                                          "recall_audit")
+                      if e["store"] == big_key and e["sample"]
+                      and e["ts"] > t_adopted]
+            if audits:
+                break
+            if time.perf_counter() - t > 120:
+                fail("phase 24: no worker logged recall_audit for the 10M "
+                     "store")
+            time.sleep(0.5)
+        cron = {k: audits[0][k] for k in ("recall", "sample", "k")}
+        if cron != {k: probe[k] for k in cron}:
+            fail(f"phase 24: the worker's recall_audit {cron} != the "
+                 f"route's probe {probe}")
+        failed = [e for w in workers for e in log_events(
+            w.log_path.read_text(), "recall_audit_failed")]
+        if failed:
+            fail(f"phase 24: recall_audit_failed {failed[:2]}")
+        for w in workers:
+            text = w.stop()                 # SIGTERM to its group
+            if w.proc.returncode != 0 or not log_events(text,
+                                                        "worker_stopped"):
+                fail(f"phase 24: a worker stopped with "
+                     f"{w.proc.returncode}: {text[-2000:]}")
+        log(f"app split (24): the workers' recall_audit of the 10M store "
+            f"gives {cron}, as the route; {len(audits)} audits of it "
+            f"logged; SIGTERM: both workers logged worker_stopped | {card}")
+    finally:
+        engine.recall_probe = real_probe
+        tivf.ivf_list_scan = scan
+        for w in workers:
+            w.stop()
+        log_text = app.stop()
+        shutil.rmtree(work, ignore_errors=True)
+    devices = started_devices(log_text)
+    if not devices or set(devices) != {"remote"}:
+        fail(f"phase 24: app_started devices {devices}")
+    log(f"phase 24: {time.perf_counter() - t_phase:.1f} s")
+    entry = {"launches_app_admin": launches, "app_admin_probe": {
+        "live_slots": live, "qcap": qcap,
+        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+        "library_ms": library_ms, "bound_ms": bound_ms,
+        "bound_by": bound_by, "http_ms": http_ms,
+        "recall": probe["recall"], "sample": probe["sample"],
+        "k": probe["k"]}}
+    return entry, {
+        "api_processes": APP_API_PROCESSES,
+        "worker_processes": APP_SPLIT_WORKERS,
+        "upload_to_done_s": {"p50": pct(upload_s, 50),
+                             "max": max(upload_s)},
+        "jobs_per_worker": drained_by,
+        "delete_to_unserved_ms": delete_ms,
+        "restore_to_cited_s": restore_s,
+        "probe": {"http_ms": http_ms, "recall": probe["recall"],
+                  "kernel_ms": ms, "bound_ms": bound_ms},
+        "loadgen": {task: {k: load[task][k] for k in
+                           ("requests", "errors", "rps", "ok_rps",
+                            "latency_p95_s")} for task in load}}
 
 
 def main() -> None:
@@ -5091,7 +5552,7 @@ def main() -> None:
 
     # -- phase 23: the port's app on the card --------------------------------
     app_inproc = app_inprocess_phase(args, card)
-    ivf_app_chat, app_chat = app_connect_phase(
+    ivf_app_chat, app_split, app_chat = app_connect_phase(
         args, card, (cfg, key, sock, body, body_cids, sampled, rng),
         (Engine, EngineConfig, EngineRpcServer, tivf, ivf_scan))
     gc.collect()
@@ -5197,7 +5658,8 @@ def main() -> None:
                                         "encode_chunks_s")},
                       "app_calls": app_calls,
                       "app": {"in_process": app_inproc,
-                              "connect": app_chat}}), flush=True)
+                              "connect": app_chat,
+                              "split": app_split}}), flush=True)
     print(json.dumps(kernels), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

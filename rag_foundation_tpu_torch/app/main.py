@@ -4,12 +4,14 @@ Counterpart of ``rag_foundation_tpu/app/main.py`` over the port's engine::
 
     python -m rag_foundation_tpu_torch.app.main --port 8000
 
-serves the same HTTP/SSE API for the routes ported so far (auth, stores,
-uploads, chat). The engine is the port's ``Engine`` in process, on the
-card (``RAGTPU_ENGINE_PLATFORM=cpu`` puts it on the CPU; without a card
-and without that variable it exits with an error, there is no CPU
-fallback), or a port ``engine_main`` over its socket with
-``RAGTPU_ENGINE_RPC_MODE=connect``; the in-process worker drains uploads.
+serves the same HTTP/SSE API as the JAX app: every route of
+``docs/api_spec.json`` and the static SPA at ``/``. The engine is the
+port's ``Engine`` in process, on the card (``RAGTPU_ENGINE_PLATFORM=cpu``
+puts it on the CPU; without a card and without that variable it exits
+with an error, there is no CPU fallback), or a port ``engine_main`` over
+its socket with ``RAGTPU_ENGINE_RPC_MODE=connect``. The in-process
+worker drains uploads, or, with ``RAGTPU_WORKER_IN_PROCESS=0``,
+``app.worker_main`` processes do (the split topology).
 
 Reference parity: backend/app/main.py:42-425 — CSRF header
 check, CORS, HTTP metrics, security headers, JSON body cap, correlation-id
@@ -25,6 +27,7 @@ import os
 import time
 import uuid
 from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
 
 from rag_foundation_tpu_torch.app import metrics
 from rag_foundation_tpu_torch.app.config import Settings, load_settings
@@ -32,7 +35,9 @@ from rag_foundation_tpu_torch.app.context import AppContext
 from rag_foundation_tpu_torch.app.dbschema import MIGRATIONS
 from rag_foundation_tpu_torch.app.rate_limit import (RateLimiter,
                                                      global_rate_key)
-from rag_foundation_tpu_torch.app.routes import (auth_routes, chat, stores,
+from rag_foundation_tpu_torch.app.routes import (admin, auth_routes, chat,
+                                                 costs_routes, documents,
+                                                 settings_routes, stores,
                                                  uploads)
 from rag_foundation_tpu_torch.app.security_gate import run_security_gate
 from rag_foundation_tpu_torch.app.services.cleanup import cleanup_stale_stores
@@ -302,10 +307,30 @@ def create_app(ctx: AppContext | None = None, *,
         return Response(metrics.render(getattr(ctx.rag, "engine", None)),
                         content_type="text/plain; version=0.0.4")
 
+    # -- frontend (static SPA; reference served React via Vite/nginx) ------
+    static_dir = Path(__file__).resolve().parent / "static"
+    _TYPES = {".html": "text/html; charset=utf-8",
+              ".js": "application/javascript", ".css": "text/css",
+              ".svg": "image/svg+xml", ".ico": "image/x-icon"}
+
+    @app.get("/")
+    async def index(req):
+        return Response((static_dir / "index.html").read_bytes(),
+                        content_type=_TYPES[".html"])
+
+    @app.get("/static/{name}")
+    async def static_file(req):
+        name = req.path_params["name"]
+        target = (static_dir / name).resolve()
+        if target.parent != static_dir or not target.is_file():
+            raise HTTPError(404, "Not Found")
+        return Response(target.read_bytes(),
+                        content_type=_TYPES.get(target.suffix,
+                                                "application/octet-stream"))
+
     # -- routers -----------------------------------------------------------
-    # the routers ported so far (documents, costs, settings, admin and the
-    # static SPA are not)
-    for module in (auth_routes, stores, uploads, chat):
+    for module in (auth_routes, stores, documents, uploads, chat,
+                   costs_routes, settings_routes, admin):
         module.register(app, ctx)
 
     # -- lifespan ----------------------------------------------------------

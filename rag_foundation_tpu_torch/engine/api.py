@@ -656,7 +656,12 @@ class Engine:
             return {"recall": None, "sample": 0, "k": k}
         k_eff = min(k, n)
         _, approx_ids = store.segment.search(queries, k_eff)
-        exact_ids = store.segment.exact_reference_search(queries, k_eff)
+        try:
+            exact_ids = store.segment.exact_reference_search(queries,
+                                                             k_eff)
+        except NotImplementedError as e:
+            return {"recall": None, "sample": int(len(queries)),
+                    "k": k_eff, "skipped": str(e)}
         recall = float(np.mean([
             len(set(a[a >= 0]) & set(b[b >= 0])) / k_eff
             for a, b in zip(np.asarray(approx_ids), exact_ids)]))

@@ -86,3 +86,39 @@ def test_the_parallel_package_is_covered():
     assert {"mesh", "topk_merge", "sharded_index", "sharded_ivf",
             "train_step"} <= names
     assert PORT / "tools" / "dryrun_multichip.py" in SOURCES
+
+
+# the JAX package's modules whose counterpart in the port has another name
+# or place: the Pallas kernels' wrappers (their kernels in ``csrc/``), the
+# engine process, and the platform pin, which the port's rule of
+# ``RAGTPU_ENGINE_PLATFORM`` (``app/services/rag.engine_device``) replaces
+RENAMED = {
+    "ops/pallas_ivf.py": "ops/ivf_scan.py",
+    "ops/pallas_pq.py": "ops/pq_scan.py",
+    "ops/pallas_gather.py": "ops/gather.py",
+    "ops/pallas_topk.py": "ops/fused_topk.py",
+    "ops/pallas_block_topk.py": "ops/block_topk.py",
+    "app/engine_main.py": "engine_main.py",
+    "utils/platform.py": "app/services/rag.py",
+}
+
+
+def test_every_jax_module_and_static_file_has_a_port_counterpart():
+    jax_pkg = ROOT / "rag_foundation_tpu"
+    files = sorted(str(p.relative_to(jax_pkg)) for p in jax_pkg.rglob("*")
+                   if p.is_file() and "__pycache__" not in p.parts
+                   and (p.suffix == ".py" or p.parent.name == "static"))
+    missing = [f for f in files
+               if not (PORT / RENAMED.get(f, f)).resolve().is_file()]
+    assert missing == []
+    assert {"app/worker_main.py", "app/routes/admin.py",
+            "app/routes/documents.py", "app/routes/settings_routes.py",
+            "app/routes/costs_routes.py", "benchmark/loadgen.py",
+            "utils/sse.py", "utils/chatview.py", "utils/uploadview.py",
+            "utils/clock.py", "app/static/index.html"} <= set(files)
+
+
+def test_the_operator_tools_are_covered():
+    names = {p.name for p in SOURCES if p.parent == PORT / "tools"}
+    assert {"create_first_admin.py", "mark_stuck_documents_error.py",
+            "cleanup_uploads.py"} <= names

@@ -3,7 +3,7 @@ of ``rag_foundation_tpu.runtime`` the port's app runs on): the cases of
 ``tests/test_runtime.py`` on the port's modules — HTTP framework and
 middleware, multipart, chunked SSE over a real socket, sqlite migrations
 and transactions, KV TTL and eviction, job-queue leases, reclaim, retry
-backoff and the worker. ``FakeClock`` is the JAX package's test clock."""
+backoff and the worker, on the port's own ``FakeClock``."""
 
 import asyncio
 import threading
@@ -216,7 +216,7 @@ def test_db_memory_shared_across_threads():
     lambda tmp, c: SqliteKV(tmp / "kv.db", clock=c),
 ])
 def test_kv_basics(make, tmp_path):
-    from rag_foundation_tpu.utils.clock import FakeClock
+    from rag_foundation_tpu_torch.utils.clock import FakeClock
     clock = FakeClock()
     kv = make(tmp_path, clock)
     assert kv.get("a") is None
@@ -272,7 +272,7 @@ def test_jobqueue_lifecycle(tmp_path):
 
 
 def test_jobqueue_lease_recovery(tmp_path):
-    from rag_foundation_tpu.utils.clock import FakeClock
+    from rag_foundation_tpu_torch.utils.clock import FakeClock
     clock = FakeClock()
     db = Database(tmp_path / "q.db")
     q = JobQueue(db, lease_s=30.0, clock=clock)
@@ -287,7 +287,7 @@ def test_jobqueue_lease_recovery(tmp_path):
 
 
 def test_worker_cron_ticks(tmp_path):
-    from rag_foundation_tpu.utils.clock import FakeClock
+    from rag_foundation_tpu_torch.utils.clock import FakeClock
     mono = FakeClock()
     q = JobQueue(Database(tmp_path / "q.db"))
     w = Worker(q, poll_interval=0.01, mono=mono)
