@@ -314,16 +314,53 @@ Phases (each one fails the run: non-zero exit, no result line):
     delete to unserved ms, restore to cited s, the probe's HTTP ms,
     recall and kernel ms beside its bound, loadgen's rps, ok rps and p95
     a task.
+25. The app at the quality benchmark's production configurations, after
+    phase 20. (a) ``PROD_APP`` (``benchmarks/README.md``: the hybrid
+    encoder at 768, MiniLM 384 from ``checkpoints/minilm_ict.npz`` and
+    the native hash channel 384, coverage 0.35, chunks 120/24, ``exact``,
+    ``top_k`` 5): the app in connect mode in front of an
+    ``EngineRpcServer`` in this process on the card, then the app with
+    its engine in process and ``RAGTPU_ENGINE_PLATFORM=cpu``; the ten
+    quality documents uploaded, then ``python -m
+    rag_foundation_tpu_torch.benchmark.runner --config
+    benchmarks/quality/benchmarks.yml`` for ``--bench quality`` (120)
+    and ``quality_multiturn`` (24 follow-ups, their prior turns as the
+    AssistantUI ``messages`` array). It fails unless every stream keeps
+    the SSE contract, ``flash_attention``'s counter (zeroed just before,
+    read just after) moved on the ingest and on the questions, the card's
+    answers and citations equal the CPU's (where they differ, the two
+    engines' top-128 for the question as the app searches it must first
+    part at a rank whose scores lie within ``HYBRID_TIE``), and the
+    kernel on the app's own layer-0 inputs of every (B, S) it launched
+    at agrees with the plain version. Printed: EM, F1, contains,
+    citation hit, refusal accuracy, upload to DONE seconds, time to first
+    delta and answer p50/p99 beside ``summary_hybrid.json`` (a JAX CPU
+    run, for reference), each bucket's kernel time beside its bound, the
+    plain version and ``scaled_dot_product_attention``. (b) ``GEN_APP``
+    (``ENGINE_GENERATOR=generative`` over
+    ``checkpoints/decoder_distill.npz``, hash, ``exact``, coverage 0.35,
+    chunks 120/24, ``top_k`` 5) with the engine in the app's process:
+    the 120 questions through ``benchmark.runner`` on the card, then on
+    the CPU as many as ``GEN_CPU_BUDGET_S`` allows. It fails on any
+    ``*_engine_error`` outcome of the app's
+    ``engine_calls_total{op="generate"}`` (``/metrics``), and where a
+    covered answer differs unless the app's pipeline, replayed here on
+    both deployments, handed the decoder other evidences through a
+    near-tie of the hits (``SCORE_TIE``) or the two greedy decodes part
+    at a step whose top-2 margin is at most ``GEN_MARGIN``. Printed: the
+    questions the CPU covered, time to first delta and answer p50/p99,
+    answer tokens/s, the gate outcomes beside ``ab_summary.json``'s.
 
 ``--long-docs`` sets the number of long documents of phase 13;
 ``--decoder-steps``, ``--decoder-triples`` and ``--decoder-eval`` phase
 20's cuts. Two JSON
 lines end the output before the last: the host shim's and the app
 calls' numbers (phase 18's host re-rank A/B, phase 19's ingest and
-encode rates, right-first shares, latencies and qcap drops, phase 23's
-and phase 24's app numbers), then the
+encode rates, right-first shares, latencies and qcap drops, phase 23's,
+phase 24's and phase 25's app numbers), then the
 kernels' JSON (eight entries; the flash-attention forward's also holds
-its launches on phase 16's chat path, the two list scans their
+its launches on phase 16's chat path and on phase 25's hybrid app path
+with each bucket's check and times, the two list scans their
 launches and one shard's numbers on the sharded paths of phases 17-18,
 ``ivf_list_scan`` its launches on phase 19's app calls, on phase
 23's concurrent chats and on phase 24's admin recall probe, with those
@@ -340,6 +377,7 @@ from __future__ import annotations
 import argparse
 import gc
 import json
+import re
 import shutil
 import subprocess
 import sys
@@ -3149,27 +3187,28 @@ def train_phases(args, card, rng, sampled, corpus, mods
                      for s in (32, 128, 512)}
 
 
-def greedy_answer(gen, tdec, torch, np, question, evidences):
+def greedy_answer(gen, tdec, torch, np, question, evidences,
+                  device="cuda"):
     """The ids ``TextGenerator.stream`` emits for one question, by its own
-    loop in process on the card: (prompt ids, the prefill's f32 logits on
-    the card, the vocabulary bias, the answer ids up to and including
-    EOS)."""
+    loop in process on ``device`` (the card unless asked): (prompt ids,
+    the prefill's f32 logits, the vocabulary bias, the answer ids up to
+    and including EOS)."""
     cfg = gen.cfg
     ids = gen.tokenizer.encode_prompt(question, evidences, cfg.prefix_len)
     bias_np = gen.vocab_bias(ids)
-    padded = torch.full((1, cfg.prefix_len), tdec.PAD_ID, device="cuda")
+    padded = torch.full((1, cfg.prefix_len), tdec.PAD_ID, device=device)
     padded[0, :len(ids)] = torch.tensor(ids)
     budget = min(cfg.ans_len, cfg.max_len - len(ids) - 1)
     with torch.inference_mode():
         cache, logits = tdec.prefill(gen.params, padded,
-                                     torch.tensor([len(ids)], device="cuda"),
+                                     torch.tensor([len(ids)], device=device),
                                      cfg)
         out = [int(np.argmax(logits[0].cpu().numpy() + bias_np))]
-        pos, bias = len(ids), torch.as_tensor(bias_np, device="cuda")
+        pos, bias = len(ids), torch.as_tensor(bias_np, device=device)
         while out[-1] != tdec.EOS_ID and len(out) < budget \
                 and len(ids) + len(out) + gen.block <= cfg.max_len:
             blk, cache, pos = tdec.decode_block(
-                gen.params, cache, torch.tensor([out[-1]], device="cuda"),
+                gen.params, cache, torch.tensor([out[-1]], device=device),
                 pos, cfg=cfg, k_steps=gen.block, bias=bias)
             out += blk[0].tolist()[: budget - len(out)]
     if tdec.EOS_ID in out:
@@ -5207,6 +5246,496 @@ def app_split_phase(args, card, ctx, mods) -> tuple[dict, dict]:
                             "latency_p95_s")} for task in load}}
 
 
+# -- phase 25: the app at the quality benchmark's production configurations --
+
+QUALITY = ROOT / "benchmarks" / "quality"
+BENCH_CONFIG = QUALITY / "benchmarks.yml"
+# benchmarks/README.md's production configuration of the quality benchmark
+# (summary_hybrid.json: "Production default config"): the hybrid encoder
+# at 768 (MiniLM 384 from the checkpoint, the native hash channel 384)
+PROD_APP = {
+    "ENGINE_ENCODER": "hybrid", "ENGINE_DIM": "768",
+    "ENGINE_ENCODER_CKPT": str(ROOT / "checkpoints" / "minilm_ict.npz"),
+    "ENGINE_MIN_COVERAGE": "0.35", "ENGINE_CHUNK_TOKENS": "120",
+    "ENGINE_CHUNK_OVERLAP": "24", "ENGINE_INDEX_MODE": "exact",
+    "ENGINE_TOP_K": "5"}
+# the generative tier at ab_summary.json's configuration
+GEN_APP = {
+    "ENGINE_GENERATOR": "generative",
+    "ENGINE_GENERATOR_CKPT": str(ROOT / "checkpoints" / "decoder_distill.npz"),
+    "ENGINE_ENCODER": "hash", "ENGINE_DIM": "384",
+    "ENGINE_INDEX_MODE": "exact", "ENGINE_MIN_COVERAGE": "0.35",
+    "ENGINE_CHUNK_TOKENS": "120", "ENGINE_CHUNK_OVERLAP": "24",
+    "ENGINE_TOP_K": "5"}
+# (a): both devices run MiniLM in bf16, which rounds at other places on
+# the card than on the CPU; a hit's score moves by that rounding, within
+# tests/test_torch_engine.py's ENC_TOL, and hits that close may swap
+HYBRID_TIE = 5e-3
+# (b): greedy ids may differ only at a step whose top-2 margin (the CPU's
+# logits, the vocabulary bias added) is at most this
+# (tests/test_torch_decoder.py's rule for bf16)
+GEN_MARGIN = 0.25
+GEN_CPU_BUDGET_S = 120.0  # (b): the CPU run's questions, as many as fit
+BENCH_USER = ("chip@example.com", "Chip-Passw0rd-1")
+GATE_OUTCOME = re.compile(
+    r'^engine_calls_total\{op="generate",outcome="([a-z_]+)"\} (\S+)$', re.M)
+
+
+class ShapeCapture(ShapeTally):
+    """``ShapeTally`` that also keeps the inputs of the first launch of
+    each (B, S): layer 0 of the first encode at that shape."""
+
+    def __init__(self, fa):
+        super().__init__(fa)
+        self.inputs = {}
+
+    def start(self) -> "ShapeCapture":
+        super().start()
+        tally = self.fa.flash_attention_forward
+
+        def captured(q, k, v, seg_q, seg_kv, sm_scale, *a, **kw):
+            key = (q.shape[0], q.shape[2])
+            if q.device.type == "cuda" and key not in self.inputs:
+                self.inputs[key] = tuple(t.clone() for t in (
+                    q, k, v, seg_q, seg_kv)) + (sm_scale,)
+            return tally(q, k, v, seg_q, seg_kv, sm_scale, *a, **kw)
+
+        self.fa.flash_attention_forward = captured
+        return self
+
+
+def upload_quality_docs(base: str):
+    """Register, make the benchmark's store and upload the ten quality
+    documents through ``/api/upload``; (client, store, upload to DONE
+    seconds)."""
+    from rag_foundation_tpu_torch.benchmark.runner import (ApiClient,
+                                                           read_bench_config)
+    client = ApiClient.from_credentials(base, *BENCH_USER, register=True)
+    client.poll_interval_s = 0.05
+    name = read_bench_config(BENCH_CONFIG.read_text())["quality"]["store"]
+    store = client.ensure_store(name)
+    t0 = time.perf_counter()
+    for path in sorted((QUALITY / "docs").glob("*.md")):
+        st = client.upload_and_poll(store["id"], path)
+        if st["status"] != "DONE":
+            fail(f"phase 25: {path.name} {st}")
+    return client, store, time.perf_counter() - t0
+
+
+def bench_cli(base: str, bench: str, work: Path) -> tuple[list, dict]:
+    """``python -m rag_foundation_tpu_torch.benchmark.runner --config
+    benchmarks.yml --bench <bench>`` against the app at ``base`` (the
+    documents are in already: ``--docs`` names an empty directory);
+    (results, summary)."""
+    import os
+    out = work / f"bench-{bench}"
+    empty = work / "no-docs"
+    empty.mkdir(exist_ok=True)
+    proc = subprocess.run(
+        [sys.executable, "-m", "rag_foundation_tpu_torch.benchmark.runner",
+         "--base-url", base, "--email", BENCH_USER[0], "--password",
+         BENCH_USER[1], "--config", str(BENCH_CONFIG), "--bench", bench,
+         "--docs", str(empty), "--out-dir", str(out)],
+        cwd=ROOT, env={**os.environ, "PYTHONPATH": str(ROOT)},
+        capture_output=True, text=True, timeout=900)
+    if proc.returncode != 0:
+        fail(f"phase 25: benchmark.runner --bench {bench} exited "
+             f"{proc.returncode}: {proc.stderr[-2000:]}")
+    results = [json.loads(line) for line in (
+        out / "results.jsonl").read_text().splitlines() if line.strip()]
+    return results, json.loads((out / "summary.json").read_text())
+
+
+def check_results(results: list, what: str) -> None:
+    """Every chat answered, and every stream kept the SSE contract."""
+    errors = [r for r in results if r.get("error")]
+    if errors:
+        fail(f"{what}: {len(errors)} chats failed: "
+             f"{[r['error'] for r in errors][:3]}")
+    broken = [r["question"] for r in results
+              if not sse_contract_ok(r["frames"])]
+    if broken:
+        fail(f"{what}: SSE contract broken for {broken[:3]}")
+
+
+def latency_line(results: list) -> dict:
+    ttft = [r["ttft_s"] * 1e3 for r in results if r.get("ttft_s")]
+    lat = [r["latency_s"] * 1e3 for r in results]
+    return {"ttft_p50_ms": pct(ttft, 50), "ttft_p99_ms": pct(ttft, 99),
+            "answer_p50_ms": pct(lat, 50), "answer_p99_ms": pct(lat, 99)}
+
+
+def quality_numbers(summary: dict, results: list) -> dict:
+    return {**{k: summary[k] for k in ("em", "f1", "contains",
+                                       "citation_hit", "refusal_ok")},
+            **latency_line(results)}
+
+
+def latency_text(n: dict) -> str:
+    return (f"time to first delta p50 {n['ttft_p50_ms']:.2f} ms p99 "
+            f"{n['ttft_p99_ms']:.2f} ms, answer p50 {n['answer_p50_ms']:.2f}"
+            f" ms p99 {n['answer_p99_ms']:.2f} ms")
+
+
+def numbers_text(n: dict) -> str:
+    return (f"EM {n['em']:.4f} F1 {n['f1']:.4f} contains "
+            f"{n['contains']:.4f} citation hit {n['citation_hit']:.4f} "
+            f"refusal accuracy {n['refusal_ok']:.4f}, {latency_text(n)}")
+
+
+def app_settings(extra: dict, data_dir: Path):
+    """The app's ``Settings`` of a phase-25 deployment, built in this
+    process (``APP_SETTINGS`` and ``extra``, as the app's processes read
+    them)."""
+    from rag_foundation_tpu_torch.app.config import Settings
+    return Settings(**{**APP_SETTINGS, **extra}, DATA_DIR=str(data_dir))
+
+
+def first_swap(engines: dict, query: str) -> tuple[int, float]:
+    """(rank, |score difference|) where the two engines' top-128 for the
+    query first differ; (-1, 0.0) where they do not."""
+    hits = {dev: engine.search([key], query, k=128)
+            for dev, (engine, key) in engines.items()}
+    for rank, (a, b) in enumerate(zip(hits["cuda"], hits["cpu"])):
+        if (a.doc_id, a.ordinal) != (b.doc_id, b.ordinal):
+            return rank, abs(a.score - b.score)
+    return -1, 0.0
+
+
+def attention_buckets(fa, torch, inputs: dict, card) -> dict:
+    """The forward kernel on the app's own layer-0 inputs of each (B, S)
+    it launched at: held to the plain version, timed beside its bound,
+    the plain version and ``scaled_dot_product_attention``."""
+    import torch.nn.functional as F
+    from rag_foundation_tpu_torch.utils import roofline
+    out_by = {}
+    for (b, s), (q, k, v, sq, skv, scale) in sorted(inputs.items()):
+        out = fa.flash_attention(q, k, v, sq, skv, scale)
+        torch.cuda.synchronize()
+        ref = fa.flash_attention_reference(q, k, v, sq, skv, scale)
+        err, tol = check_attention(torch, out, ref, v, "bf16",
+                                   f"flash_attention app B={b} S={s}")
+        h, d = q.shape[1], q.shape[3]
+        ms = cuda_ms(lambda: fa.flash_attention(q, k, v, sq, skv, scale),
+                     reps=20)
+        plain_ms = cuda_ms(lambda: fa.flash_attention_reference(
+            q, k, v, sq, skv, scale), reps=5, warmup=1)
+        mask = (sq[:, :, None] == skv[:, None, :])[:, None]
+        library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask, scale=scale), reps=20)
+        bound_ms, bound_by, c = roofline.attention_bound(sq, skv, h, d, 2)
+        log(f"flash_attention bf16 on the hybrid app's layer-0 inputs, B={b}"
+            f" H={h} S={s} D={d} ({c['pairs']} of {c['dense_pairs']} pairs "
+            f"share a segment): max_abs_err={err:.3g} (tol {tol:.3g}); "
+            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            f"scaled_dot_product_attention {library_ms:.4f} ms, bound "
+            f"{bound_ms:.5f} ms ({bound_by}) | {card}")
+        out_by[f"{b},{s}"] = {"max_abs_err": err, "ms": ms,
+                              "plain_ms": plain_ms, "bound_ms": bound_ms,
+                              "bound_by": bound_by, "library_ms": library_ms}
+    return out_by
+
+
+def production_phase(args, card) -> tuple[dict, dict]:
+    """Phase 25 (a): the app at the quality benchmark's production
+    configuration (``PROD_APP``), on the card and on the CPU. Returns the
+    phase's numbers and the forward kernel's entries on this path."""
+    import torch
+    from rag_foundation_tpu_torch.app.services.rag import (
+        engine_config_from_settings, reformulate_query)
+    from rag_foundation_tpu_torch.benchmark.runner import read_bench_config
+    from rag_foundation_tpu_torch.engine import Engine
+    from rag_foundation_tpu_torch.engine.rpc import EngineRpcServer
+    from rag_foundation_tpu_torch.ops import flash_attention as fa
+    t_phase = time.perf_counter()
+    benches = ("quality", "quality_multiturn")
+    config = read_bench_config(BENCH_CONFIG.read_text())
+    asked = {b: [json.loads(line) for line in (
+        QUALITY / config[b]["questions"]).read_text().splitlines()
+        if line.strip()] for b in benches}
+    runs, numbers, engines, works = {}, {}, {}, []
+    for platform in ("cuda", "cpu"):
+        work = Path(tempfile.mkdtemp(prefix=f"ragtpu-chip-prod-{platform}-"))
+        works.append(work)
+        extra, server = dict(PROD_APP), None
+        settings = app_settings(extra, work / "data")
+        if platform == "cuda":
+            # the engine in this process, the app in connect mode in front
+            # of it: the launches count here
+            engine = Engine(engine_config_from_settings(settings,
+                                                        device="cuda"))
+            sock = str(work / "engine.sock")
+            server = EngineRpcServer(engine, sock).start()
+            extra.update(ENGINE_RPC_MODE="connect", ENGINE_RPC_SOCKET=sock)
+        else:
+            extra["ENGINE_PLATFORM"] = "cpu"
+        app = AppProcess(work, extra)
+        try:
+            start_s = app.wait_live()
+            if platform == "cuda":
+                fa.LAUNCHES.reset()              # counts: this path only
+                capture = ShapeCapture(fa).start()
+            _, _, ingest_s = upload_quality_docs(app.base)
+            if platform == "cuda":
+                ingest_launches = fa.LAUNCHES.count
+            out = {b: bench_cli(app.base, b, work) for b in benches}
+            if platform == "cuda":
+                launches = fa.LAUNCHES.count     # read just after
+                by_shape = capture.stop()
+        finally:
+            log_text = app.stop()
+            if server is not None:
+                server.shutdown()
+        devices = started_devices(log_text)
+        want = "remote" if platform == "cuda" else "cpu"
+        if not devices or not all(d == want for d in devices):
+            fail(f"phase 25 (a) {platform}: app_started devices {devices}")
+        if platform == "cuda":
+            engines["cuda"] = (engine, engine.list_stores()[0])
+        else:   # the CPU app's engine, restored here from its data dir
+            restored = Engine(engine_config_from_settings(settings,
+                                                          device="cpu"))
+            engines["cpu"] = (restored, restored.list_stores()[0])
+        runs[platform] = {b: out[b][0] for b in benches}
+        numbers[platform] = {"ingest_s": ingest_s}
+        for b in benches:
+            check_results(out[b][0], f"phase 25 (a) {platform} {b}")
+            numbers[platform][b] = quality_numbers(out[b][1], out[b][0])
+            log(f"production app (a) {b} on {platform} (app {want}, started "
+                f"in {start_s:.1f} s; ten documents uploaded and ingested in "
+                f"{ingest_s:.2f} s), {len(out[b][0])} questions through "
+                f"benchmark.runner --config: "
+                f"{numbers_text(numbers[platform][b])} | {card}")
+    if launches == 0 or ingest_launches == 0 \
+            or launches == ingest_launches:
+        fail(f"phase 25 (a): flash_attention launched {ingest_launches} "
+             f"times on ingest and {launches - ingest_launches} on the "
+             f"questions of the hybrid app")
+    log(f"production app (a): flash_attention launches on the hybrid app "
+        f"path {launches} (ingest {ingest_launches}, questions "
+        f"{launches - ingest_launches}); by shape {capture.text()} | {card}")
+    ties = []
+    for b in benches:
+        for q, a, c in zip(asked[b], runs["cuda"][b], runs["cpu"][b]):
+            if (a["answer"], a["citations"]) == (c["answer"], c["citations"]):
+                continue
+            query = reformulate_query(q["question"], q.get("history"))
+            rank, diff = first_swap(engines, query)
+            log(f"production app (a) {b} differs on {q['question']!r}: card "
+                f"{a['answer']!r} {a['citations']}, CPU {c['answer']!r} "
+                f"{c['citations']}; the engines' hits first differ at rank "
+                f"{rank}, scores {diff:.3g} apart")
+            if rank < 0 or diff > HYBRID_TIE:
+                fail(f"phase 25 (a): the card and the CPU differ on "
+                     f"{q['question']!r} beyond a near-tie (rank {rank}, "
+                     f"{diff}) | {card}")
+            ties.append(diff)
+    total = sum(len(asked[b]) for b in benches)
+    log(f"production app (a): card and CPU answers and citations equal on "
+        f"{total - len(ties)} of {total} questions, {len(ties)} near-ties "
+        f"within {HYBRID_TIE} | {card}")
+    ref = json.loads((ROOT / "benchmarks" / "results" / "quality" /
+                      "summary_hybrid.json").read_text())["summary"]
+    log(f"production app (a), for reference only (a JAX run on a CPU, "
+        f"benchmarks/results/quality/summary_hybrid.json): EM "
+        f"{ref['em']:.4f} F1 {ref['f1']:.4f} contains {ref['contains']:.4f} "
+        f"citation hit {ref['citation_hit']:.4f} refusal accuracy "
+        f"{ref['refusal_ok']:.4f}")
+    buckets = attention_buckets(fa, torch, capture.inputs, card)
+    del capture, engines, engine
+    for work in works:
+        shutil.rmtree(work, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"phase 25 (a): {time.perf_counter() - t_phase:.1f} s")
+    return ({"questions": total, "near_ties": len(ties),
+             "card": numbers["cuda"], "cpu": numbers["cpu"]},
+            {"launches_app_hybrid": launches,
+             "launches_app_hybrid_by_b_s": {f"{b},{s}": n for (b, s), n
+                                            in by_shape.items()},
+             "app_hybrid": buckets})
+
+
+def gate_outcomes(base: str) -> dict:
+    """{outcome: count} of the app's ``engine_calls_total{op="generate"}``
+    (its ``/metrics``)."""
+    import urllib.request
+    with urllib.request.urlopen(base + "/metrics", timeout=30) as r:
+        text = r.read().decode()
+    return {k: int(float(v)) for k, v in GATE_OUTCOME.findall(text)}
+
+
+def decode_trace(torch, tdec, gens: dict, question, evidences,
+                 card) -> float:
+    """Where the card's and the CPU's greedy decodes of one prompt first
+    part: the top-2 margin of the CPU's logits (bias added) at that step,
+    fed the common prefix. Fails where they do not part."""
+    import numpy as np
+    ids, _, bias_np, card_out = greedy_answer(
+        gens["cuda"], tdec, torch, np, question, evidences)
+    _, _, _, cpu_out = greedy_answer(gens["cpu"], tdec, torch, np, question,
+                                     evidences, device="cpu")
+    step = next((j for j, (a, b) in enumerate(zip(card_out, cpu_out))
+                 if a != b), None)
+    if step is None:
+        fail(f"phase 25 (b): the answers to {question!r} differ, the "
+             f"card's and the CPU's greedy ids do not | {card}")
+    gen = gens["cpu"]
+    seq = torch.tensor([ids + cpu_out[:step]])
+    with torch.inference_mode():
+        row = tdec.forward(gen.params, seq, gen.cfg)[0, -1].float().numpy()
+    top2 = np.sort(row + bias_np)[-2:]
+    return float(top2[1] - top2[0])
+
+
+def generative_app_phase(args, card) -> dict:
+    """Phase 25 (b): the app's generative tier (``GEN_APP``, the decoder
+    in the app's process) on the card over the 120 quality questions, and
+    on the CPU over as many as ``GEN_CPU_BUDGET_S`` allows."""
+    import torch
+    from rag_foundation_tpu_torch.app.services.rag import (
+        EngineRag, engine_config_from_settings, reformulate_query)
+    from rag_foundation_tpu_torch.benchmark.runner import run_benchmark
+    from rag_foundation_tpu_torch.engine import Engine
+    from rag_foundation_tpu_torch.models import decoder as tdec
+    t_phase = time.perf_counter()
+    questions = [json.loads(line) for line in (
+        QUALITY / "questions.jsonl").read_text().splitlines()
+        if line.strip()]
+    runs, outcomes, numbers, works = {}, {}, {}, {}
+    for platform in ("cuda", "cpu"):
+        work = Path(tempfile.mkdtemp(prefix=f"ragtpu-chip-gen-{platform}-"))
+        works[platform] = work
+        extra = dict(GEN_APP)
+        if platform == "cpu":
+            extra["ENGINE_PLATFORM"] = "cpu"
+        app = AppProcess(work, extra)
+        try:
+            start_s = app.wait_live()
+            client, store, ingest_s = upload_quality_docs(app.base)
+            t0 = time.perf_counter()
+            if platform == "cuda":
+                results, _ = bench_cli(app.base, "quality", work)
+            else:      # as many questions as the budget allows, 8 a round
+                results = []
+                while len(results) < len(questions) \
+                        and time.perf_counter() - t0 < GEN_CPU_BUDGET_S:
+                    results += run_benchmark(
+                        client, store["id"],
+                        questions[len(results):len(results) + 8],
+                        concurrency=4, top_k=5)["results"]
+            wall = time.perf_counter() - t0
+            outcomes[platform] = gate_outcomes(app.base)
+        finally:
+            log_text = app.stop()
+        devices = started_devices(log_text)
+        if not devices or not all(d.startswith(platform) for d in devices):
+            fail(f"phase 25 (b) {platform}: app_started devices {devices}")
+        check_results(results, f"phase 25 (b) {platform}")
+        errors = {k: n for k, n in outcomes[platform].items()
+                  if k.endswith("_engine_error") and n}
+        if errors or not outcomes[platform]:
+            fail(f"phase 25 (b) {platform}: gate outcomes "
+                 f"{outcomes[platform]} | {card}")
+        runs[platform] = results
+        numbers[platform] = {**latency_line(results), "ingest_s": ingest_s,
+                             "questions": len(results), "wall_s": wall,
+                             "outcomes": outcomes[platform]}
+        log(f"generative app (b) on {devices[0]} (decoder_distill.npz, "
+            f"started in {start_s:.1f} s): {len(results)} questions in "
+            f"{wall:.2f} s, {latency_text(numbers[platform])}; gate "
+            f"outcomes {outcomes[platform]} | {card}")
+    tokenizer = tdec.load_decoder(GEN_APP["ENGINE_GENERATOR_CKPT"],
+                                  device="cpu")[2]
+    pieces = sum(len(tokenizer.encode_text(r["answer"]))
+                 for r in runs["cuda"])
+    answer_s = sum(r["latency_s"] for r in runs["cuda"])
+    numbers["cuda"]["answer_tokens_s"] = pieces / answer_s
+    jax_ab = json.loads((ROOT / "benchmarks" / "results" / "quality" /
+                         "ab_summary.json").read_text())
+    log(f"generative app (b) on the card: {pieces} answer tokens (the "
+        f"decoder's tokenizer, over all 120 streamed answers, generated "
+        f"or the span reader's) in {answer_s:.2f} s of summed answer "
+        f"latency = {numbers['cuda']['answer_tokens_s']:.1f} tokens/s; gate "
+        f"outcomes "
+        f"{outcomes['cuda']} beside the JAX CPU run's (ab_summary.json, for "
+        f"reference) {jax_ab['generative_gate_outcomes']} | {card}")
+    covered = len(runs["cpu"])
+    differ = [(q, a, c) for q, a, c in zip(questions, runs["cuda"],
+                                           runs["cpu"])
+              if (a["answer"], a["citations"]) != (c["answer"],
+                                                   c["citations"])]
+    margins = []
+    if differ:
+        # each device's deployment restored here, the app's own pipeline
+        # in process: the evidences it hands the decoder, then both decodes
+        rags, gens = {}, {}
+        for dev in ("cuda", "cpu"):
+            settings = app_settings(GEN_APP, works[dev] / "data")
+            engine = Engine(engine_config_from_settings(settings, device=dev))
+            rags[dev] = (EngineRag(settings, engine=engine),
+                         engine.list_stores()[0])
+            gens[dev] = engine._text_generator()
+        for q, a, c in differ:
+            prompts = {}
+            for dev, (rag, key) in rags.items():
+                seen = []
+                real = rag.engine.generate_stream
+
+                def spy(question, evidences, *, _seen=seen, _real=real,
+                        **kw):
+                    _seen.append((question, list(evidences)))
+                    yield from _real(question, evidences, **kw)
+
+                rag.engine.generate_stream = spy
+                it, _ = rag.ask_stream(q["question"], [key], model="chip")
+                "".join(it)
+                rag.engine.generate_stream = real
+                prompts[dev] = seen
+            if prompts["cuda"] != prompts["cpu"]:
+                engines = {dev: (rag.engine, key)
+                           for dev, (rag, key) in rags.items()}
+                rank, diff = first_swap(engines,
+                                        reformulate_query(q["question"], None))
+                if rank < 0 or diff > SCORE_TIE:
+                    fail(f"phase 25 (b): the decoder's evidences differ on "
+                         f"{q['question']!r} beyond a near-tie of the hits "
+                         f"(rank {rank}, {diff}) | {card}")
+                log(f"generative app (b) differs on {q['question']!r}: the "
+                    f"hits swap at rank {rank}, scores {diff:.3g} apart")
+                continue
+            if not prompts["cuda"]:
+                fail(f"phase 25 (b): the answers to {q['question']!r} "
+                     f"differ and neither reached the decoder | {card}")
+            question, evidences = prompts["cuda"][0]
+            margin = decode_trace(torch, tdec, gens, question, evidences,
+                                  card)
+            log(f"generative app (b) differs on {q['question']!r}: card "
+                f"{a['answer']!r}, CPU {c['answer']!r}; the greedy decodes "
+                f"part at a step whose top-2 margin is {margin:.4f} (limit "
+                f"{GEN_MARGIN})")
+            if margin > GEN_MARGIN:
+                fail(f"phase 25 (b): the card's and the CPU's decodes of "
+                     f"{q['question']!r} part at a margin of {margin} | "
+                     f"{card}")
+            margins.append(margin)
+        del rags, gens
+    log(f"generative app (b): the CPU covered {covered} of "
+        f"{len(questions)} questions in {numbers['cpu']['wall_s']:.1f} s "
+        f"(budget {GEN_CPU_BUDGET_S:.0f} s); card and "
+        f"CPU answers and citations equal on {covered - len(differ)} of "
+        f"them, {len(differ)} parting at a near-tie (hits within "
+        f"{SCORE_TIE}, or a decode step of margin <= {GEN_MARGIN}) | {card}")
+    for work in works.values():
+        shutil.rmtree(work, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"phase 25 (b): {time.perf_counter() - t_phase:.1f} s")
+    return {"covered_on_cpu": covered, "differ": len(differ),
+            "margins": margins, "card": numbers["cuda"],
+            "cpu": numbers["cpu"]}
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rows", type=int, default=10_000_000,
@@ -5615,6 +6144,11 @@ def main() -> None:
     # -- phase 20: the generative decoder's trainer ---------------------------
     decoder_train_phase(args, card, corpus)
     shutil.rmtree(corpus_dir, ignore_errors=True)
+
+    # -- phase 25: the app at the quality benchmark's production configs ---
+    production, attn_app = production_phase(args, card)
+    attn_kernel.update(attn_app)
+    generative_app = generative_app_phase(args, card)
     log(f"total {time.perf_counter() - t_start:.1f} s")
 
     kernels = {"kernels": [{
@@ -5659,7 +6193,9 @@ def main() -> None:
                       "app_calls": app_calls,
                       "app": {"in_process": app_inproc,
                               "connect": app_chat,
-                              "split": app_split}}), flush=True)
+                              "split": app_split,
+                              "production": production,
+                              "generative": generative_app}}), flush=True)
     print(json.dumps(kernels), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

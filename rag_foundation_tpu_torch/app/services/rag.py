@@ -470,7 +470,10 @@ class EngineRag:
             from rag_foundation_tpu_torch.engine.rpc import RemoteEngine
             self.engine = RemoteEngine(settings.engine_rpc_socket)
         else:
-            self.engine = Engine(engine_config_from_settings(settings))
+            # the reader's stem sets pin at ingest and restore and unpin
+            # on delete; in connect mode only hit assembly pins them here
+            self.engine = Engine(engine_config_from_settings(settings),
+                                 stem_pins=textnorm)
         # pluggable composition slot (SURVEY §3.2): the span reader is
         # the default AnswerGenerator; swap via ENGINE_GENERATOR. The
         # generative tier runs device-side, hence the engine handle.

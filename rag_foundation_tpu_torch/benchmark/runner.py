@@ -25,6 +25,7 @@ from __future__ import annotations
 import argparse
 import concurrent.futures
 import json
+import re
 import time
 import urllib.error
 import urllib.request
@@ -243,6 +244,99 @@ def run_benchmark(client: ApiClient, store_id: int | list[int],
     return {"results": results, "summary": summary}
 
 
+_YAML_BOOLS = {v: b for b, vs in ((True, "y Y yes Yes YES true True TRUE on "
+                                      "On ON"),
+                                     (False, "n N no No NO false False "
+                                      "FALSE off Off OFF"))
+               for v in vs.split()}
+_YAML_INT = re.compile(r"[-+]?(0|[1-9][0-9]*)")
+_YAML_FLOAT = re.compile(r"[-+]?([0-9]+\.[0-9]*|\.[0-9]+)([eE][-+][0-9]+)?")
+
+
+def _yaml_scalar(text: str):
+    """One plain or single-quoted scalar, resolved as ``yaml.safe_load``
+    resolves it (null, bool, int, float or string)."""
+    if text in ("", "~", "null", "Null", "NULL"):
+        return None
+    if text in _YAML_BOOLS:
+        return _YAML_BOOLS[text]
+    if _YAML_INT.fullmatch(text):
+        return int(text)
+    if _YAML_FLOAT.fullmatch(text):
+        return float(text)
+    if text[0] in "-+.0123456789":      # octal, 1_000, 1:30, dates, .inf
+        raise ValueError(f"unsupported YAML number {text!r}")
+    if len(text) >= 2 and text[0] == text[-1] == "'":
+        return text[1:-1].replace("''", "'")
+    if text[0] in "[]{}&*!|>%@`\"'" or ": " in text or text.endswith(":"):
+        raise ValueError(f"unsupported YAML scalar {text!r}")
+    return text
+
+
+def _yaml_folded(lines: list[str]) -> str:
+    """A folded (``>``) block's lines as ``yaml.safe_load`` joins them:
+    a line break between two lines becomes a space, an empty line a
+    newline, and one newline ends the text."""
+    while lines and not lines[-1].strip():
+        lines.pop()
+    if not lines:
+        return ""
+    indent = len(lines[0]) - len(lines[0].lstrip(" "))
+    parts: list[str] = []
+    for line in lines:
+        if not line.strip():
+            parts.append("\n")
+            continue
+        if line[:indent].strip() or line[indent:indent + 1] in (" ", "\t"):
+            raise ValueError(f"unsupported folded line {line!r}")
+        if parts and parts[-1] != "\n":
+            parts.append(" ")
+        parts.append(line[indent:])
+    return "".join(parts) + "\n"
+
+
+def read_bench_config(text: str) -> dict:
+    """``benchmarks.yml`` without PyYAML, which the card machine lacks:
+    top-level keys, each a mapping of scalars and folded (``>``)
+    strings, comments on their own lines or after a scalar. Equal to
+    ``yaml.safe_load`` on that shape; anything else raises
+    ``ValueError``."""
+    out: dict = {}
+    entry, entry_indent = None, None
+    lines = text.splitlines()
+    i = 0
+    while i < len(lines):
+        line = re.sub(r"(^|\s)#.*", "", lines[i]).rstrip()
+        i += 1
+        if not line:
+            continue
+        indent = len(line) - len(line.lstrip(" "))
+        key, sep, value = line.strip().partition(":")
+        value = value.strip()
+        if not sep or not key or (value and not line.strip()[
+                len(key) + 1].isspace()):
+            raise ValueError(f"unsupported YAML line {line!r}")
+        if indent == 0:
+            if value:
+                raise ValueError(f"top-level scalar {line!r}")
+            entry, entry_indent = out.setdefault(key, {}), None
+            continue
+        if entry is None or entry_indent not in (None, indent):
+            raise ValueError(f"unsupported nesting at {line!r}")
+        entry_indent = indent
+        if value == ">":
+            block = []
+            while i < len(lines) and (
+                    not lines[i].strip()
+                    or len(lines[i]) - len(lines[i].lstrip(" ")) > indent):
+                block.append(lines[i])
+                i += 1
+            entry[key] = _yaml_folded(block)
+        else:
+            entry[key] = _yaml_scalar(value)
+    return out
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--base-url", required=True)
@@ -265,8 +359,7 @@ def main() -> None:
     top_k = args.top_k
     max_questions = args.max_questions
     if args.config:
-        import yaml
-        cfg = yaml.safe_load(args.config.read_text())[args.bench]
+        cfg = read_bench_config(args.config.read_text())[args.bench]
         root = args.config.parent
         args.questions = args.questions or \
             (root / cfg["questions"]).resolve()

@@ -16,9 +16,12 @@ cards, or over ``[cpu] * mesh_shards`` with ``device="cpu"``;
 ``parallel/``), the generative decoder's serve path (``generator_ckpt``:
 ``generate_stream`` and ``prewarm_generator``, on the engine's device,
 ``models/decoder.py``), and the engine's Prometheus series
-(``engine/metrics.py``, ``Engine.metrics``). The reader's ``textnorm``
-pinning is left out on purpose: the port's engine is reached only over
-RPC, from another process.
+(``engine/metrics.py``, ``Engine.metrics``). The reader's stem sets
+are pinned where the JAX engine pins them (ingest, restore) and unpinned
+on document and store deletes, through the ``stem_pins`` hook that the
+app's ``EngineRag`` gives the engine it builds in process; the engine
+imports no app module, and an engine without the hook (``engine_main``,
+which serves no reader) pins nothing.
 
 Thread model: the RPC server calls in from many threads; each store
 serializes mutation under its own lock, searches read the latest
@@ -180,11 +183,15 @@ class Engine:
     ``mesh`` (beside ``config``, as ``device`` extends the JAX
     signatures) sets the mesh the stores shard over, for instance one
     that repeats a card; by default ``config.mesh_shards > 1`` makes one
-    (``_mesh``)."""
+    (``_mesh``). ``stem_pins`` is an object with ``pin_chunk(text)`` and
+    ``unpin_chunk(text)`` (the app's ``textnorm``), called for each chunk
+    at ingest and restore and on its delete, as the JAX engine calls
+    ``textnorm``; None pins nothing."""
 
     def __init__(self, config: EngineConfig | None = None, *,
-                 mesh: Mesh | None = None):
+                 mesh: Mesh | None = None, stem_pins=None):
         self.config = config or EngineConfig()
+        self.stem_pins = stem_pins
         self.device = resolve_device(self.config.device)
         if mesh is not None and self.config.mesh_shards > 1 \
                 and mesh.shape["shard"] != self.config.mesh_shards:
@@ -228,7 +235,11 @@ class Engine:
 
     def delete_store(self, key: str) -> None:
         with self._registry_lock:
-            self._stores.pop(key, None)
+            store = self._stores.pop(key, None)
+        if store is not None and self.stem_pins is not None:
+            with store.lock:
+                for m in store.chunks.values():
+                    self.stem_pins.unpin_chunk(m.text)
         if self.config.data_dir:
             p = self._store_dir(key)
             for f in ("vectors.npz", "meta.json", "body.npz"):
@@ -344,6 +355,9 @@ class Engine:
                     store.chunks[int(cid)] = _ChunkMeta(
                         doc_id=doc_id, doc_name=doc_name, text=c.text,
                         start=c.start, end=c.end, ordinal=c.ordinal)
+                    # the reader's stem sets, off the chat's thread
+                    if self.stem_pins is not None:
+                        self.stem_pins.pin_chunk(c.text)
                 from rag_foundation_tpu_torch.engine.pipeline import \
                     pipelined_ingest
                 pipelined_ingest(self.encoder.encode, store.segment.add,
@@ -359,6 +373,8 @@ class Engine:
         if dead:
             store.segment.delete_ids(dead)
             for cid in dead:
+                if self.stem_pins is not None:
+                    self.stem_pins.unpin_chunk(store.chunks[cid].text)
                 del store.chunks[cid]
 
     def delete_document(self, store_key: str, doc_id: str) -> None:
@@ -758,6 +774,9 @@ class Engine:
                        disk_mtime=mtime)
         store.chunks = {int(cid): _ChunkMeta(**m)
                         for cid, m in meta["chunks"].items()}
+        if self.stem_pins is not None:      # at restore, not the first chat
+            for m in store.chunks.values():
+                self.stem_pins.pin_chunk(m.text)
         return store
 
     def _load_all(self) -> None:
