@@ -4,9 +4,10 @@
 Run from the repository root on a machine with one CUDA card::
 
     python3 chip_smoke.py            # full size: two 10M x 768 stores,
-                                     # then the exact scan of 1M x 768
+                                     # the exact scan of 1M x 768, ...,
+                                     # the 100M x 768 capacity tier
     python3 chip_smoke.py --rows 200000 --pq-rows 200000 \
-        --exact-rows 100000          # quick check
+        --exact-rows 100000 --cap-rows 2000000   # quick check
 
 Phases (each one fails the run: non-zero exit, no result line):
 
@@ -350,14 +351,47 @@ Phases (each one fails the run: non-zero exit, no result line):
     at a step whose top-2 margin is at most ``GEN_MARGIN``. Printed: the
     questions the CPU covered, time to first delta and answer p50/p99,
     answer tokens/s, the gate outcomes beside ``ab_summary.json``'s.
+26. The 100M capacity tier (``CAP_CONFIG``: the JAX app's
+    ``ENGINE_INDEX_MODE=ivf_pq``, ``ENGINE_PQ_PACKED=true``,
+    ``ENGINE_PQ_REFINE=host`` at ``benchmarks/bench_store_pq_100m.py``'s
+    numbers: m=256 nibble-packed 4-bit codes, cap_slack 1.09, nlist
+    16384, which ``StoreIndex`` sizes to 24,415 at 100M, nprobe 32), run
+    right after phase 2, while the host's memory is whole: it reads the
+    host's memory and cores and fails before it starts where RAM does not
+    hold the int8 archive (``--cap-rows`` x 768 bytes) beside the build's
+    scatter table; an ``Engine`` behind ``EngineRpcServer`` ingests the fact
+    documents over RPC, then a ``HostArchive`` of its live rows and pads
+    generated on the card (int8 at the archive's scale) up to
+    ``--cap-rows`` is bulk-loaded (``StoreIndex.bulk_load_archive``:
+    ``build_ivf_pq_streaming`` with the spill pass; seconds by stage:
+    sample, k-means, PQ train, encode + scatter, spill, upload, publish).
+    It fails unless the body has the nlist, cap_len and m the code gives,
+    the fact questions over RPC cite their documents first, concurrent
+    searches launch ``pq_list_scan``, a Q=1024 batch of stored pad rows
+    (regenerated in f32) plus ``CAP_QUERY_NOISE`` finds its own row first
+    and reaches ``CAP_RECALL_MIN`` recall@10 against an exact scan of the
+    archive on the card (``fused_topk`` over steps of the rows, merged
+    with ties to the lowest row) under ``pq_refine`` host and none,
+    ``search_many`` equals ``search``, the fact questions reach
+    ``RECALL_MIN`` recall@10 against the same exact scan, counting a chunk
+    that ties the 10th exact score (held at the tier's 100M rows, printed
+    below), ``pq_list_scan``'s counter (zeroed
+    before the fact questions, read after ``recall_probe``) moved, its
+    launch on the batch's own dispatch is bit-identical to the plain
+    version on every list, and the release returns the card's and the
+    host's memory. Printed: the build's stages, the tail's overflow rows,
+    ms a batch and QPS four deep, the ``search_profile`` stages, qcap
+    drops, the card's busy share (``torch.profiler``), the recall probe's
+    seconds, the kernel's time beside its bound and its plain version's.
 
-``--long-docs`` sets the number of long documents of phase 13;
-``--decoder-steps``, ``--decoder-triples`` and ``--decoder-eval`` phase
-20's cuts. Two JSON
+``--cap-rows`` sets phase 26's rows (default 100M); ``--long-docs`` the
+number of long documents of phase 13; ``--decoder-steps``,
+``--decoder-triples`` and ``--decoder-eval`` phase 20's cuts. Two JSON
 lines end the output before the last: the host shim's and the app
 calls' numbers (phase 18's host re-rank A/B, phase 19's ingest and
 encode rates, right-first shares, latencies and qcap drops, phase 23's,
-phase 24's and phase 25's app numbers), then the
+phase 24's and phase 25's app numbers, phase 26's build, searches and
+recall probe), then the
 kernels' JSON (eight entries; the flash-attention forward's also holds
 its launches on phase 16's chat path and on phase 25's hybrid app path
 with each bucket's check and times, the two list scans their
@@ -367,8 +401,10 @@ launches and one shard's numbers on the sharded paths of phases 17-18,
 paths' dispatches checked and timed, the
 forward its times at phase 15's training shapes, the two list
 scans their launches in each process of phase 21, the three attention
-kernels theirs in one step of phase 22); the last line
-is ``{"ok": true, "device": {...}}``.
+kernels theirs in one step of phase 22, ``pq_list_scan`` its launches
+on phase 26's path and the m=256 route's check and times there,
+``fused_topk`` its launches as phase 26's recall reference); the last
+line is ``{"ok": true, "device": {...}}``.
 The script imports neither JAX nor the JAX package.
 """
 
@@ -2900,13 +2936,13 @@ DECODER_STEP_PARTS = (
 
 
 def profile_train_steps(torch, step, params, inputs, steps, card, what,
-                        parts=STEP_PARTS) -> float | None:
-    """Device time of ``steps`` training steps by kernel, from
-    torch.profiler: the ``parts`` (name, kernel-name fragments), the top
-    kernels and the device's busy share of the window (kernel time over
-    wall time; the profiler's own cost is in the wall time). Returns the
-    device time a step in ms, None where the profiler saw no device
-    time."""
+                        parts=STEP_PARTS, unit="step") -> float | None:
+    """Device time of ``steps`` training steps (or other calls of ``step``,
+    named ``unit`` in the log) by kernel, from torch.profiler: the
+    ``parts`` (name, kernel-name fragments), the top kernels and the
+    device's busy share of the window (kernel time over wall time; the
+    profiler's own cost is in the wall time). Returns the device time a
+    step in ms, None where the profiler saw no device time."""
     from torch.profiler import ProfilerActivity, profile
     step(params, *inputs)
     torch.cuda.synchronize()
@@ -2937,9 +2973,9 @@ def profile_train_steps(torch, step, params, inputs, steps, card, what,
                     "other (elementwise, reductions)")
         by_part[name] += e.self_device_time_total / 1e3
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
-    log(f"{what} profile ({steps} steps under torch.profiler): device "
-        f"time {total / steps:.2f} ms a step, wall {wall_ms / steps:.2f} ms "
-        f"a step, device busy {total / wall_ms:.1%}; "
+    log(f"{what} profile ({steps} {unit}s under torch.profiler): device "
+        f"time {total / steps:.2f} ms a {unit}, wall {wall_ms / steps:.2f} "
+        f"ms a {unit}, device busy {total / wall_ms:.1%}; "
         + ", ".join(f"{n} {t / steps:.2f} ms ({t / total:.1%})"
                     for n, t in by_part.items())
         + "; top kernels: "
@@ -5736,12 +5772,617 @@ def generative_app_phase(args, card) -> dict:
             "cpu": numbers["cpu"]}
 
 
+# -- phase 26: the 100M capacity tier ---------------------------------------
+# the tier's settings (the JAX app's ENGINE_INDEX_MODE=ivf_pq,
+# ENGINE_PQ_PACKED=true, ENGINE_PQ_REFINE=host; the numbers of
+# benchmarks/bench_store_pq_100m.py: nlist 16384, m 256 nibble-packed
+# 4-bit codes, cap_slack 1.09, nprobe 32). StoreIndex sizes nlist up to
+# a mean list of 4,096 rows (24,415 at 100M); ivf_p stays the engine's 4
+CAP_CONFIG = dict(dim=768, index_mode="ivf_pq", pq_m=256, pq_packed=True,
+                  pq_refine="host", pq_cap_slack=1.09, nlist=16384,
+                  nprobe=32, batch_window_s=0.02, build_threshold=256)
+CAP_ROWS = 100_000_000    # the tier's rows (bench_store_pq_100m --n)
+CAP_CHUNK = 1 << 18       # pad rows a generator chunk and an archive append
+CAP_Q = 1024              # the tier's query batch (bench_store_pq_100m --q)
+CAP_QUERY_CHUNKS = 8      # generator chunks the batch's rows come from
+# a query is a stored pad row (regenerated in f32) plus N(0, 0.01^2) a
+# coordinate, normalized: cosine about 0.96 with its row. Pads are near
+# isotropic (a unit center plus N(0, 0.35^2) a coordinate), so beyond its
+# own row a query's exact top 10 are rows at cosine ~0.2 spread over the
+# whole corpus, which 32 of 24,415 lists seldom hold: recall@10 rests on
+# the row itself (0.1 of it). The floors:
+CAP_QUERY_NOISE = 0.01
+CAP_SELF_MIN = {"host": 0.99, "none": 0.95}    # the query's row first
+CAP_RECALL_MIN = {"host": 0.095, "none": 0.09}  # recall@10 vs the exact scan
+CAP_EXACT_STEP = 1 << 21  # archive rows a step of the card's exact scan
+CAP_MARGIN = 4 << 30      # host bytes beyond the archive and scatter table
+CAP_DEVICE_SLACK = 256 << 20  # device bytes the release may leave behind
+CAP_HOST_SLACK = 8 << 30      # host RSS the release may leave behind
+
+
+def host_room() -> dict:
+    """What the host can hold: ``/proc/meminfo``'s MemTotal and
+    MemAvailable and the cgroup's limit and use where one is set (bytes),
+    and the cores."""
+    import os
+    out = {}
+    with open("/proc/meminfo") as f:
+        for line in f:
+            name, _, value = line.partition(":")
+            if name in ("MemTotal", "MemAvailable"):
+                out[name] = int(value.split()[0]) * 1024
+    for name in ("memory.max", "memory.current"):
+        try:
+            text = (Path("/sys/fs/cgroup") / name).read_text().strip()
+        except OSError:
+            continue
+        if text != "max":
+            out["cgroup_" + name.split(".")[1]] = int(text)
+    out["cores"] = os.cpu_count()
+    return out
+
+
+def rss_bytes() -> int:
+    """This process's resident set (``/proc/self/status`` VmRSS)."""
+    with open("/proc/self/status") as f:
+        for line in f:
+            if line.startswith("VmRSS:"):
+                return int(line.split()[1]) * 1024
+    return 0
+
+
+def malloc_trim() -> None:
+    """Hand the C heap's free blocks back to the system (threads' malloc
+    arenas keep them otherwise)."""
+    import ctypes
+    try:
+        ctypes.CDLL("libc.so.6").malloc_trim(0)
+    except OSError:
+        pass
+
+
+def peak_rss_bytes() -> int:
+    import resource
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
+
+
+def clear_cublas_workspaces(torch) -> None:
+    """Drop the cuBLAS workspaces PyTorch keeps for every thread that ran a
+    matmul on the card (an RPC server's handler threads leave theirs
+    behind when they end): the caching allocator counts them."""
+    clear = getattr(torch._C, "_cuda_clearCublasWorkspaces", None)
+    if clear is not None:
+        clear()
+
+
+def live_cuda_tensors(torch, top: int = 8) -> str:
+    """The largest CUDA tensors still reachable, with what holds them."""
+    found = []
+    for o in gc.get_objects():
+        try:
+            if isinstance(o, torch.Tensor) and o.is_cuda:
+                found.append(o)
+        except Exception:  # noqa: BLE001 — a lazy object may not answer
+            continue
+    found.sort(key=lambda t: -t.numel() * t.element_size())
+    return "; ".join(
+        f"{tuple(t.shape)} {t.dtype} "
+        f"{t.numel() * t.element_size() / 2**20:.1f} MiB held by "
+        f"{[type(r).__name__ for r in gc.get_referrers(t)][:4]}"
+        for t in found[:top]) or "none"
+
+
+def own_row_misses(torch, body, qv, src, ids, missed, all_cids) -> str:
+    """For each query in ``missed``: where its own row stands (the rank of
+    the row's list among the query's coarse scores, 0 the best: nprobe
+    ranks are probed; or "tail"), and its rank in the served top 10."""
+    import numpy as np
+    out = []
+    cents = body.centroids
+    for qi in missed[:16].tolist():
+        row = int(src[qi])
+        where = (body.row_ids == row).nonzero()
+        served = np.nonzero(ids[qi] == all_cids[row])[0]
+        rank = int(served[0]) if len(served) else None
+        if len(where) == 0:
+            out.append(f"q{qi}: tail, served rank {rank}")
+            continue
+        lst = int(where[0, 0])
+        coarse = torch.as_tensor(qv[qi], device=cents.device) @ cents.T
+        out.append(f"q{qi}: list rank {int((coarse > coarse[lst]).sum())}"
+                   f", served rank {rank}")
+    return "; ".join(out)
+
+
+def card_exact_topk(torch, ft, merge_topk, arch, q, k: int, step: int):
+    """Exact top-``k`` of ``q [Q, d]`` f32 over every int8 row of ``arch``
+    on the card: ``fused_topk`` (f32) over steps of ``step`` rows widened
+    to f32 (the int8 values, whose order the archive's scale keeps), each
+    step's top-k merged with ``merge_topk`` (the earlier rows first: ties
+    go to the lowest row). Returns (scores [Q, k] f32 with the scale,
+    rows [Q, k] int64) on the host."""
+    import numpy as np
+    qt = torch.as_tensor(q, device="cuda")
+    best_v = best_i = None
+    for lo in range(0, arch.n, step):
+        hi = min(arch.n, lo + step)
+        rows = torch.as_tensor(np.asarray(arch.chunk_i8(lo, hi)),
+                               device="cuda").float()
+        v, i = ft.fused_topk(qt, rows, k)
+        i = torch.where(i >= 0, i.long() + lo, torch.full_like(i.long(), -1))
+        if best_v is None:
+            best_v, best_i = v, i
+        else:
+            best_v, best_i = merge_topk(best_v, best_i, v, i, k)
+        del rows
+    return ((best_v * arch.scale).cpu().numpy(), best_i.cpu().numpy())
+
+
+def archive_recall_with_ties(arch, q, served_rows, exact_rows,
+                             k: int = 10) -> float:
+    """recall@k where a served archive row counts if it scores at least
+    the k-th best exact score. Both sides are scored alike (the f32 query
+    against the archive's int8 rows, in f64): near-duplicate chunks store
+    equal rows and tie, and which of them comes back is a matter of
+    position, not of quality. A row of -1 scores -inf."""
+    import numpy as np
+
+    def scores(rows):
+        rows = np.asarray(rows)
+        v = (arch.rows_i8(rows).astype(np.float64)
+             * np.asarray(q, np.float64)[:, None, :]).sum(axis=2)
+        return np.where(rows >= 0, v, -np.inf)
+
+    s_served, s_exact = scores(served_rows), scores(exact_rows)
+    return float(np.mean((s_served >= s_exact.min(axis=1, keepdims=True))
+                         .sum(axis=1) / k))
+
+
+def capacity_phase(args, card, sampled, mods) -> dict:
+    """Phase 26: the 100M capacity tier (``CAP_CONFIG``) through the
+    engine on the card. Returns the numbers the kernels' line carries."""
+    import numpy as np
+    import torch
+    from rag_foundation_tpu_torch.engine import index as tindex
+    from rag_foundation_tpu_torch.ops import fused_topk as ft
+    from rag_foundation_tpu_torch.ops.topk import merge_topk
+    from rag_foundation_tpu_torch.utils import roofline
+    (Engine, EngineConfig, EngineRpcServer, RemoteEngine, search_profile,
+     HostArchive, tpq, pq_scan, quantize) = mods
+    t_phase = time.perf_counter()
+    gc.collect()
+    clear_cublas_workspaces(torch)
+    torch.cuda.empty_cache()
+    malloc_trim()
+    dev_before, rss_before = torch.cuda.memory_allocated(), rss_bytes()
+    # a build reproducible run to run: the k-means centroid sums
+    # (index_add_) take a fixed order on the card instead of atomics
+    determinism = (torch.are_deterministic_algorithms_enabled(),
+                   torch.is_deterministic_algorithms_warn_only_enabled())
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    data_dir = tempfile.mkdtemp(prefix="ragtpu-chip-smoke-cap-")
+    sock = str(Path(data_dir) / "engine.sock")
+    cfg = dict(CAP_CONFIG, data_dir=data_dir, device="cuda")
+    key = "stores/chip-smoke-cap"
+    total = args.cap_rows
+
+    # -- set-up: room, engine, the real documents over RPC --------------
+    engine = Engine(EngineConfig(**cfg))
+    server = EngineRpcServer(engine, sock, allow_pad=True).start()
+    remote = RemoteEngine(sock, pool_size=80)
+    try:
+        remote.create_store(key)
+        seg = engine._store(key).segment
+        nlist = seg._sized_nlist(total)
+        cap_len = tpq.pq_cap_len(total, nlist, cfg["pq_cap_slack"])
+        m_bytes = cfg["pq_m"] // 2
+        arch_bytes = total * cfg["dim"]
+        scatter_bytes = nlist * cap_len * (m_bytes + 4) + total * 5
+        room = host_room()
+        avail = min(room["MemAvailable"],
+                    room.get("cgroup_max", 1 << 62)
+                    - room.get("cgroup_current", 0))
+        need = arch_bytes + scatter_bytes + CAP_MARGIN
+        gib = 2 ** 30
+        log(f"phase 26 host: MemTotal {room['MemTotal'] / gib:.1f} GiB, "
+            f"MemAvailable {room['MemAvailable'] / gib:.1f} GiB, cgroup "
+            f"limit {room.get('cgroup_max', 0) / gib:.1f} GiB (0: none), "
+            f"{room['cores']} cores; the tier needs an int8 "
+            f"archive of {arch_bytes / gib:.1f} GiB and a scatter table of "
+            f"{scatter_bytes / gib:.1f} GiB (nlist {nlist}, cap_len "
+            f"{cap_len}, {m_bytes} B codes + 4 B ids a slot), "
+            f"{CAP_MARGIN / gib:.0f} GiB margin; process RSS "
+            f"{rss_before / gib:.1f} GiB")
+        if avail < need:
+            fail(f"phase 26: the host holds {avail / gib:.1f} GiB; {total} "
+                 f"rows need {need / gib:.1f} GiB in RAM (the archive, the "
+                 f"build's scatter table and {CAP_MARGIN / gib:.0f} GiB)")
+
+        t0 = time.perf_counter()
+        for i in range(args.docs):
+            remote.ingest_document(key, f"doc-{i}", f"project-{i}.txt",
+                                   fact_doc(i))
+        if seg.body is None or type(seg.body).__name__ != "IVFPQIndex":
+            fail("phase 26: the real documents built no IVF-PQ body")
+        log(f"capacity tier: ingested {args.docs} documents in "
+            f"{time.perf_counter() - t0:.2f} s over RPC (PQ body of "
+            f"{seg.body.n} rows, m {seg.body.m}, packed {seg.body.packed}, "
+            f"tail {seg.tail.count})")
+
+        # -- mass import: live rows + pads generated on the card ----------
+        t0 = time.perf_counter()
+        base_v, base_i = seg.live_rows()
+        n_pad = total - len(base_i)
+        arch = HostArchive(cfg["dim"])
+        arch.reserve(total)
+        # the reserved rows faulted in over the cores first (one thread
+        # faulting a page each 4 KiB made the appends slow)
+        import os
+        from concurrent.futures import ThreadPoolExecutor
+        reserved, cores = arch.chunk_i8(0, total), os.cpu_count() or 1
+        cut = -(-total // cores)
+        with ThreadPoolExecutor(cores) as pool:
+            list(pool.map(lambda lo: reserved[lo:lo + cut].fill(0),
+                          range(0, total, cut)))
+        del reserved
+        arch.append(base_v)
+        gen = engine.pad_generator(engine.pad_centers(args.seed),
+                                   Engine.PAD_NOISE, args.seed, CAP_CHUNK,
+                                   seg.device)
+        stage = torch.empty((CAP_CHUNK, cfg["dim"]), dtype=torch.int8,
+                            pin_memory=True)
+        n_chunks = -(-n_pad // CAP_CHUNK)
+        for ci in range(n_chunks):
+            take = min(CAP_CHUNK, n_pad - ci * CAP_CHUNK)
+            stage[:take].copy_(quantize.quantize_with_scale(
+                gen(ci)[:take], arch.scale))
+            arch.append(stage[:take].numpy())
+        del stage
+        fill_s = time.perf_counter() - t0
+        pad_ids = np.arange(Engine.PAD_ID_BASE, Engine.PAD_ID_BASE + n_pad,
+                            dtype=np.int64)
+        all_cids = np.concatenate([base_i, pad_ids])
+
+        # the build, timed by stage: its functions wrapped to mark their
+        # start and end (the card synchronized at each mark)
+        marks, scatter_s, done = {}, [0.0], []
+
+        def marked(mod, name, label):
+            f = getattr(mod, name)
+
+            def wrapper(*a, **kw):
+                torch.cuda.synchronize()
+                t_a = time.perf_counter()
+                out = f(*a, **kw)
+                torch.cuda.synchronize()
+                marks[label] = (t_a, time.perf_counter())
+                return out
+            setattr(mod, name, wrapper)
+            return mod, name, f
+
+        scatter0 = tpq.HostScatter.scatter
+
+        def scatter(hs, *a, **kw):
+            t_a = time.perf_counter()
+            scatter0(hs, *a, **kw)
+            scatter_s[0] += time.perf_counter() - t_a
+
+        saved = [marked(tpq, "kmeans_fit", "kmeans"),
+                 marked(tpq, "pq_train", "pq_train"),
+                 marked(tpq, "_spill_pass", "spill"),
+                 marked(tindex, "build_ivf_pq_streaming", "build")]
+        tpq.HostScatter.scatter = scatter
+        t0 = time.perf_counter()
+        try:
+            seg.bulk_load_archive(
+                arch, all_cids,
+                progress=lambda d, n: done.append(time.perf_counter()))
+            torch.cuda.synchronize()
+        finally:
+            for mod, name, f in saved:
+                setattr(mod, name, f)
+            tpq.HostScatter.scatter = scatter0
+        t_end = time.perf_counter()
+        build_s = t_end - t0
+        engine._pad_counts[key] = n_pad    # searches over-fetch past pads
+        body = seg.body
+        enc_end = done[-1]
+        spill = marks.get("spill", (enc_end, enc_end))
+        stages = {
+            "sample fetch": marks["kmeans"][0] - t0,
+            "k-means": marks["kmeans"][1] - marks["kmeans"][0],
+            "PQ train": marks["pq_train"][1] - marks["kmeans"][1],
+            "encode + scatter": enc_end - marks["pq_train"][1],
+            "spill": spill[1] - spill[0],
+            "upload": marks["build"][1] - max(spill[1], enc_end),
+            "publish (tail)": t_end - marks["build"][1]}
+        tail_n = seg.tail.count
+        code_bytes = body.codes.numel() + body.row_ids.numel() * 4
+        log(f"capacity tier store rows {total} (pad {n_pad}) d=768: "
+            f"archive fill (pads generated on the card, int8 to the host) "
+            f"{fill_s:.2f} s = {total / fill_s:,.0f} vec/s; "
+            f"bulk_load_archive {build_s:.2f} s = {total / build_s:,.0f} "
+            f"vec/s = "
+            + "; ".join(f"{n} {s:.2f} s" for n, s in stages.items())
+            + f" (host scatter {scatter_s[0]:.2f} s of the encode, behind "
+            f"the card's next chunk); body nlist={body.nlist} (configured "
+            f"{cfg['nlist']}) cap_len={body.cap_len} m={body.m} packed="
+            f"{body.packed} live={body.n} (mean list "
+            f"{body.n / body.nlist:.1f}), tail {tail_n} "
+            f"({tail_n / total:.4%} overflow); codes+ids "
+            f"{code_bytes / 2**30:.2f} GiB on the card; archive "
+            f"{arch.n * arch.dim / 1e9:.1f} GB in RAM; host RSS "
+            f"{rss_bytes() / gib:.1f} GiB, peak {peak_rss_bytes() / gib:.1f}"
+            f" GiB | {card}")
+        if (body.nlist, body.cap_len, body.m, body.packed) != (
+                nlist, cap_len, cfg["pq_m"], True):
+            fail(f"phase 26: body nlist {body.nlist} cap_len "
+                 f"{body.cap_len} m {body.m} packed {body.packed}, the code "
+                 f"gives {nlist}, {cap_len}, {cfg['pq_m']}, True")
+        if body.n + tail_n != total or body.refine.shape[0] != 0:
+            fail(f"phase 26: {body.n} body rows + {tail_n} tail rows of "
+                 f"{total}, refine {tuple(body.refine.shape)}")
+
+        # -- fact questions over RPC (the host re-rank) ---------------------
+        pq_scan.LAUNCHES.reset()             # counts: this phase's path
+        lat = []
+        for i in sampled:
+            t0 = time.perf_counter()
+            hits = remote.search([key], fact_query(i), k=5)
+            lat.append((time.perf_counter() - t0) * 1e3)
+            if not hits or hits[0].doc_id != f"doc-{i}":
+                fail(f"capacity tier: top hit for project {i} is "
+                     f"{hits[0].doc_id if hits else None}")
+        log(f"capacity tier single search over RPC: p50 "
+            f"{np.percentile(lat, 50):.3f} ms p99 "
+            f"{np.percentile(lat, 99):.3f} ms ({len(lat)} fact questions, "
+            f"each citing its own document first) | {card}")
+        rng = np.random.default_rng(args.seed + 26)
+        threads = 64
+        qids = [int(i) for i in rng.integers(0, args.docs,
+                                             size=threads * 24)]
+        scan0 = pq_scan.LAUNCHES.count
+        search_profile.reset()
+        hits, wall = run_concurrent(remote, key,
+                                    [fact_query(i) for i in qids], threads)
+        batches = search_profile.snapshot().get("body_dispatch",
+                                                {"n": 0})["n"]
+        right = sum(1 for i, h in zip(qids, hits)
+                    if h and h[0].doc_id == f"doc-{i}")
+        conc = pq_scan.LAUNCHES.count - scan0
+        log(f"capacity tier concurrent search over RPC: {threads} threads, "
+            f"{len(qids)} queries in {wall:.3f} s = "
+            f"{len(qids) / wall:,.1f} QPS; {batches} batches (mean "
+            f"{len(qids) / max(1, batches):.1f} queries), pq_list_scan "
+            f"launches {conc}; right top hit {right}/{len(qids)} "
+            f"({right / len(qids):.4f}) | {card}")
+        if conc == 0:
+            fail("capacity tier: concurrent batches never launched "
+                 "pq_list_scan")
+
+        # -- the Q=1024 batch: stored pad rows regenerated, plus noise ----
+        picks = np.unique(np.linspace(0, n_chunks - 1, CAP_QUERY_CHUNKS)
+                          .round().astype(np.int64))
+        per = -(-CAP_Q // len(picks))
+        q_rows, src = [], []
+        for ci in picks.tolist():
+            take = min(CAP_CHUNK, n_pad - ci * CAP_CHUNK)
+            r = np.sort(rng.choice(take, size=min(per, take),
+                                   replace=False))
+            q_rows.append(gen(ci)[torch.as_tensor(r, device=seg.device)]
+                          .cpu().numpy())
+            src.append(len(base_i) + ci * CAP_CHUNK + r)
+        qv = np.concatenate(q_rows)[:CAP_Q]
+        src = np.concatenate(src)[:CAP_Q]
+        qv = qv + rng.standard_normal(qv.shape).astype(np.float32) \
+            * np.float32(CAP_QUERY_NOISE)
+        qv /= np.linalg.norm(qv, axis=1, keepdims=True)
+        src_ids = all_cids[src]
+        qf = engine.encoder.encode([fact_query(i) for i in sampled])
+
+        # the exact reference on the card: fused_topk over the archive
+        ft.LAUNCHES.reset()
+        t0 = time.perf_counter()
+        _, exact_rows = card_exact_topk(torch, ft, merge_topk, arch,
+                                        np.concatenate([qv, qf]), 10,
+                                        CAP_EXACT_STEP)
+        exact_s = time.perf_counter() - t0
+        exact_launches = ft.LAUNCHES.count
+        exact_ids = all_cids[np.clip(exact_rows, 0, None)]
+        exact_q, exact_f = exact_ids[:len(qv)], exact_ids[len(qv):]
+        self_exact = float(np.mean(exact_q[:, 0] == src_ids))
+        log(f"capacity tier exact reference on the card: fused_topk (f32) "
+            f"over {arch.n} archive rows in steps of {CAP_EXACT_STEP}, "
+            f"merged with merge_topk: {len(qv) + len(qf)} queries in "
+            f"{exact_s:.2f} s, {exact_launches} launches; a query's own "
+            f"row is its exact first for {self_exact:.4f} | {card}")
+        if self_exact < 1.0:
+            fail(f"capacity tier: a query's own row is not its exact "
+                 f"first ({self_exact})")
+
+        # -- the searches, pq_refine host then none -------------------------
+        step4 = pq_scan.LAUNCHES.count
+        tiers = {}
+        for tier in ("host", "none"):
+            seg.pq_refine = tier
+            seg.search(qv, 10)                       # warm
+            search_profile.reset()
+            ms = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                _, ids = seg.search(qv, 10)
+                ms.append((time.perf_counter() - t0) * 1e3)
+            prof = search_profile.snapshot()
+            t0 = time.perf_counter()
+            many = seg.search_many([qv] * 4, 10)
+            many_s = time.perf_counter() - t0
+            if not all(np.array_equal(m[1], ids) for m in many):
+                fail(f"capacity tier {tier}: search_many differs from "
+                     f"search")
+            rec = recall_at(ids, exact_q)
+            self_first = float(np.mean(ids[:, 0] == src_ids))
+            dev_ms = profile_train_steps(
+                torch, lambda _: seg.search(qv, 10), None, (), 3, card,
+                f"capacity tier StoreIndex.search Q={CAP_Q} "
+                f"pq_refine={tier}", parts=(), unit="search")
+            busy = None if dev_ms is None else dev_ms / float(np.median(ms))
+            tiers[tier] = {"ms": ms, "qps_many": 4 * CAP_Q / many_s,
+                           "recall": rec, "self_first": self_first,
+                           "busy": busy,
+                           "stages_ms": {k: v["s"] / 3 * 1e3
+                                         for k, v in prof.items()}}
+            log(f"capacity tier StoreIndex.search Q={CAP_Q} pq_refine="
+                f"{tier}: " + ", ".join(f"{t:.2f}" for t in ms)
+                + f" ms a batch (three runs) = "
+                f"{CAP_Q / (min(ms) / 1e3):,.0f} QPS at the best; "
+                f"search_many four deep {4 * CAP_Q / many_s:,.0f} QPS "
+                f"(equal to search); the card busy "
+                + ("not measured" if busy is None else
+                   f"{busy:.1%} (device time a call over the unprofiled "
+                   f"median)")
+                + f"; recall@10 vs the exact scan "
+                f"{rec:.4f} (floor {CAP_RECALL_MIN[tier]}), the query's row "
+                f"first {self_first:.4f} (floor {CAP_SELF_MIN[tier]}); "
+                f"stages a batch: "
+                + ", ".join(f"{k} {v['s'] / 3 * 1e3:.3f} ms"
+                            for k, v in prof.items()) + f" | {card}")
+            missed = np.nonzero(ids[:, 0] != src_ids)[0]
+            if len(missed):
+                log(f"capacity tier pq_refine={tier}: the {len(missed)} "
+                    f"queries whose own row is not first: "
+                    + own_row_misses(torch, body, qv, src, ids, missed,
+                                     all_cids) + f" | {card}")
+            if rec < CAP_RECALL_MIN[tier] or self_first < CAP_SELF_MIN[tier]:
+                fail(f"capacity tier {tier}: recall@10 {rec}, own row "
+                     f"first {self_first}")
+        seg.pq_refine = "host"
+        step4 = pq_scan.LAUNCHES.count - step4
+        served_f = np.stack([seg.search(qf[i:i + 1], 40)[1][0, :10]
+                             for i in range(len(qf))])
+        fact_ids = recall_at(served_f, exact_f)
+        # served ids back to archive rows: the documents' rows first, then
+        # the pads in id order
+        order = np.argsort(base_i)
+        at = np.clip(np.searchsorted(base_i[order], served_f), 0,
+                     len(base_i) - 1)
+        served_rows = np.where(
+            served_f >= Engine.PAD_ID_BASE,
+            served_f - Engine.PAD_ID_BASE + len(base_i),
+            np.where(base_i[order][at] == served_f, order[at], -1))
+        fact_rec = archive_recall_with_ties(arch, qf, served_rows,
+                                            exact_rows[len(qv):])
+        q_scale = float(np.abs(qv).max()) / 127.0
+        q8 = torch.as_tensor(np.clip(np.round(qv / q_scale), -127, 127)
+                             .astype(np.int8), device="cuda")
+        q32, _, _, dispatch, _, dropped = tpq.route(body, q8, cfg["nprobe"],
+                                                    q_scale=q_scale)
+        log(f"capacity tier: probes dropped at qcap {dispatch.shape[1]}: "
+            f"{int(dropped)}/{CAP_Q * cfg['nprobe']}; recall@10 of the "
+            f"{len(qf)} fact questions vs the exact scan {fact_rec:.4f} "
+            f"counting a chunk that ties the 10th exact score "
+            f"({fact_ids:.4f} by ids; floor {RECALL_MIN} at the tier's "
+            f"{CAP_ROWS} rows, not held below; as Engine.search asks the "
+            f"index, 40 rows) | {card}")
+        # the fact questions' recall rises with the rows (by ids on an
+        # H100: 0.79 at 10M, 0.95 at 100M): the floor is the tier's
+        if total >= CAP_ROWS and fact_rec < RECALL_MIN:
+            fail(f"capacity tier fact-question recall@10 {fact_rec} < "
+                 f"{RECALL_MIN}")
+
+        # -- the recall probe over RPC --------------------------------------
+        t0 = time.perf_counter()
+        probe = remote.recall_probe(key, k=10, sample=32)
+        probe_s = time.perf_counter() - t0
+        if probe["recall"] is None:
+            fail(f"capacity tier recall_probe {probe}")
+        launches = pq_scan.LAUNCHES.count           # read just after
+        log(f"capacity tier recall_probe@10 (32 stored rows, the exact "
+            f"scan of the archive in numpy on the host): "
+            f"{probe['recall']:.4f} in {probe_s:.2f} s; pq_list_scan "
+            f"launches on the path {launches} ({step4} in the Q={CAP_Q} "
+            f"searches) | {card}")
+        if launches == 0 or step4 == 0:
+            fail(f"capacity tier: pq_list_scan launched {launches} "
+                 f"({step4} in the searches)")
+    finally:
+        remote.close()
+        server.shutdown()
+
+    # -- the kernel on the batch's own dispatch -----------------------------
+    p = max(4, seg.ivf_p)           # the store's per-sub-block capture
+    lut_disp, _ = tpq.scan_inputs(body, q32, dispatch, torch.int8)
+    nl, qcap, _ = lut_disp.shape
+    live_n = pq_scan.live_slots(dispatch)
+    kv, ki = pq_scan.pq_list_scan(lut_disp, body.codes, body.row_ids,
+                                  dispatch, p=p)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rv, ri = pq_scan.pq_list_scan_reference(lut_disp, body.codes,
+                                            body.row_ids, dispatch, p=p)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    err = check_pq_scan(kv, ki, rv, ri, True,
+                        "pq_list_scan capacity tier (m=256 packed)")
+    del kv, ki, rv, ri
+    ms = cuda_ms(lambda: pq_scan.pq_list_scan(
+        lut_disp, body.codes, body.row_ids, dispatch, p=p), reps=5,
+        warmup=1)
+    bound_ms, bound_by, c = roofline.pq_scan_bound(
+        body.row_ids, live_n, qcap, p, body.m, body.codes.shape[2], 1)
+    log(f"pq_list_scan int8 LUT capacity tier, Q={CAP_Q} stored rows + "
+        f"noise: nlist={nl} qcap={qcap} (dropped {int(dropped)}) "
+        f"cap_len={body.cap_len} m={body.m} packed (128 B a row) p={p}, "
+        f"{c['lists_read']} lists with queries, {c['live_slots']} live "
+        f"slots, {c['rows_needed']} live rows of "
+        f"{c['rows_in_lists_read']}, {c['lookups']:.3e} lookups: "
+        f"bit-identical on all {nl} lists; kernel {ms:.3f} ms, plain "
+        f"{plain_ms:.3f} ms (one run), no single library call, bound "
+        f"{bound_ms:.3f} ms ({bound_by}) | {card}")
+    shape = {"nlist": nl, "qcap": qcap, "cap_len": body.cap_len,
+             "m": body.m, "m_bytes": int(body.codes.shape[2]), "p": p, **c}
+
+    # -- release ------------------------------------------------------------
+    del engine, seg, remote, server, body, lut_disp, dispatch, live_n, q32, q8
+    arch.close()
+    del arch
+    time.sleep(0.5)
+    gc.collect()
+    clear_cublas_workspaces(torch)
+    torch.cuda.empty_cache()
+    shutil.rmtree(data_dir, ignore_errors=True)
+    malloc_trim()
+    torch.use_deterministic_algorithms(determinism[0],
+                                       warn_only=determinism[1])
+    dev_after, rss_after = torch.cuda.memory_allocated(), rss_bytes()
+    log(f"capacity tier released: device memory allocated "
+        f"{dev_after / 2**30:.2f} GiB (before the phase "
+        f"{dev_before / 2**30:.2f}), host RSS {rss_after / 2**30:.1f} GiB "
+        f"(before {rss_before / 2**30:.1f}), {data_dir} removed")
+    if dev_after > dev_before + CAP_DEVICE_SLACK \
+            or rss_after > rss_before + CAP_HOST_SLACK:
+        fail(f"phase 26: the store was not released; CUDA tensors "
+             f"alive: {live_cuda_tensors(torch)}")
+    phase_s = time.perf_counter() - t_phase
+    log(f"phase 26: {phase_s:.1f} s")
+    return {"launches": launches, "launches_searches": step4,
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "shape": shape,
+            "exact_reference_launches": exact_launches,
+            "rows": total, "build_s": build_s, "fill_s": fill_s,
+            "tail_rows": tail_n,
+            "tiers": tiers, "fact_recall_at_10": fact_rec,
+            "recall_probe": probe["recall"],
+            "recall_probe_s": probe_s, "phase_s": phase_s}
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rows", type=int, default=10_000_000,
                     help="int8 store size after padding (default 10M)")
     ap.add_argument("--pq-rows", type=int, default=10_000_000,
                     help="ivf_pq store size after padding (default 10M)")
+    ap.add_argument("--cap-rows", type=int, default=CAP_ROWS,
+                    help="rows of phase 26's capacity tier (default 100M)")
     ap.add_argument("--exact-rows", type=int, default=1_000_000,
                     help="rows of the exact scan and of the host-streamed "
                          "scan (default 1M)")
@@ -5816,6 +6457,14 @@ def main() -> None:
     phase_small_kernels(ivf_scan, torch)
     phase_small_pq_kernels(pq_scan, gather, torch)
     phase_edge_kernels(ivf_scan, pq_scan, torch)
+    rng = np.random.default_rng(args.seed)
+    sampled = [int(i) for i in rng.choice(args.docs, size=64, replace=False)]
+
+    # -- phase 26: the 100M capacity tier, while the host's memory is whole
+    capacity = capacity_phase(
+        args, card, sampled,
+        (Engine, EngineConfig, EngineRpcServer, RemoteEngine, search_profile,
+         HostArchive, tpq, pq_scan, quantize))
 
     # -- phase 3: the main path through the RPC entry point -----------------
     data_dir = tempfile.mkdtemp(prefix="ragtpu-chip-smoke-")
@@ -5829,8 +6478,6 @@ def main() -> None:
                ivf_p=3, batch_window_s=0.02, build_threshold=256,
                data_dir=data_dir, device="cuda")
     key = "stores/chip-smoke"
-    rng = np.random.default_rng(args.seed)
-    sampled = [int(i) for i in rng.choice(args.docs, size=64, replace=False)]
     ivf_scan.LAUNCHES.reset()                      # counts: main path only
     engine = Engine(EngineConfig(**cfg))
     server = EngineRpcServer(engine, sock, allow_pad=True).start()
@@ -6149,6 +6796,7 @@ def main() -> None:
     production, attn_app = production_phase(args, card)
     attn_kernel.update(attn_app)
     generative_app = generative_app_phase(args, card)
+
     log(f"total {time.perf_counter() - t_start:.1f} s")
 
     kernels = {"kernels": [{
@@ -6178,6 +6826,16 @@ def main() -> None:
         if entry["name"] == "pq_list_scan":
             entry["launches_pod"] = pod["pq_list_scan"]
             entry["pod_shard"] = pod["pq_shard"]
+            # phase 26: the m=256 packed route on the 100M tier's path
+            entry["launches_capacity_tier"] = capacity["launches"]
+            entry["capacity_tier"] = {
+                k: capacity[k] for k in ("launches_searches", "max_abs_err",
+                                         "ms", "plain_ms", "bound_ms",
+                                         "bound_by", "shape")}
+        if entry["name"] == "fused_topk":
+            # phase 26's recall reference over the 100M archive
+            entry["launches_capacity_tier_reference"] = \
+                capacity["exact_reference_launches"]
         if entry["name"] in dp_train:
             entry["launches_sharded_train_step"] = dp_train[entry["name"]]
             entry["max_abs_err_sharded_train_step"] = \
@@ -6195,7 +6853,12 @@ def main() -> None:
                               "connect": app_chat,
                               "split": app_split,
                               "production": production,
-                              "generative": generative_app}}), flush=True)
+                              "generative": generative_app},
+                      "capacity_tier": {
+                          k: capacity[k] for k in (
+                              "rows", "fill_s", "build_s", "tail_rows",
+                              "tiers", "fact_recall_at_10", "recall_probe",
+                              "recall_probe_s", "phase_s")}}), flush=True)
     print(json.dumps(kernels), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -19,6 +19,7 @@ from __future__ import annotations
 
 import os
 import threading
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -56,6 +57,8 @@ from rag_foundation_tpu_torch.utils.shapes import bucket_pow2
 _EMPTY_TAIL = object()
 # exact audit scans: any block size gives the same result (ops/topk.py)
 _AUDIT_BLOCK = 65536
+# archive rows a step of the host archive's exact scan
+ARCHIVE_STEP = 1 << 19
 
 
 def _unpack(codes: torch.Tensor, packed: bool) -> torch.Tensor:
@@ -73,6 +76,51 @@ def _exact_int8_topk(qq, table8, live, k, block_size: int = 8192):
     """Exact top-k of int8 queries against an int8 row table [N8, d]:
     int8 dots are exact (recall-audit / ground-truth path)."""
     return exact_topk(qq, table8, k, live_mask=live, block_size=block_size)
+
+
+def archive_topk(arch: HostArchive, live: np.ndarray, q32: np.ndarray,
+                 k: int, workers: int | None = None
+                 ) -> tuple[np.ndarray, np.ndarray]:
+    """Exact (values, rows) [Q, k] of ``q32`` over the archive's int8 rows
+    ``[0, len(live))`` where ``live``, in steps of ``ARCHIVE_STEP`` rows:
+    each step's rows widened to f32 into one reused buffer, its scores'
+    top k per query merged into the running best (ties to the lower row).
+    ``workers`` threads (default: the cores) widen a step's rows and
+    select over the queries in slices; the values and rows are those of
+    the one-pass form (a fresh f32 array a step, one thread)."""
+    nrows = len(live)
+    step = ARCHIVE_STEP
+    best_v = np.full((q32.shape[0], k), -np.inf, np.float32)
+    best_r = np.full((q32.shape[0], k), -1, np.int64)
+    buf = np.empty((min(step, nrows), arch.dim), np.float32)
+    scale = np.float32(arch.scale)
+    workers = workers or os.cpu_count() or 1
+    q_cut = -(-q32.shape[0] // workers)
+
+    def widen(lo: int, hi: int) -> None:
+        np.multiply(arch.chunk_i8(lo, hi), scale,
+                    out=buf[lo % step:lo % step + hi - lo], dtype=np.float32)
+
+    with ThreadPoolExecutor(workers) as pool:
+        for lo in range(0, nrows, step):
+            hi = min(nrows, lo + step)
+            cut = -(-(hi - lo) // workers)
+            list(pool.map(lambda a: widen(a, min(hi, a + cut)),
+                          range(lo, hi, cut)))
+            s = q32 @ buf[:hi - lo].T
+            s[:, ~live[lo:hi]] = -np.inf
+            kk = min(k, hi - lo)
+            part = np.concatenate(list(pool.map(
+                lambda r: np.argpartition(
+                    -s[r:r + q_cut], kk - 1, axis=1)[:, :kk],
+                range(0, q32.shape[0], q_cut))))
+            allv = np.concatenate(
+                [best_v, np.take_along_axis(s, part, axis=1)], axis=1)
+            allr = np.concatenate([best_r, part + lo], axis=1)
+            order = np.argsort(-allv, axis=1, kind="stable")[:, :k]
+            best_v = np.take_along_axis(allv, order, axis=1)
+            best_r = np.take_along_axis(allr, order, axis=1)
+    return best_v, best_r
 
 
 def _is_pq(body) -> bool:
@@ -788,22 +836,7 @@ class StoreIndex:
             arch = self._pq_archive
             nrows = min(len(table), arch.n)
             live = self._table_live(table, nrows)
-            best_v = np.full((q32.shape[0], k), -np.inf, np.float32)
-            best_r = np.full((q32.shape[0], k), -1, np.int64)
-            step = 1 << 19
-            for lo in range(0, nrows, step):
-                hi = min(nrows, lo + step)
-                s = q32 @ arch.chunk_f32(lo, hi).T
-                s[:, ~live[lo:hi]] = -np.inf
-                kk = min(k, hi - lo)
-                part = np.argpartition(-s, kk - 1, axis=1)[:, :kk]
-                allv = np.concatenate(
-                    [best_v, np.take_along_axis(s, part, axis=1)], axis=1)
-                allr = np.concatenate([best_r, part + lo], axis=1)
-                order = np.argsort(-allv, axis=1, kind="stable")[:, :k]
-                best_v = np.take_along_axis(allv, order, axis=1)
-                best_r = np.take_along_axis(allr, order, axis=1)
-            return best_v, best_r
+            return archive_topk(arch, live, q32, k)
         if body.refine.shape[0] == 0:
             raise NotImplementedError(
                 "exact audit over a PQ body requires the refine store or "

@@ -302,6 +302,22 @@ def test_list_scans_past_the_redesigns_limits_on_card(card, kernel):
         kv, ki = pq_list_scan(l, codes, ids, disp, p=p)
         rv, ri = pq_list_scan_reference(l, codes, ids, disp, p=p)
         assert torch.equal(kv, rv) and torch.equal(ki, ri)
+    # the 100M capacity tier's shape class (chip_smoke.py phase 26):
+    # nibble-packed m=256 codes (128 B a row), an int8 LUT, p=4, qcap 8,
+    # lists of 35 sub-blocks (cap_len 4480 > 4096), a dispatch whose lists
+    # end in empty slots and one list no query probes
+    live = (8, 1, 0, 5, 3, 8)
+    l, codes, tids = _pq_inputs(card, "int8", True, 256, 8, nlist=len(live),
+                                cap_len=4480, seed=17)
+    tdisp = torch.full((len(live), 8), -1, dtype=torch.int32, device=card)
+    for li, n in enumerate(live):
+        tdisp[li, :n] = li
+    before = pq_scan.LAUNCHES.count
+    kv, ki = pq_list_scan(l, codes, tids, tdisp, p=4)
+    torch.cuda.synchronize()
+    assert pq_scan.LAUNCHES.count == before + 1
+    rv, ri = pq_list_scan_reference(l, codes, tids, tdisp, p=4)
+    assert torch.equal(kv, rv) and torch.equal(ki, ri)
 
 
 @pytest.mark.cuda
