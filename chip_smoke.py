@@ -22,8 +22,11 @@ Phases (each one fails the run: non-zero exit, no result line):
    ids, a table whose row count is not a multiple of 8); then both list
    scans on edge cases: 0, 1, 8, 9, 16 and 17 live slots of qcap 32,
    sub-blocks of 0, 1 and 128 live rows, p from 1 to 8, packed codes and
-   the bf16 LUT, f32 and bf16 flat lists; and the ADC scan on lists of 29
-   sub-blocks at nlist 4, which it splits between blocks.
+   the bf16 LUT, f32 and bf16 flat lists; the ADC scan on lists of 29
+   sub-blocks at nlist 4, which it splits between blocks; and the ADC
+   scan at m=256 in the 100M tier's shape class (cap_len 4480, lists of
+   0-17 live slots across its routes, packed and unpacked int8 LUTs with
+   a slot of all -127 and one of all +127, a bf16 LUT, p 4 and 1).
 3. The main path through the entry points a user calls: the port's
    ``Engine`` (ivf_flat_int8, d=768, nlist=4096, nprobe=32, p=3) behind
    ``EngineRpcServer``, driven only through ``RemoteEngine``: ingest real
@@ -378,11 +381,14 @@ Phases (each one fails the run: non-zero exit, no result line):
     below), ``pq_list_scan``'s counter (zeroed
     before the fact questions, read after ``recall_probe``) moved, its
     launch on the batch's own dispatch is bit-identical to the plain
-    version on every list, and the release returns the card's and the
-    host's memory. Printed: the build's stages, the tail's overflow rows,
-    ms a batch and QPS four deep, the ``search_profile`` stages, qcap
-    drops, the card's busy share (``torch.profiler``), the recall probe's
-    seconds, the kernel's time beside its bound and its plain version's.
+    version on every list (at 100M some list takes the pair route), and
+    the release returns the card's and the host's memory. Printed: the
+    build's stages, the tail's overflow rows, ms a batch and QPS four
+    deep, the ``search_profile`` stages, qcap drops, the card's busy share
+    (``torch.profiler``), the recall probe's seconds and one exact-scan
+    launch's time beside its bound, the dispatch's lists by live slots
+    and by the kernel's route, the kernel's time beside its bound and its
+    plain version's.
 
 ``--cap-rows`` sets phase 26's rows (default 100M); ``--long-docs`` the
 number of long documents of phase 13; ``--decoder-steps``,
@@ -788,6 +794,80 @@ def phase_edge_kernels(ivf_scan, pq_scan, torch):
             f"{'packed' if packed else 'unpacked'} m={m}, lists split "
             f"between blocks (nlist {len(SPLIT_LIVE)}, cap_len {cap_len}, "
             f"live slots {SPLIT_LIVE} of qcap 32; p 1-8): bit-identical")
+    # m = 256 at the 100M tier's shape class: every route of the ADC scan
+    for lut, packed, m, qcap in (("int8", True, 256, 8),
+                                 ("int8", True, 256, 24),
+                                 ("int8", False, 256, 24),
+                                 ("bf16", True, 256, 24)):
+        l, c, ids, disp, live = route_lists(torch, pq_scan, g, lut,
+                                            packed, m, qcap)
+        routes = pq_scan.scan_routes(l.dtype, packed, m, 4,
+                                     pq_scan.live_slots(disp))
+        err = 0.0
+        for p in (4, 1):
+            kv, ki = pq_scan.pq_list_scan(l, c, ids, disp, p=p)
+            torch.cuda.synchronize()
+            rv, ri = pq_scan.pq_list_scan_reference(l, c, ids, disp, p=p)
+            what = (f"pq_list_scan {lut} LUT "
+                    f"{'packed' if packed else 'unpacked'} m={m} qcap={qcap} "
+                    f"route lists p={p}")
+            err = max(err, check_pq_scan(kv, ki, rv, ri, lut == "int8",
+                                         what))
+            if lut == "int8":
+                for slot, score in ((0, -127 * m), (1, 127 * m)):
+                    if not bool((kv[:, slot][ki[:, slot] >= 0]
+                                 == score).all()):
+                        fail(f"{what}: slot {slot} not all {score}")
+        log(f"kernel check pq_list_scan {lut} LUT "
+            f"{'packed' if packed else 'unpacked'} m={m} at the 100M tier's "
+            f"shape class (cap_len {ids.shape[1]}, live slots {live} of "
+            f"qcap {qcap}, lists by route {routes}; sub-blocks of 0, 1 and "
+            f"duplicated live rows"
+            + ("; slots of all -127 and all +127" if lut == "int8" else "")
+            + "; p 4 and 1): "
+            + ("bit-identical" if lut == "int8" else
+               f"max_abs_err={err:.3g} (tol {BF16_LUT_TOL})"))
+
+
+# live slots of the ADC scan's route lists: none; one to eight, which
+# packed m = 256 lists take by the pair route (a pass for every two) and
+# unpacked ones by the lookup; the one-hot product's 9 and 16; 17, a
+# lookup pass after it (capped at qcap)
+ROUTE_LIVE = (0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 16, 17)
+
+
+def route_lists(torch, pq_scan, g, lut, packed, m, qcap, cap_len=4480):
+    """Lists of the 100M tier's shape class, one a ROUTE_LIVE entry (capped
+    at qcap): about 9% dead rows, a sub-block of one live row, a dead
+    sub-block, one of duplicated rows (ties for every LUT); an int8 LUT
+    with slot 0 all -127 and slot 1 all +127, the rest uniform."""
+    live = sorted({min(n, qcap) for n in ROUTE_LIVE})
+    nlist = len(live)
+    if lut == "int8":
+        l = torch.randint(-127, 128, (nlist, qcap, 16 * m), generator=g,
+                          device="cuda", dtype=torch.int8)
+        l[:, 0] = -127
+        l[:, 1] = 127
+    else:
+        l = (torch.randn((nlist, qcap, 16 * m), generator=g, device="cuda")
+             .clamp(-1, 1).bfloat16())
+    codes = torch.randint(0, 16, (nlist, cap_len, m), generator=g,
+                          device="cuda", dtype=torch.uint8)
+    codes[:, 384:512:2] = codes[:, 385:512:2]
+    if packed:
+        codes = pq_scan.pack_codes(codes).contiguous()
+    ids = torch.arange(nlist * cap_len, dtype=torch.int32,
+                       device="cuda").view(nlist, cap_len)
+    ids[torch.rand(ids.shape, generator=g, device="cuda") < 0.09] = -1
+    lone = torch.arange(nlist, device="cuda")
+    one = ids[lone, 37 + lone].clone()
+    ids[:, :128] = -1
+    ids[lone, 37 + lone] = one
+    ids[:, 256:384] = -1
+    disp = torch.full((nlist, qcap), -1, dtype=torch.int32, device="cuda")
+    for li, n in enumerate(live):
+        disp[li, :n] = li
+    return l, codes, ids, disp, live
 
 
 def prom_samples(text: str) -> dict:
@@ -2260,8 +2340,10 @@ def pq_phases(args, card, rng, sampled, mods) -> tuple[list[dict], dict]:
         f"nlist={nlist} qcap={qcap} (dropped {int(dropped)}) "
         f"cap_len={cap_len} m={body.m} p={p}, {c['lists_read']} lists with "
         f"queries, {c['live_slots']} live slots, {c['rows_needed']} live "
-        f"rows of {c['rows_in_lists_read']}, {c['lookups']:.3e} lookups: "
-        f"bit-identical; kernel {scan_ms:.3f} ms, plain "
+        f"rows of {c['rows_in_lists_read']}, {c['lookups']:.3e} lookups; "
+        f"lists by route "
+        f"{pq_scan.scan_routes(lut_disp.dtype, body.packed, body.m, p, live_n)}"
+        f": bit-identical; kernel {scan_ms:.3f} ms, plain "
         f"{scan_plain_ms:.3f} ms (one run), no single library call, bound "
         f"{scan_bound_ms:.3f} ms ({scan_by}) | {card}")
     del lut_disp
@@ -5900,22 +5982,33 @@ def card_exact_topk(torch, ft, merge_topk, arch, q, k: int, step: int):
     to f32 (the int8 values, whose order the archive's scale keeps), each
     step's top-k merged with ``merge_topk`` (the earlier rows first: ties
     go to the lowest row). Returns (scores [Q, k] f32 with the scale,
-    rows [Q, k] int64) on the host."""
+    rows [Q, k] int64) on the host and the card's ms of one ``fused_topk``
+    call on a full step (the second, warm; CUDA events around it, its
+    rows already uploaded)."""
     import numpy as np
     qt = torch.as_tensor(q, device="cuda")
     best_v = best_i = None
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    timed = step if arch.n >= 2 * step else 0
     for lo in range(0, arch.n, step):
         hi = min(arch.n, lo + step)
         rows = torch.as_tensor(np.asarray(arch.chunk_i8(lo, hi)),
                                device="cuda").float()
+        if lo == timed:
+            a.record()
         v, i = ft.fused_topk(qt, rows, k)
+        if lo == timed:
+            b.record()
         i = torch.where(i >= 0, i.long() + lo, torch.full_like(i.long(), -1))
         if best_v is None:
             best_v, best_i = v, i
         else:
             best_v, best_i = merge_topk(best_v, best_i, v, i, k)
         del rows
-    return ((best_v * arch.scale).cpu().numpy(), best_i.cpu().numpy())
+    torch.cuda.synchronize()
+    return ((best_v * arch.scale).cpu().numpy(), best_i.cpu().numpy(),
+            a.elapsed_time(b))
 
 
 def archive_recall_with_ties(arch, q, served_rows, exact_rows,
@@ -6183,19 +6276,24 @@ def capacity_phase(args, card, sampled, mods) -> dict:
         # the exact reference on the card: fused_topk over the archive
         ft.LAUNCHES.reset()
         t0 = time.perf_counter()
-        _, exact_rows = card_exact_topk(torch, ft, merge_topk, arch,
-                                        np.concatenate([qv, qf]), 10,
-                                        CAP_EXACT_STEP)
+        _, exact_rows, exact_ms = card_exact_topk(
+            torch, ft, merge_topk, arch, np.concatenate([qv, qf]), 10,
+            CAP_EXACT_STEP)
         exact_s = time.perf_counter() - t0
         exact_launches = ft.LAUNCHES.count
+        exact_step = min(CAP_EXACT_STEP, arch.n)
+        exact_bound = roofline.topk_bound(len(qv) + len(qf), exact_step,
+                                          768, 10, 4, "f32")
         exact_ids = all_cids[np.clip(exact_rows, 0, None)]
         exact_q, exact_f = exact_ids[:len(qv)], exact_ids[len(qv):]
         self_exact = float(np.mean(exact_q[:, 0] == src_ids))
         log(f"capacity tier exact reference on the card: fused_topk (f32) "
             f"over {arch.n} archive rows in steps of {CAP_EXACT_STEP}, "
             f"merged with merge_topk: {len(qv) + len(qf)} queries in "
-            f"{exact_s:.2f} s, {exact_launches} launches; a query's own "
-            f"row is its exact first for {self_exact:.4f} | {card}")
+            f"{exact_s:.2f} s, {exact_launches} launches; one launch on "
+            f"a step of {exact_step} rows {exact_ms:.3f} ms (CUDA events), "
+            f"bound {exact_bound[0]:.3f} ms ({exact_bound[1]}); a query's "
+            f"own row is its exact first for {self_exact:.4f} | {card}")
         if self_exact < 1.0:
             fail(f"capacity tier: a query's own row is not its exact "
                  f"first ({self_exact})")
@@ -6329,17 +6427,26 @@ def capacity_phase(args, card, sampled, mods) -> dict:
         warmup=1)
     bound_ms, bound_by, c = roofline.pq_scan_bound(
         body.row_ids, live_n, qcap, p, body.m, body.codes.shape[2], 1)
+    hist = torch.bincount(live_n.long(), minlength=qcap + 1).tolist()
+    routes = pq_scan.scan_routes(lut_disp.dtype, body.packed, body.m, p,
+                                 live_n)
     log(f"pq_list_scan int8 LUT capacity tier, Q={CAP_Q} stored rows + "
         f"noise: nlist={nl} qcap={qcap} (dropped {int(dropped)}) "
         f"cap_len={body.cap_len} m={body.m} packed (128 B a row) p={p}, "
         f"{c['lists_read']} lists with queries, {c['live_slots']} live "
         f"slots, {c['rows_needed']} live rows of "
-        f"{c['rows_in_lists_read']}, {c['lookups']:.3e} lookups: "
+        f"{c['rows_in_lists_read']}, {c['lookups']:.3e} lookups; lists by "
+        f"live slots 0..{qcap} {hist}, by route {routes}: "
         f"bit-identical on all {nl} lists; kernel {ms:.3f} ms, plain "
         f"{plain_ms:.3f} ms (one run), no single library call, bound "
-        f"{bound_ms:.3f} ms ({bound_by}) | {card}")
+        f"{bound_ms:.3f} ms ({bound_by}), {bound_ms / ms:.1%} of it | "
+        f"{card}")
+    if total >= CAP_ROWS and routes.get("pair", 0) == 0:
+        fail(f"capacity tier: no list of the Q={CAP_Q} dispatch takes the "
+             f"pair route ({routes})")
     shape = {"nlist": nl, "qcap": qcap, "cap_len": body.cap_len,
-             "m": body.m, "m_bytes": int(body.codes.shape[2]), "p": p, **c}
+             "m": body.m, "m_bytes": int(body.codes.shape[2]), "p": p,
+             "lists_by_live_slots": hist, "lists_by_route": routes, **c}
 
     # -- release ------------------------------------------------------------
     del engine, seg, remote, server, body, lut_disp, dispatch, live_n, q32, q8
@@ -6368,6 +6475,10 @@ def capacity_phase(args, card, sampled, mods) -> dict:
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "shape": shape,
             "exact_reference_launches": exact_launches,
+            "exact_reference_one_launch": {
+                "rows": exact_step, "queries": len(qv) + len(qf),
+                "ms": exact_ms, "bound_ms": exact_bound[0],
+                "bound_by": exact_bound[1]},
             "rows": total, "build_s": build_s, "fill_s": fill_s,
             "tail_rows": tail_n,
             "tiers": tiers, "fact_recall_at_10": fact_rec,
@@ -6829,13 +6940,18 @@ def main() -> None:
             # phase 26: the m=256 packed route on the 100M tier's path
             entry["launches_capacity_tier"] = capacity["launches"]
             entry["capacity_tier"] = {
-                k: capacity[k] for k in ("launches_searches", "max_abs_err",
-                                         "ms", "plain_ms", "bound_ms",
-                                         "bound_by", "shape")}
+                "route": "pq_scan_v2: the pair route (a table by code "
+                         "byte, two slots a pass) for lists of at most 8 "
+                         "live slots, the one-hot product beyond",
+                **{k: capacity[k] for k in (
+                    "launches_searches", "max_abs_err", "ms", "plain_ms",
+                    "bound_ms", "bound_by", "shape")}}
         if entry["name"] == "fused_topk":
             # phase 26's recall reference over the 100M archive
             entry["launches_capacity_tier_reference"] = \
                 capacity["exact_reference_launches"]
+            entry["capacity_tier_reference_launch"] = \
+                capacity["exact_reference_one_launch"]
         if entry["name"] in dp_train:
             entry["launches_sharded_train_step"] = dp_train[entry["name"]]
             entry["max_abs_err_sharded_train_step"] = \

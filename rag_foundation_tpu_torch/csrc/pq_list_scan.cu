@@ -33,10 +33,16 @@
 // outputs; it does live slots x live rows x m lookups. At the engine's
 // shapes (m = 192, about 8 live slots a list of about 2,400 rows) the
 // bytes (0.66 ms at 3.35 TB/s) a little above the lookups at the shared-
-// memory rate; what holds a kernel back is issued instructions.
+// memory rate; at the 100M tier's (packed m = 256, about 1.8 live slots a
+// list of about 4,100 rows) the bytes (3.04 ms) well above them. What
+// holds a kernel back is issued instructions.
 //
-// int8 LUTs with m_bytes % 4 == 0 and m < 256 (the engine's tier) take
-// `pq_scan_v2`, a design for Hopper:
+// int8 LUTs with m_bytes % 4 == 0, m <= 256 and p <= 32 (the engine's
+// tier at m = 192, the 100M capacity tier at packed m = 256) take
+// `pq_scan_v2`, a design for Hopper. Its scores wait as int16, which
+// rests on the LUT's contract: int8 entries in [-127, 127], as
+// `flatten_luts` clips them. A score at m <= 256 then lies in [-32,512,
+// 32,512] and never reaches the dead mark -32,768.
 // - Only live rows take a lane. A warp owns whole 128-row sub-blocks and
 //   compacts their live rows (ballot/popc over row_ids); their scores go
 //   back to the rows' own positions of the sub-block, dead positions
@@ -64,13 +70,27 @@
 //   entries (biased by +128, transposed to [k][pos][slot]) a (row,
 //   position), added in 16-bit lanes (flushed to int32 after every chunk:
 //   at most 64 lookups, 255 * 64 < 2^16).
+// - Packed m = 256 lists (128 code bytes a row) with at most PAIR_MAX
+//   live slots take the pair route instead, two slots a pass: a 128 KB
+//   table indexed by code byte holds, for each byte position, the two
+//   slots' sums of the byte's two nibble entries, biased by +256, in the
+//   16-bit halves of a word. A row is 128 lookups of one shared load and
+//   one add each (the 8-slot cell costs a load and eight byte operations a
+//   nibble), and the halves never carry: 128 x 510 < 2^16. Lane i scores
+//   its own row, reading word (i + k) % 32 of it at step k; the table
+//   keeps the words of one (byte value, byte of the word) on the 32 banks,
+//   so the lanes' loads never collide, whatever the codes. Each warp
+//   streams 32 compacted rows (4 KB) a stage through its two-stage ring.
+//   A list takes a pass for every two live slots: timed in turns at the
+//   100M tier's dispatch, a limit of 8 beat 4 and 2 in ten pairs of ten
+//   (PERF.md), so the 8-slot cells never run there.
 // - The scores are integers below 2^15 in magnitude: they wait in shared
 //   memory as int16, and the top-p packs score and position into one key
 //   (topp_keys.cuh): one warp maximum a pass, four slots interleaved.
 // Timed in turns on one card against this choice by live slots, the
 // lookup alone lost ten pairs of ten, the one-hot product alone six of six
 // (PERF.md).
-// bf16 LUTs, m_bytes % 4 != 0 and m >= 256 take `pq_scan_kernel`: one
+// bf16 LUTs, m_bytes % 4 != 0, m > 256 and p > 32 take `pq_scan_kernel`: one
 // 128-thread block per (list, group of sub-blocks), thread t owns row t, a
 // tile of 8 slots' LUTs transposed to [k][pos][slot] so one 8- or 16-byte
 // shared load fetches every slot's entry, codes staged word-transposed
@@ -538,6 +558,75 @@ struct V2Args {
   int l, qcap, cap_len, m, m_bytes, p;
 };
 
+// The pair route's compaction and top-p; `v2_pass` keeps the same steps
+// as lambdas over values it computes once, since through these helpers
+// the m=192 route lost 9 pairs of 10 by 0.1-0.2% (PERF.md).
+//
+// The live rows of sub-block sb compacted into map (ballot/popc over
+// row_ids, in row order), the ballots in bal; with none, the outputs of
+// slots [q0, q0 + nq) for sb are (-inf, -1). Returns the live count.
+__device__ __forceinline__ int compact_rows(const V2Args& a, int q0, int nq,
+                                            int sb, unsigned char* map,
+                                            unsigned (&bal)[4], int lane) {
+  const int nsub = a.cap_len / SUB, width = nsub * a.p;
+  const size_t row0 = (size_t)a.l * a.cap_len + (size_t)sb * SUB;
+  bool lv[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) lv[i] = a.row_ids[row0 + lane + 32 * i] >= 0;
+  int n = 0;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    bal[i] = __ballot_sync(0xffffffffu, lv[i]);
+    if (lv[i])
+      map[n + __popc(bal[i] & ((1u << lane) - 1u))] =
+          (unsigned char)(lane + 32 * i);
+    n += __popc(bal[i]);
+  }
+  if (n == 0)
+    for (int i = lane; i < nq * a.p; i += 32) {
+      const int j = q0 + i / a.p, pass = i % a.p;
+      const size_t o = ((size_t)a.l * a.qcap + j) * width +
+                       (size_t)pass * nsub + sb;
+      a.out_vals[o] = -INFINITY;
+      a.out_idx[o] = -1;
+    }
+  __syncwarp();
+  return n;
+}
+
+// The first sub-block from sb on, in steps of `stride`, with a live row
+// (compacted into map, its count in n), or -1.
+__device__ __forceinline__ int next_live(const V2Args& a, int q0, int nq,
+                                         int sb, int stride,
+                                         unsigned char* map, int& n,
+                                         unsigned (&bal)[4], int lane) {
+  for (const int nsub = a.cap_len / SUB; sb < nsub; sb += stride)
+    if ((n = compact_rows(a, q0, nq, sb, map, bal, lane)) > 0) return sb;
+  return -1;
+}
+
+// The dead rows of a sub-block marked in slots [0, nq) of sc (slot j at
+// sc[j * SUB]).
+__device__ __forceinline__ void mark_dead(short* sc, int nq,
+                                          const unsigned (&bal)[4],
+                                          int lane) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    if (!((bal[i] >> lane) & 1u))
+      for (int j = 0; j < nq; ++j) sc[j * SUB + lane + 32 * i] = V2_DEAD;
+}
+
+// The top-p of sub-block sb for slots [q0, q0 + nq) from their int16
+// scores: one warp maximum a pass (topp_keys.cuh).
+__device__ __forceinline__ void topp_out(const V2Args& a, const short* sc,
+                                         int q0, int nq, int sb, int lane) {
+  const int nsub = a.cap_len / SUB, width = nsub * a.p;
+  const size_t o = ((size_t)a.l * a.qcap + q0) * width;
+  keys::warp_topp_slots(sc, V2_DEAD, 0, nq, 1, lane, a.p, nsub, sb,
+                        (int)((size_t)a.l * a.cap_len + (size_t)sb * SUB),
+                        1.0f, a.out_vals + o, a.out_idx + o, width);
+}
+
 // One pass over the list for slots [q0, q0 + nq), nq <= 8 * NT.
 template <int ROUTE, int NT, bool PACKED>
 __device__ __forceinline__ void v2_pass(const V2Args& a, int q0, int nq,
@@ -797,6 +886,155 @@ __device__ __forceinline__ void v2_pass(const V2Args& a, int q0, int nq,
   s8::cp_async_wait<0>();
 }
 
+// ---- packed m = 256, at most PAIR_MAX live slots: a table by code byte ----
+constexpr int PAIR_BYTES = 128;              // code bytes a row (m = 256)
+constexpr int PAIR_MAX = 8;                  // most live slots of a list
+constexpr int PAIR_STAGE = 32 * PAIR_BYTES;  // 32 compacted rows, one a lane
+constexpr int PAIR_WARP_BYTES = 2 * PAIR_STAGE + 2 * SUB;   // ring + 2 maps
+constexpr int PAIR_HALF = 256 * 256;         // bytes i = 0, 1 | 2, 3 of a word
+constexpr size_t PAIR_TABLE = 2 * PAIR_HALF; // 128 KB
+constexpr int PAIR_BIAS = 256 * PAIR_BYTES;  // of a 16-bit lane's sum
+static_assert(PAIR_STAGE >= 2 * SUB * 2, "two slots' scores reuse a stage");
+static_assert(510 * PAIR_BYTES < 65536, "the 16-bit lanes never carry");
+
+// The table of slots q0 and q0 + 1 (nq = 1: the high halves 0): for code
+// byte b at byte position pos = 4w + i, the word
+//   (lut[q0][lo*m + pos] + 128) + (lut[q0][hi*m + PAIR_BYTES + pos] + 128)
+//   | (the same of slot q0 + 1) << 16,            lo = b & 15, hi = b >> 4,
+// at byte (i >> 1) * PAIR_HALF + b * 256 + (i & 1) * 128 + 4w: the 32
+// words w of one (b, i) lie on the 32 banks. A thread builds the 32 words
+// of one (w, i) and two values of hi, consecutive lanes on consecutive w.
+__device__ __forceinline__ void pair_table(const V2Args& a, int q0, int nq,
+                                           unsigned char* table) {
+  const int m = a.m, km = K * m;
+  const signed char* l0 = a.lut_g + (size_t)q0 * km;
+  const signed char* l1 = l0 + km;
+  auto entry = [&](int e) -> unsigned {
+    const unsigned v0 = (unsigned)((int)__ldg(l0 + e) + 128);
+    return nq > 1 ? v0 | (unsigned)((int)__ldg(l1 + e) + 128) << 16 : v0;
+  };
+  for (int task = threadIdx.x; task < 8 * PAIR_BYTES; task += blockDim.x) {
+    const int w = task & 31, i = (task >> 5) & 3, hq = task >> 7;
+    const int pos = 4 * w + i;
+    unsigned lo[K];
+#pragma unroll
+    for (int k = 0; k < K; ++k) lo[k] = entry(k * m + pos);
+    unsigned* dst = reinterpret_cast<unsigned*>(
+        table + (i >> 1) * PAIR_HALF + (i & 1) * 128 + 4 * w);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int hi = 2 * hq + h;
+      const unsigned hv = entry(hi * m + PAIR_BYTES + pos);
+#pragma unroll
+      for (int k = 0; k < K; ++k) dst[(hi * K + k) * 64] = lo[k] + hv;
+    }
+  }
+}
+
+// One lane's row (128 code bytes at `row`) against the table: at step k
+// the lane's word w = (lane + k) % 32, so the lanes' loads of the staged
+// codes and of the table fall on 32 banks. Returns the two slots' sums,
+// each biased by PAIR_BIAS, in the 16-bit halves.
+__device__ __forceinline__ unsigned pair_row(const unsigned char* row,
+                                             const unsigned char* table,
+                                             int lane) {
+  unsigned acc0 = 0, acc1 = 0;   // each at most 64 x 510 a half
+#pragma unroll
+  for (int k = 0; k < PAIR_BYTES / 4; ++k) {
+    const unsigned wb = (unsigned)((lane + k) & 31) * 4;
+    const unsigned word = *reinterpret_cast<const unsigned*>(row + wb);
+    // (byte i of word) << 8 | wb: the entry's offset in its half
+    acc0 += *reinterpret_cast<const unsigned*>(
+        table + __byte_perm(word, wb, 0x5504));
+    acc1 += *reinterpret_cast<const unsigned*>(
+        table + 128 + __byte_perm(word, wb, 0x5514));
+    acc0 += *reinterpret_cast<const unsigned*>(
+        table + PAIR_HALF + __byte_perm(word, wb, 0x5524));
+    acc1 += *reinterpret_cast<const unsigned*>(
+        table + PAIR_HALF + 128 + __byte_perm(word, wb, 0x5534));
+  }
+  return acc0 + acc1;
+}
+
+// One pass over the list for slots q0 and, with nq = 2, q0 + 1: the table,
+// then each warp's sub-blocks, 32 compacted rows a stage.
+__device__ __forceinline__ void pair_pass(const V2Args& a, int q0, int nq,
+                                          unsigned char* smem, int nw) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const unsigned char* table = smem;
+  unsigned char* wbase = smem + PAIR_TABLE + (size_t)warp * PAIR_WARP_BYTES;
+  unsigned char* maps = wbase + 2 * PAIR_STAGE;   // [2][SUB] compact -> row
+  const int wstride = gridDim.x * nw;
+  const unsigned char* codes =
+      a.codes + (size_t)a.l * a.cap_len * PAIR_BYTES;
+  // compacted rows [32u, 32u + 32) of sub-block sb into a stage, row r at
+  // r * PAIR_BYTES: 16 bytes a cp.async, 8 lanes a row
+  auto issue = [&](int sb, int u, unsigned char* st, const unsigned char* map,
+                   int n) {
+    const unsigned char* src = codes + (size_t)sb * SUB * PAIR_BYTES;
+    const int rows = min(32, n - 32 * u);
+    for (int i = lane; i < 8 * rows; i += 32) {
+      const int r = i >> 3, j = (i & 7) * 16;
+      s8::cp_async16(st + r * PAIR_BYTES + j,
+                     src + (size_t)map[32 * u + r] * PAIR_BYTES + j, 16);
+    }
+  };
+
+  unsigned bal[4], bal_next[4];
+  int n = 0, mp = 0, buf = 0;
+  int sb = next_live(a, q0, nq, (int)blockIdx.x * nw + warp, wstride, maps,
+                     n, bal, lane);
+  if (sb >= 0) issue(sb, 0, wbase, maps, n);
+  s8::cp_async_commit();
+  pair_table(a, q0, nq, smem);   // the warps' first stages in flight
+  __syncthreads();
+
+  while (sb >= 0) {
+    const unsigned char* map = maps + mp * SUB;
+    const int nu = (n + 31) >> 5;
+    unsigned acc[4] = {0u, 0u, 0u, 0u};   // rows 32u + lane
+    int nsb = sb, nn = n;
+    for (int u = 0; u < nu; ++u) {
+      // the next stage (this sub-block's or the next one's) in flight first
+      unsigned char* next = wbase + (buf ^ 1) * PAIR_STAGE;
+      if (u + 1 < nu) {
+        issue(sb, u + 1, next, map, n);
+      } else {
+        nsb = next_live(a, q0, nq, sb + wstride, wstride,
+                        maps + (mp ^ 1) * SUB, nn, bal_next, lane);
+        if (nsb >= 0) issue(nsb, 0, next, maps + (mp ^ 1) * SUB, nn);
+      }
+      s8::cp_async_commit();
+      s8::cp_async_wait<1>();
+      __syncwarp();
+      const unsigned v = pair_row(wbase + buf * PAIR_STAGE + lane * PAIR_BYTES,
+                                  table, lane);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[i] = i == u ? v : acc[i];
+      __syncwarp();
+      buf ^= 1;
+    }
+    // the stage consumed last holds the sub-block's scores
+    short* sc = reinterpret_cast<short*>(wbase + (buf ^ 1) * PAIR_STAGE);
+    mark_dead(sc, nq, bal, lane);
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int r = 32 * u + lane;
+      if (r < n) {
+        sc[map[r]] = (short)((int)(acc[u] & 0xffffu) - PAIR_BIAS);
+        if (nq > 1) sc[SUB + map[r]] = (short)((int)(acc[u] >> 16) - PAIR_BIAS);
+      }
+    }
+    __syncwarp();
+    topp_out(a, sc, q0, nq, sb, lane);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) bal[i] = bal_next[i];
+    __syncwarp();
+    sb = nsb; n = nn; mp ^= 1;
+  }
+  s8::cp_async_wait<0>();
+}
+
 template <bool PACKED>
 __global__ void __launch_bounds__(V2_WARPS * 32, 1)
 pq_scan_v2(const signed char* __restrict__ lut_disp,
@@ -822,6 +1060,17 @@ pq_scan_v2(const signed char* __restrict__ lut_disp,
   if (nlive == 0) return;
   const V2Args a{lut_disp + (size_t)l * qcap * K * m, codes, row_ids,
                  out_vals, out_idx, l, qcap, cap_len, m, m_bytes, p};
+  if constexpr (PACKED) {
+    // packed m = 256 with few live slots: the table by code byte, two
+    // slots a pass
+    if (m_bytes == PAIR_BYTES && nlive <= PAIR_MAX) {
+      for (int q0 = 0; q0 < nlive; q0 += 2) {
+        __syncthreads();   // the previous pass is done with the table
+        pair_pass(a, q0, min(2, nlive - q0), smem, nw);
+      }
+      return;
+    }
+  }
   for (int q0 = 0; q0 < nlive; q0 += V2_QT) {
     const int nq = min(V2_QT, nlive - q0);
     __syncthreads();   // the previous pass is done with the LUT tile
@@ -834,22 +1083,35 @@ pq_scan_v2(const signed char* __restrict__ lut_disp,
   }
 }
 
-// Launches the compacted kernel; cudaErrorNotSupported when one warp's
-// buffers and the LUT tile do not fit shared memory.
+// The shapes `pq_scan_v2` takes: int8 LUTs, whole code words, int16
+// scores (m <= 256 with entries in [-127, 127]), a lane keeping each
+// pass's winner (p <= 32). Its LUT tile and one warp's buffers fit shared
+// memory at every such m.
+constexpr int V2_MAX_M = 256;
+bool v2_takes(int lut_dtype, int m, int m_bytes, int p) {
+  return lut_dtype == 0 && (m_bytes & 3) == 0 && m <= V2_MAX_M && p <= 32;
+}
+
+// Launches the compacted kernel: as many warps a block (at most 12) as
+// shared memory holds beside the LUT tile, or beside the pair route's
+// table where that route may run (packed m = 256).
 cudaError_t launch_v2(const void* lut_disp, const void* codes,
                       const int* row_ids, const int* live_n, float* vals,
                       int* idx, int nlist, int qcap, int cap_len, int m,
                       int m_bytes, int packed, int p, cudaStream_t stream) {
-  // int16 scores; a lane keeps each pass's winner
-  if (m >= 256 || p > 32) return cudaErrorNotSupported;
-  const size_t lut = v2_lut_region(m);
   const size_t limit = 227 * 1024;
-  if (lut + V2_WARP_BYTES > limit) return cudaErrorNotSupported;
+  const size_t lut = v2_lut_region(m);
+  const bool pair = packed && m_bytes == PAIR_BYTES;
   const int nsub = cap_len / SUB;
   int nw = (int)((limit - lut) / V2_WARP_BYTES);
+  const int nw_pair = (int)((limit - PAIR_TABLE) / PAIR_WARP_BYTES);
+  if (pair && nw_pair < nw) nw = nw_pair;
   nw = nw > V2_WARPS ? V2_WARPS : nw;
   nw = nw > nsub ? nsub : nw;
-  const size_t smem = lut + (size_t)nw * V2_WARP_BYTES;
+  size_t smem = lut + (size_t)nw * V2_WARP_BYTES;
+  const size_t smem_pair = PAIR_TABLE + (size_t)nw * PAIR_WARP_BYTES;
+  if (pair && smem_pair > smem) smem = smem_pair;
+  if (nw < 1 || smem > limit) return cudaErrorInvalidValue;
   // blocks a list: one at the engine's nlist, more at small nlist
   int groups = (132 + nlist - 1) / nlist;
   const int most = (nsub + nw - 1) / nw;
@@ -899,8 +1161,13 @@ cudaError_t launch(const void* lut_disp, const void* codes, const int* row_ids,
 // Shapes: lut_disp [nlist, qcap, 16*m], codes [nlist, cap_len, m_bytes]
 // uint8 (m_bytes = m, or m/2 when packed), row_ids [nlist, cap_len] int32,
 // live_n [nlist] int32 or null (all slots live), vals/idx
-// [nlist, qcap, (cap_len/128)*p]; all contiguous on one device.
-// Returns a cudaError_t (0 on success).
+// [nlist, qcap, (cap_len/128)*p]; all contiguous on one device. int8 LUT
+// entries must lie in [-127, 127] (`flatten_luts` clips them there): the
+// int16 scores of `pq_scan_v2` rest on it. Routes: `pq_scan_v2` for int8
+// LUTs with m_bytes % 4 == 0, m <= 256 and p <= 32 (inside it, the pair
+// route for packed m = 256 lists of at most 8 live slots, the lookup for
+// passes of at most 8, the one-hot product beyond); `pq_scan_kernel` for
+// the rest. Returns a cudaError_t (0 on success).
 extern "C" int pq_list_scan_launch(int lut_dtype, int packed,
                                    const void* lut_disp, const void* codes,
                                    const int* row_ids, const int* live_n,
@@ -912,12 +1179,11 @@ extern "C" int pq_list_scan_launch(int lut_dtype, int packed,
       m_bytes != (packed ? m / 2 : m) || (packed && (m & 1)))
     return (int)cudaErrorInvalidValue;
   const auto s = static_cast<cudaStream_t>(stream);
-  if (lut_dtype == 0 && (m_bytes & 3) == 0) {
-    const cudaError_t err = launch_v2(lut_disp, codes, row_ids, live_n, vals,
-                                      idx, nlist, qcap, cap_len, m, m_bytes,
-                                      packed, p, s);
-    if (err != cudaErrorNotSupported) return (int)err;
-  }
+  // the route follows from the shape alone; pq_scan_v2 picks its own
+  // inside each block from the list's live slots
+  if (v2_takes(lut_dtype, m, m_bytes, p))
+    return (int)launch_v2(lut_disp, codes, row_ids, live_n, vals, idx, nlist,
+                          qcap, cap_len, m, m_bytes, packed, p, s);
   const cudaError_t err =
       lut_dtype == 2
           ? launch<2>(lut_disp, codes, row_ids, live_n, vals, idx, nlist, qcap,

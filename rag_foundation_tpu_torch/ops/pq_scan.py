@@ -26,6 +26,11 @@ fallback: a CUDA tensor gets the kernel or an exception. Given the
 live slot) is not computed and yields ``(-inf, -1)``, so a list no query
 probes is never read; other dead slots are computed unmasked, as on the
 TPU (the regather never reads them).
+
+int8 LUTs must hold entries in [-127, 127], as ``flatten_luts`` clips
+them: the kernel keeps scores as int16 (at m <= 256 a score lies in
+[-32512, 32512]) and marks a dead row -32768. ``scan_routes`` says which
+of the kernel's routes each list of a launch takes.
 """
 
 from __future__ import annotations
@@ -43,6 +48,11 @@ _DTYPE_CODE = {torch.int8: 0, torch.bfloat16: 2}
 _REF_BYTES = 512 << 20
 
 LAUNCHES = cuda_lib.LaunchCounter()   # kernel launches (CUDA path only)
+
+# The kernel's routes (csrc/pq_list_scan.cu, ``pq_list_scan_launch``)
+V2_MAX_M = 256      # pq_scan_v2: int8 LUTs, m <= 256, m_bytes % 4 == 0, p <= 32
+PAIR_BYTES = 128    # its pair route: packed m = 256 ...
+PAIR_MAX = 8        # ... lists of at most this many live slots
 
 
 def flatten_luts(lut: torch.Tensor,
@@ -174,6 +184,30 @@ def pq_list_scan_reference(
     return out_v, out_i
 
 
+def scan_routes(lut_dtype: torch.dtype, packed: bool, m: int, p: int,
+                live_n: torch.Tensor) -> dict[str, int]:
+    """Lists of a launch by the kernel's route, as ``pq_list_scan_launch``
+    and ``pq_scan_v2`` choose it from the shape and each list's live slots
+    ``live_n`` (``live_slots(dispatch)``): ``pair`` (packed m = 256, at
+    most ``PAIR_MAX`` live slots), ``lookup`` (at most 8), ``mma`` (more:
+    passes of 16 slots, a last pass of at most 8 by lookup),
+    ``pq_scan_kernel`` (bf16 LUTs, m_bytes % 4 != 0, m > 256, p > 32) and
+    ``unread`` (no live slot)."""
+    m_bytes = m // 2 if packed else m
+    live = live_n.long()
+    out = {"unread": int((live == 0).sum())}
+    read = live[live > 0]
+    if lut_dtype != torch.int8 or m_bytes % 4 or m > V2_MAX_M or p > 32:
+        out["pq_scan_kernel"] = int(read.numel())
+        return out
+    pair = (read <= PAIR_MAX) if packed and m_bytes == PAIR_BYTES \
+        else torch.zeros_like(read, dtype=torch.bool)
+    out["pair"] = int(pair.sum())
+    out["lookup"] = int((~pair & (read <= 8)).sum())
+    out["mma"] = int((read > 8).sum())
+    return out
+
+
 def pq_list_scan(
     lut_disp: torch.Tensor,   # [nlist, qcap, K*m] int8|bf16
                               # (flatten_luts layout)
@@ -191,7 +225,9 @@ def pq_list_scan(
     Returns ``(vals [nlist, qcap, w] f32, flat_idx [nlist, qcap, w]
     int32)`` with ``w = (cap_len // 128) * p``; ``flat_idx`` indexes the
     flattened ``[nlist*cap_len]`` corpus. With an int8 LUT the values are
-    exact integer sums (as f32); with a bf16 LUT, f32 sums. ``codes`` may
+    exact integer sums (as f32); with a bf16 LUT, f32 sums. int8 LUT
+    entries lie in [-127, 127] (``flatten_luts``); the kernel's int16
+    scores rest on it. ``codes`` may
     be nibble-packed — detected by shape; LUTs must then come from
     ``flatten_luts(packed=True)``. ``cap_block`` is accepted for
     interface parity and has no effect."""

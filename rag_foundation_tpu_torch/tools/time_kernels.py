@@ -2,8 +2,10 @@
 
     python -m rag_foundation_tpu_torch.tools.time_kernels
     python -m rag_foundation_tpu_torch.tools.time_kernels --only pq flat \\
-        --other-pq path/to/another/pq_list_scan.cu \\
+        --other-pq path/to/another/pq_list_scan.cu [more...] \\
         --other-flat path/to/another/ivf_list_scan.cu
+    python -m rag_foundation_tpu_torch.tools.time_kernels --only pq_tier \\
+        --other-pq path/to/another/pq_list_scan.cu [more...]
     python -m rag_foundation_tpu_torch.tools.time_kernels \\
         --only attention attention_bwd \\
         --other-attn path/to/another/flash_attention.cu [more...] \\
@@ -20,8 +22,13 @@ the card's name and power limit, then one line a variant: the ADC scan
 (``pq_list_scan``: qcap 16 and 8, with the dispatch and with every slot
 live, p 8 and 1, bf16 LUT, packed codes) and the flat scan
 (``ivf_list_scan``, p 3), each time beside its bound (``utils.roofline``'s
-``pq_scan_bound`` and ``scan_bound``). With
-``--other-pq`` or ``--other-flat`` it also builds that source (another
+``pq_scan_bound`` and ``scan_bound``). ``pq_tier`` times the ADC scan
+at the 100M capacity tier's shape class (``TIER``: 24,415 lists of 4,480
+slots, packed m=256 codes, about 14 GB of them, qcap 8, p 4, about 1.8
+live slots a list read), on random codes and on one repeated byte. With
+``--other-pq`` (one or more sources, each in turn: at m=192 in ``pq``, at
+the tier's shape in ``pq_tier``) or ``--other-flat`` it also builds that
+source (another
 version of the kernel with the same C entry point; headers are taken
 from its own directory), checks that the two give bit-identical outputs
 on the main path's shape (int8, qcap 16, a Poisson(8) dispatch; p 8 for
@@ -117,8 +124,9 @@ def _bound(t) -> str:
     return f"{t[0]:.4f} ms ({t[1]})"
 
 
-def pq_bound(ids, live_n, qcap, p, m, lut_esize) -> str:
-    return _bound(roofline.pq_scan_bound(ids, live_n, qcap, p, m, m,
+def pq_bound(ids, live_n, qcap, p, m, lut_esize, m_bytes=None) -> str:
+    return _bound(roofline.pq_scan_bound(ids, live_n, qcap, p, m,
+                                         m if m_bytes is None else m_bytes,
                                          lut_esize))
 
 
@@ -165,7 +173,7 @@ def _turns(torch, name, other, this, bound, check=None) -> int:
 
 
 def time_pq(torch, g, nlist: int, live_rows: int,
-            other_src: str | None) -> None:
+            other_srcs: list[str]) -> None:
     from rag_foundation_tpu_torch.ops import pq_scan
     cap_len, m = 3712, 192
     codes = torch.randint(0, 16, (nlist, cap_len, m), generator=g,
@@ -175,8 +183,10 @@ def time_pq(torch, g, nlist: int, live_rows: int,
         lut = torch.randint(-127, 128, (nlist, qcap, 16 * m), generator=g,
                             device="cuda", dtype=torch.int8)
         disp, live = _dispatch(torch, g, nlist, qcap)
-        if other_src is not None and qcap == 16:
-            _pq_turns(torch, other_src, lut, codes, ids, disp, live, m)
+        if qcap == 16:
+            for src in other_srcs:
+                _pq_turns(torch, src, lut, codes, ids, disp, live, m, 8,
+                          False, f"m={m}")
         every = torch.full((nlist,), qcap, dtype=torch.int32, device="cuda")
         for name, d, slots in (("Poisson(8) dispatch", disp, live),
                                ("every slot live", None, nlist * qcap)):
@@ -200,34 +210,88 @@ def time_pq(torch, g, nlist: int, live_rows: int,
           f"{t:.3f} ms", flush=True)
 
 
-def _pq_turns(torch, other_src, lut, codes, ids, disp, live, m) -> None:
+# The 100M capacity tier's dispatch (chip_smoke.py phase 26): 24,415 lists
+# of 4,480 slots, packed m = 256 codes, qcap 8, p = 4, about 4,100 live
+# rows a list (74.2M over the 18,113 lists read) and 32,768 probes spread
+# over the lists (Poisson(32768 / 24415) live slots a list: about 1.8 a
+# list read).
+TIER = {"nlist": 24_415, "cap_len": 4480, "m": 256, "qcap": 8, "p": 4,
+        "live_rows": 4097, "probes": 32_768}
+
+
+def time_pq_tier(torch, g, other_srcs: list[str]) -> None:
+    """The ADC scan at the 100M tier's shape class on synthetic codes
+    (about 14 GB on the card): the live-slot histogram and the lists by
+    route, each ``other_srcs`` in turns against this version, then this
+    version on random codes and on codes of one repeated byte (equal times:
+    no bank conflict that depends on the codes)."""
+    from rag_foundation_tpu_torch.ops import pq_scan
+    nlist, cap_len, m = TIER["nlist"], TIER["cap_len"], TIER["m"]
+    qcap, p = TIER["qcap"], TIER["p"]
+    codes = torch.randint(0, 256, (nlist, cap_len, m // 2), generator=g,
+                          device="cuda", dtype=torch.uint8)
+    ids = _lists(torch, g, nlist, cap_len, TIER["live_rows"])
+    lut = torch.randint(-127, 128, (nlist, qcap, 16 * m), generator=g,
+                        device="cuda", dtype=torch.int8)
+    n_live = torch.poisson(torch.full((nlist,), TIER["probes"] / nlist,
+                                      device="cuda"),
+                           generator=g).clamp(0, qcap).int()
+    disp = torch.where(torch.arange(qcap, device="cuda")[None, :]
+                       < n_live[:, None], 0, -1).int()
+    live_n = pq_scan.live_slots(disp)
+    hist = torch.bincount(live_n.long(), minlength=qcap + 1).tolist()
+    routes = pq_scan.scan_routes(torch.int8, True, m, p, live_n)
+    bound = pq_bound(ids, live_n, qcap, p, m, 1, m // 2)
+    what = (f"nlist={nlist} cap_len={cap_len} m={m} packed qcap={qcap} "
+            f"p={p}, {int(live_n.sum())} live slots")
+    print(f"pq_list_scan tier {what}: lists by live slots {hist}, by route "
+          f"{routes}; bound {bound}", flush=True)
+    for src in other_srcs:
+        _pq_turns(torch, src, lut, codes, ids, disp, int(live_n.sum()), m, p,
+                  True, "the 100M tier's shape")
+    t = _ms(lambda: pq_scan.pq_list_scan(lut, codes, ids, disp, p=p), reps=5)
+    codes.fill_(0x5A)
+    t_same = _ms(lambda: pq_scan.pq_list_scan(lut, codes, ids, disp, p=p),
+                 reps=5)
+    print(f"pq_list_scan tier {what}: {t:.3f} ms on random codes, "
+          f"{t_same:.3f} ms on one repeated byte; bound {bound}", flush=True)
+
+
+def _pq_turns(torch, other_src, lut, codes, ids, disp, live, m, p, packed,
+              shape) -> None:
     from rag_foundation_tpu_torch.ops import pq_scan
     nlist, qcap, _ = lut.shape
-    cap_len, p = ids.shape[1], 8
+    cap_len, m_bytes = ids.shape[1], codes.shape[2]
     live_n = pq_scan.live_slots(disp)
     w = (cap_len // 128) * p
     ov = torch.empty((nlist, qcap, w), dtype=torch.float32, device="cuda")
     oi = torch.empty((nlist, qcap, w), dtype=torch.int32, device="cuda")
+    tv = torch.empty_like(ov)
+    ti = torch.empty_like(oi)
     vp, ci = ctypes.c_void_p, ctypes.c_int
     with tempfile.TemporaryDirectory() as tmp:
         fn = _other_fn(other_src, "pq_list_scan_launch",
                        [ci, ci, vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci,
                         ci, vp], tmp)
 
-        def other():
-            rc = fn(0, 0, lut.data_ptr(), codes.data_ptr(), ids.data_ptr(),
-                    live_n.data_ptr(), ov.data_ptr(), oi.data_ptr(), nlist,
-                    qcap, cap_len, m, m, p,
-                    torch.cuda.current_stream().cuda_stream)
+        # both versions through their C entry on the same live_n and
+        # preallocated outputs: the wrapper's own small kernels (live_slots,
+        # the allocations) fall on neither side
+        def launch(f, v, i):
+            rc = f(0, int(packed), lut.data_ptr(), codes.data_ptr(),
+                   ids.data_ptr(), live_n.data_ptr(), v.data_ptr(),
+                   i.data_ptr(), nlist, qcap, cap_len, m, m_bytes, p,
+                   torch.cuda.current_stream().cuda_stream)
             if rc != 0:
-                raise RuntimeError(f"other kernel: CUDA error {rc}")
-            return ov, oi
+                raise RuntimeError(f"pq_list_scan_launch: CUDA error {rc}")
+            return v, i
 
-        _turns(torch, f"pq_list_scan int8 LUT qcap={qcap} Poisson(8) "
-               f"dispatch ({live} live slots) p={p}, other = {other_src}",
-               other, lambda: pq_scan.pq_list_scan(lut, codes, ids, disp,
-                                                   p=p),
-               pq_bound(ids, live_n, qcap, p, m, 1))
+        this_fn = pq_scan._kernel()
+        _turns(torch, f"pq_list_scan int8 LUT {shape} "
+               f"({'packed' if packed else 'unpacked'}) qcap={qcap} "
+               f"({live} live slots) p={p}, other = {other_src}",
+               lambda: launch(fn, ov, oi), lambda: launch(this_fn, tv, ti),
+               pq_bound(ids, live_n, qcap, p, m, 1, m_bytes))
 
 
 def time_flat(torch, g, nlist: int, live_rows: int,
@@ -644,7 +708,7 @@ def sass_loops(name: str, only: str = "") -> None:
                       f"{top}", flush=True)
 
 
-SECTIONS = ("pq", "flat", "exact", "attention", "attention_bwd")
+SECTIONS = ("pq", "pq_tier", "flat", "exact", "attention", "attention_bwd")
 
 
 def main() -> None:
@@ -654,8 +718,8 @@ def main() -> None:
                     help="live rows a list (10M rows over 4096 lists)")
     ap.add_argument("--other-flat", default=None,
                     help="another ivf_list_scan.cu to time in turns")
-    ap.add_argument("--other-pq", default=None,
-                    help="another pq_list_scan.cu to time in turns")
+    ap.add_argument("--other-pq", nargs="+", default=[],
+                    help="other pq_list_scan.cu sources to time in turns")
     ap.add_argument("--other-exact", nargs="+", default=[],
                     help="directories, each with another block_topk.cu, "
                          "fused_topk.cu and their headers, to time in turns")
@@ -693,6 +757,8 @@ def main() -> None:
         sass_loops("block_topk", only="bf16")
     if "pq" in args.only:
         time_pq(torch, g, args.nlist, args.live_rows, args.other_pq)
+    if "pq_tier" in args.only:
+        time_pq_tier(torch, g, args.other_pq)
     if "flat" in args.only:
         time_flat(torch, g, args.nlist, args.live_rows, args.other_flat)
     if "exact" in args.only:

@@ -282,42 +282,107 @@ def test_pq_kernel_split_lists_on_card(card, packed, p):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("kernel", ["flat", "pq"])
-def test_list_scans_past_the_redesigns_limits_on_card(card, kernel):
-    """p > 32 (and, for the ADC scan, m >= 256) leave the redesigned int8
-    kernels for the per-sub-block ones: the same outputs."""
+def test_flat_scan_per_subblock_route_on_card(card):
+    """p > 32 leaves the redesigned int8 flat scan for the per-sub-block
+    kernel: the same outputs."""
     ids, disp = _edge_rows(card, seed=7)
-    if kernel == "flat":
-        q, lists, _ = _inputs("int8", nlist=len(EDGE_LIVE), qcap=32, d=256,
-                              cap_len=512, seed=7)
-        args = (torch.as_tensor(q, device=card),
-                torch.as_tensor(lists, device=card), ids, disp)
-        kv, ki = ivf_list_scan(*args, p=40, scale=1e-4)
-        rv, ri = ivf_list_scan_reference(*args, p=40, scale=1e-4)
-        assert torch.equal(kv, rv) and torch.equal(ki, ri)
-        return
-    for m, p in ((24, 40), (256, 3)):
-        l, codes, _ = _pq_inputs(card, "int8", False, m, 32,
-                                 nlist=len(EDGE_LIVE), cap_len=512, seed=m)
-        kv, ki = pq_list_scan(l, codes, ids, disp, p=p)
-        rv, ri = pq_list_scan_reference(l, codes, ids, disp, p=p)
-        assert torch.equal(kv, rv) and torch.equal(ki, ri)
-    # the 100M capacity tier's shape class (chip_smoke.py phase 26):
-    # nibble-packed m=256 codes (128 B a row), an int8 LUT, p=4, qcap 8,
-    # lists of 35 sub-blocks (cap_len 4480 > 4096), a dispatch whose lists
-    # end in empty slots and one list no query probes
-    live = (8, 1, 0, 5, 3, 8)
-    l, codes, tids = _pq_inputs(card, "int8", True, 256, 8, nlist=len(live),
-                                cap_len=4480, seed=17)
-    tdisp = torch.full((len(live), 8), -1, dtype=torch.int32, device=card)
+    q, lists, _ = _inputs("int8", nlist=len(EDGE_LIVE), qcap=32, d=256,
+                          cap_len=512, seed=7)
+    args = (torch.as_tensor(q, device=card),
+            torch.as_tensor(lists, device=card), ids, disp)
+    kv, ki = ivf_list_scan(*args, p=40, scale=1e-4)
+    rv, ri = ivf_list_scan_reference(*args, p=40, scale=1e-4)
+    assert torch.equal(kv, rv) and torch.equal(ki, ri)
+
+
+# live slots of the ADC scan's route lists: none; one to eight, which
+# packed m = 256 lists take by the pair route (a pass for every two) and
+# unpacked ones by the lookup; the one-hot product's 9 and 16; 17, a
+# lookup pass after it (capped at qcap)
+ROUTE_LIVE = (0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 16, 17)
+
+
+def _route_lists(card, lut, packed, m, qcap, seed):
+    """The 100M tier's shape class (chip_smoke.py phase 26): lists of 35
+    sub-blocks (cap_len 4480), one list for each entry of ROUTE_LIVE
+    (capped at qcap), about 9% dead rows, a sub-block of one live row, a
+    dead sub-block and one of duplicated rows (ties for every LUT). int8
+    LUTs reach their extremes: slot 0 all -127, slot 1 all +127."""
+    cap_len = 4480
+    live = sorted({min(n, qcap) for n in ROUTE_LIVE})
+    nlist = len(live)
+    rng = np.random.default_rng(seed)
+    if lut == "int8":
+        l = rng.integers(-127, 128, (nlist, qcap, 16 * m)).astype(np.int8)
+        l[:, 0] = -127
+        l[:, 1] = 127
+        l = torch.as_tensor(l, device=card)
+    else:
+        l = torch.as_tensor(rng.standard_normal((nlist, qcap, 16 * m))
+                            .astype(np.float32), device=card).bfloat16()
+    codes = rng.integers(0, 16, (nlist, cap_len, m)).astype(np.uint8)
+    codes[:, 384:512:2] = codes[:, 385:512:2]
+    codes = torch.as_tensor(codes, device=card)
+    if packed:
+        codes = pack_codes(codes).contiguous()
+    ids = np.arange(nlist * cap_len, dtype=np.int32).reshape(nlist, cap_len)
+    ids[rng.random(ids.shape) < 0.09] = -1
+    lone = ids[np.arange(nlist), 37 + np.arange(nlist)].copy()
+    ids[:, :128] = -1
+    ids[np.arange(nlist), 37 + np.arange(nlist)] = lone
+    ids[:, 256:384] = -1
+    disp = np.full((nlist, qcap), -1, np.int32)
     for li, n in enumerate(live):
-        tdisp[li, :n] = li
+        disp[li, :n] = li
+    return (l, codes, torch.as_tensor(ids, device=card),
+            torch.as_tensor(disp, device=card), live)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lut,packed,m,qcap", [
+    ("int8", True, 256, 8), ("int8", True, 256, 24), ("int8", False, 256, 8),
+    ("int8", False, 256, 24), ("bf16", True, 256, 24),
+    ("bf16", False, 256, 8), ("bf16", True, 264, 8), ("int8", True, 264, 8),
+    ("int8", False, 24, 8)])
+@pytest.mark.parametrize("p", [4, 1])
+def test_pq_list_scan_routes_on_card(card, lut, packed, m, qcap, p):
+    """Every route of the ADC scan at the 100M tier's shape class: int8
+    LUTs at m = 256 take pq_scan_v2 (packed lists of at most eight live
+    slots its pair route, unpacked ones the lookup, more slots the one-hot
+    product); bf16 LUTs, m = 264 and p > 32 take pq_scan_kernel. Each is
+    the plain version, bit for bit with an int8 LUT."""
+    l, codes, ids, disp, live = _route_lists(card, lut, packed, m, qcap,
+                                             seed=m + qcap + p)
+    routes = pq_scan.scan_routes(l.dtype, packed, m, p,
+                                 pq_scan.live_slots(disp))
+    if lut == "int8" and m <= 256:
+        assert routes["pair"] == (sum(1 for n in live
+                                      if 1 <= n <= pq_scan.PAIR_MAX)
+                                  if packed and m == 256 else 0)
+    else:
+        assert routes["pq_scan_kernel"] == len(live) - 1
     before = pq_scan.LAUNCHES.count
-    kv, ki = pq_list_scan(l, codes, tids, tdisp, p=4)
+    kv, ki = pq_list_scan(l, codes, ids, disp, p=p)
     torch.cuda.synchronize()
     assert pq_scan.LAUNCHES.count == before + 1
-    rv, ri = pq_list_scan_reference(l, codes, tids, tdisp, p=4)
-    assert torch.equal(kv, rv) and torch.equal(ki, ri)
+    rv, ri = pq_list_scan_reference(l, codes, ids, disp, p=p)
+    if lut == "int8":
+        assert torch.equal(kv, rv) and torch.equal(ki, ri)
+        # the extremes: every live row ties, the lowest rows win
+        for slot, score in ((0, -127 * m), (1, 127 * m)):
+            got = kv[:, slot][ki[:, slot] >= 0]
+            assert bool((got == score).all())
+    else:
+        fin = torch.isfinite(rv)
+        assert torch.equal(torch.isfinite(kv), fin)
+        torch.testing.assert_close(kv[fin], rv[fin], rtol=1e-5, atol=1e-3)
+        off = ki != ri
+        assert torch.all((kv[off] - rv[off]).abs() <= 1e-3)
+    # p > 32 leaves pq_scan_v2 for pq_scan_kernel: the same outputs
+    if lut == "int8" and packed and m == 256 and qcap == 8 and p == 4:
+        kv, ki = pq_list_scan(l, codes, ids, disp, p=40)
+        rv, ri = pq_list_scan_reference(l, codes, ids, disp, p=40)
+        assert torch.equal(kv, rv) and torch.equal(ki, ri)
 
 
 @pytest.mark.cuda

@@ -7,6 +7,12 @@ sum bf16 entries in f32 but in another order (JAX through a one-hot
 product): values agree within 1e-5 relative of the summed magnitude
 (entries of unit scale, m = 12), and an index may differ only between
 two rows that score within that tolerance.
+
+At m = 256 (the 100M tier's width, packed or not) the LUTs reach the
+kernel's extremes: one slot all -127 and one all +127, so the scores are
+-32512 and +32512, every live row of a sub-block ties, and the lowest rows
+win. ``flatten_luts`` never emits -128, which the kernel's int16 scores
+rest on.
 """
 
 import jax.numpy as jnp
@@ -14,10 +20,13 @@ import numpy as np
 import pytest
 import torch
 
+from rag_foundation_tpu.ops.pallas_pq import flatten_luts as jax_flatten
 from rag_foundation_tpu.ops.pallas_pq import pq_list_scan as jax_scan
 from rag_foundation_tpu_torch.ops import cuda_lib, pq_scan
-from rag_foundation_tpu_torch.ops.pq_scan import (pack_codes, pq_list_scan,
-                                                  pq_list_scan_reference)
+from rag_foundation_tpu_torch.ops.pq_scan import (flatten_luts, pack_codes,
+                                                  pq_list_scan,
+                                                  pq_list_scan_reference,
+                                                  scan_routes)
 
 K = 16
 
@@ -187,3 +196,79 @@ def test_cpu_tensors_take_the_plain_version(monkeypatch):
                                p=2)
     b = real(*[torch.as_tensor(x) for x in (l, codes, ids)], p=2)
     assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+
+def _extreme_luts(l):
+    """Slot 0 of every list all -127, slot 1 all +127, the rest random."""
+    l = l.copy()
+    l[:, 0] = -127
+    l[:, 1] = 127
+    return l
+
+
+@pytest.mark.parametrize("p", [1, 4])
+@pytest.mark.parametrize("packed", [False, True])
+def test_int8_lut_m256_extremes_bit_identical_to_jax(packed, p):
+    m = 256
+    l, codes, ids = _inputs(m=m, packed=packed, seed=40 + p)
+    l = _extreme_luts(l)
+    jv, ji = _jax(l, codes, ids, p)
+    tv, ti = _torch(l, codes, ids, p)
+    np.testing.assert_array_equal(tv, jv)
+    np.testing.assert_array_equal(ti, ji)
+    nsub = ids.shape[1] // 128
+    for li in range(ids.shape[0]):
+        for sb in range(nsub):
+            live = np.nonzero(ids[li, sb * 128:(sb + 1) * 128] >= 0)[0]
+            got = ti[li, :, [j * nsub + sb for j in range(p)]]   # [p, qcap]
+            want = np.full(p, -1)
+            want[:min(p, len(live))] = li * ids.shape[1] + sb * 128 \
+                + live[:p]
+            # every live row ties: the lowest rows, in order
+            for slot, score in ((0, -127 * m), (1, 127 * m)):
+                np.testing.assert_array_equal(got[:, slot], want)
+                vals = tv[li, slot, [j * nsub + sb for j in range(p)]]
+                assert np.all(vals[want >= 0] == score)
+                assert np.all(np.isneginf(vals[want < 0]))
+    # the dead sub-block of list 1
+    assert np.all(ti[1, :, 1::nsub] == -1)
+
+
+@pytest.mark.parametrize("p", [1, 4])
+def test_int8_lut_m256_plain_version_matches_jax_with_ties(p):
+    # duplicated rows: random LUTs tie inside every sub-block
+    l, codes, ids = _inputs(m=256, packed=True, dead=0.1, seed=50 + p)
+    codes[:, 1::2] = codes[:, 0::2]
+    jv, ji = _jax(l, codes, ids, p)
+    tv, ti = _torch(l, codes, ids, p)
+    np.testing.assert_array_equal(tv, jv)
+    np.testing.assert_array_equal(ti, ji)
+
+
+def test_flatten_luts_m256_packed_never_minus_128():
+    rng = np.random.default_rng(60)
+    lut = -np.abs(rng.standard_normal((6, 256, K))).astype(np.float32)
+    lut[0] = -1.0                       # every entry the query's maximum
+    lut[1, 7, 3] = -1e6                 # one entry far past the rest
+    jf, js = jax_flatten(jnp.asarray(lut), "int8", packed=True)
+    tf, ts = flatten_luts(torch.as_tensor(lut), torch.int8, packed=True)
+    np.testing.assert_array_equal(tf.numpy(), np.asarray(jf))
+    np.testing.assert_array_equal(ts.numpy(), np.asarray(js))
+    assert tf.dtype == torch.int8
+    assert int(tf.min()) == -127 and int(tf.max()) <= 0
+    # so a score over 256 positions stays above the kernel's dead mark
+    assert 256 * int(tf.min()) > -32768
+
+
+def test_scan_routes_follow_the_shape_and_live_slots():
+    live = torch.tensor([0, 1, 2, 3, 4, 5, 8, 9, 16, 17], dtype=torch.int32)
+    assert scan_routes(torch.int8, True, 256, 4, live) == {
+        "unread": 1, "pair": 6, "lookup": 0, "mma": 3}
+    assert scan_routes(torch.int8, False, 256, 4, live) == {
+        "unread": 1, "pair": 0, "lookup": 6, "mma": 3}
+    assert scan_routes(torch.int8, True, 192, 4, live) == {
+        "unread": 1, "pair": 0, "lookup": 6, "mma": 3}
+    for args in ((torch.bfloat16, True, 256, 4), (torch.int8, True, 264, 4),
+                 (torch.int8, False, 6, 4), (torch.int8, True, 256, 40)):
+        assert scan_routes(*args, live) == {"unread": 1,
+                                            "pq_scan_kernel": 9}
