@@ -285,9 +285,11 @@ Phases (each one fails the run: non-zero exit, no result line):
     ``ivf_list_scan``'s counter (zeroed just before each, read just
     after) must move in the waves (where the host's pace kept every batch
     of the measured waves at or under the crossover, up to
-    ``APP_MORE_WAVES`` more are sent, ``APP_WAVES_STEP`` at a time, until
-    one crosses; their number is printed), and the largest dispatch the chats
-    gave it is held to the plain version bit for bit and timed beside its
+    ``APP_MORE_WAVES`` more are sent, ``APP_WAVES_STEP`` at a time, in
+    the engine's admission window widened to ``APP_MORE_WINDOW_S`` and
+    doubled each step up to ``APP_MORE_WINDOW_MAX_S``, until one crosses;
+    their number and windows are printed), and the largest dispatch the
+    chats gave it is held to the plain version bit for bit and timed beside its
     bound. Printed: time to first text-delta and answer latency p50/p99,
     chats/s, the engine's batch sizes, each process's CPU seconds, the
     app's and the engine's stages.
@@ -389,6 +391,27 @@ Phases (each one fails the run: non-zero exit, no result line):
     launch's time beside its bound, the dispatch's lists by live slots
     and by the kernel's route, the kernel's time beside its bound and its
     plain version's.
+27. BASELINE config 3 (``benchmarks/sweep_nprobe.py``: 1M x 768 bf16
+    IVF-Flat, nlist 4096, nprobe swept to recall@10 >= 0.95), run right
+    after phase 2 on a clean card, through ``tools.nprobe_sweep``: config
+    3's clustered corpus (8,192 centres, noise 0.5, Q=1024 queries, qnoise
+    0.2) made on the card from ``--seed``, the build (k-means on 262,144
+    rows, 8 iterations), the exact bf16 ground truth, then ``ivf_search``
+    (k 10, ``approx_select``) at nprobe 4, 8, 16, 32, 64 and 128, at p 3
+    (the script's default) and p 4 (its recorded run's), with
+    ``ivf_list_scan``'s launch counter zeroed just before and read just
+    after. It fails unless the sweeps launched the kernel, some nprobe
+    at p 4 reached recall@10 >= 0.95 (config 3's target) and every
+    nprobe at p 3 reached ``SWEEP_P3_FLOOR`` = 0.93 (the smallest nprobe
+    reaching 0.95 at each p is printed). At nprobe 32 and 128 at p 3 and
+    nprobe 32 at p 4 the kernel (the bf16 tensor-core route) on the
+    sweep's own dispatch is held to the plain version within ``F32_TOL``
+    and timed beside its bound (``roofline.scan_bound``, 2 bytes an
+    element), the plain version and ``torch.bmm`` + ``torch.topk``; then
+    the same corpus is built as f32 lists (the engine's ``ivf_flat`` type,
+    the scalar route), searched at nprobe 32, p 3 (its launches counted)
+    and its dispatch checked and timed the same way. The phase releases
+    its tensors.
 
 ``--cap-rows`` sets phase 26's rows (default 100M); ``--long-docs`` the
 number of long documents of phase 13; ``--decoder-steps``,
@@ -398,7 +421,8 @@ calls' numbers (phase 18's host re-rank A/B, phase 19's ingest and
 encode rates, right-first shares, latencies and qcap drops, phase 23's,
 phase 24's and phase 25's app numbers, phase 26's build, searches and
 recall probe), then the
-kernels' JSON (eight entries; the flash-attention forward's also holds
+kernels' JSON (ten entries: ``ivf_list_scan``'s bf16 and f32 routes on
+phase 27's dispatches each have one of their own; the flash-attention forward's also holds
 its launches on phase 16's chat path and on phase 25's hybrid app path
 with each bucket's check and times, the two list scans their
 launches and one shard's numbers on the sharded paths of phases 17-18,
@@ -4318,14 +4342,22 @@ APP_SETTINGS = {
 APP_CONCURRENCY = 64      # concurrent SSE chats of phase 23 (b)
 APP_API_PROCESSES = 4     # API processes (--workers) in front of the engine
 APP_CLIENT_PROCESSES = 8  # processes the concurrent chats of (b) come from
-APP_WAVES = 32            # waves of APP_CONCURRENCY chats sent together
+APP_WAVES = 16            # waves of APP_CONCURRENCY chats sent together
 # the engine's batches are the arrivals of one admission window, which the
 # host paces: on an H100 host, three runs of this script formed a batch of
 # 17-32 queries (one launch each) 2 and 4 times in 16 waves and 23 times
-# in 32. Where no measured wave crossed, more waves are sent, this many at
-# a time and at most APP_MORE_WAVES, until one does
-APP_WAVES_STEP = 16
-APP_MORE_WAVES = 160
+# in 32, and another run none in 32 and one in 48 more (a wave's searches
+# reached the engine over about a second, in batches of 1-8). Where no
+# measured wave crossed, more waves are sent, this many at a time and at
+# most APP_MORE_WAVES, until one does, with the engine's admission window
+# widened to APP_MORE_WINDOW_S for the first step and doubled each step
+# after up to APP_MORE_WINDOW_MAX_S (which holds a whole wave); the
+# measured waves keep phase 3's window
+APP_WAVES_STEP = 4
+APP_MORE_WAVES = 32
+APP_MORE_WINDOW_S = 0.25
+APP_MORE_WINDOW_MAX_S = 2.0
+APP_LOOP_ROUNDS = 4       # the closed loop: this many chats a client
 ENGINE_STAGES = "engine_query_stage_seconds"
 APP_FACT_DOCS = 16        # fact documents uploaded through the app in (b)
 SCORE_TIE = 1e-5          # (a): card and CPU hits may swap only near-ties
@@ -4335,7 +4367,7 @@ SSE_TAIL = ["text-end"]
 APP_SPLIT_WORKERS = 2     # worker_main processes draining the job queue
 APP_AUDIT_S = 10.0        # their recall audit cron's period, seconds
 LOADGEN_USERS = 16        # benchmark.loadgen: users, seconds, the most
-LOADGEN_DURATION_S = 20   # think time (seconds) and the reference's
+LOADGEN_DURATION_S = 10   # think time (seconds) and the reference's
 LOADGEN_THINK_S = 0.5     # chat share (4 chats : 1 upload)
 LOADGEN_CHAT_RATIO = 0.8
 
@@ -4827,7 +4859,8 @@ def app_connect_phase(args, card, ctx, mods) -> tuple[dict, dict, dict]:
 
         asks = {mode: [q_of(asked[j][0]) for j in rng.integers(
             0, len(asked), size=APP_CONCURRENCY * rounds)]
-            for mode, rounds in (("closed_loop", 8), ("waves", APP_WAVES))}
+            for mode, rounds in (("closed_loop", APP_LOOP_ROUNDS),
+                                ("waves", APP_WAVES))}
         bounds = engine.metrics.search_batch_size.buckets + (float("inf"),)
         app_pids = process_tree(app.proc.pid)
         conc, launches = {}, {}
@@ -4892,9 +4925,14 @@ def app_connect_phase(args, card, ctx, mods) -> tuple[dict, dict, dict]:
                     fail(f"phase 23 (b): {n_err} chats failed, "
                          f"{len(qs) - contract} broke the SSE contract")
             # no measured wave crossed: more waves, the counter still
-            # running from just before the first wave
-            more = 0
+            # running from just before the first wave, in a wider window
+            more, windows = 0, []
+            batcher = engine._batcher()
+            window_s = batcher.window_s
             while launches["waves"] == 0 and more < APP_MORE_WAVES:
+                windows.append(min(APP_MORE_WINDOW_S * 2 ** len(windows),
+                                   APP_MORE_WINDOW_MAX_S))
+                batcher.window_s = windows[-1]
                 qs = [q_of(asked[j][0]) for j in rng.integers(
                     0, len(asked), size=APP_CONCURRENCY * APP_WAVES_STEP)]
                 results, _ = run_chats_elsewhere(
@@ -4908,13 +4946,17 @@ def app_connect_phase(args, card, ctx, mods) -> tuple[dict, dict, dict]:
                     fail(f"phase 23 (b): {len(qs) - len(ok)} chats of the "
                          f"more waves failed, {broken} broke the SSE "
                          f"contract")
+            batcher.window_s = window_s
             conc["waves"]["more_waves"] = more
+            conc["waves"]["more_windows_s"] = windows
             if more:
                 log(f"app (b): no batch of the {APP_WAVES} measured waves "
                     f"crossed Q*nprobe*8 > nlist; {more} more waves of "
-                    f"{APP_CONCURRENCY} sent, ivf_list_scan launches "
-                    f"{launches['waves']} over all {APP_WAVES + more} | "
-                    f"{card}")
+                    f"{APP_CONCURRENCY} sent, {APP_WAVES_STEP} a step in "
+                    f"admission windows of {windows} s (then "
+                    f"{window_s * 1e3:.0f} ms again), ivf_list_scan "
+                    f"launches {launches['waves']} over all "
+                    f"{APP_WAVES + more} | {card}")
         finally:
             tivf.ivf_list_scan = scan
         app_metrics = client._request("GET", "/metrics", stream=True).read(
@@ -4963,6 +5005,7 @@ def app_connect_phase(args, card, ctx, mods) -> tuple[dict, dict, dict]:
     log(f"phase 23 (b): {t_b:.1f} s")
     entry = {"launches_app_chat": launches["waves"],
              "app_chat_more_waves": conc["waves"]["more_waves"],
+             "app_chat_more_windows_s": conc["waves"]["more_windows_s"],
              "launches_app_chat_closed_loop": launches["closed_loop"],
              "app_chat_dispatch": {
         "live_slots": live, "qcap": int(qdisp.shape[1]), "max_abs_err": err,
@@ -5393,7 +5436,7 @@ HYBRID_TIE = 5e-3
 # logits, the vocabulary bias added) is at most this
 # (tests/test_torch_decoder.py's rule for bf16)
 GEN_MARGIN = 0.25
-GEN_CPU_BUDGET_S = 120.0  # (b): the CPU run's questions, as many as fit
+GEN_CPU_BUDGET_S = 20.0   # (b): the CPU run's questions, as many as fit
 BENCH_USER = ("chip@example.com", "Chip-Passw0rd-1")
 GATE_OUTCOME = re.compile(
     r'^engine_calls_total\{op="generate",outcome="([a-z_]+)"\} (\S+)$', re.M)
@@ -6486,6 +6529,184 @@ def capacity_phase(args, card, sampled, mods) -> dict:
             "recall_probe_s": probe_s, "phase_s": phase_s}
 
 
+# -- phase 27: BASELINE config 3 ---------------------------------------------
+# config 3's sweep (benchmarks/sweep_nprobe.py: 1M x 768 bf16 IVF-Flat,
+# nlist 4096, p 3, approx_select) through tools/nprobe_sweep.py, uncut
+SWEEP_ROWS = 1_000_000
+SWEEP_NLIST = 4096
+# the sweep's own dispatches held to the plain version and timed: bf16 at
+# (nprobe, p) 32 and 128 at p 3 (qcap 16 and 64) and 32 at p 4; f32 lists
+# at the first
+SWEEP_CHECKED = ((32, 3), (128, 3), (32, 4))
+# p of the sweeps: sweep_nprobe.py's default 3, and 4, the p of the JAX
+# package's recorded config 3 run (benchmarks/results/nprobe_sweep.json).
+# At p 3 the per-sub-block capture (3 of each 128 rows) caps recall@10
+# near 0.95 whatever nprobe (0.9394-0.9497 on an H100); the ids equal the
+# JAX package's on a shared body (tests/test_torch_nprobe_sweep.py). So p
+# 4 is held to config 3's target (nprobe_sweep.RECALL_TARGET) at some
+# nprobe, p 3 to SWEEP_P3_FLOOR at every nprobe
+SWEEP_P = (3, 4)
+SWEEP_P3_FLOOR = 0.93
+
+
+def sweep_faults(sweeps: dict, target: float) -> list[str]:
+    """Phase 27's recall gate on the sweeps (rows by p): p 4 reaches
+    ``target`` (config 3's) at some nprobe, p 3 ``SWEEP_P3_FLOOR`` at
+    every nprobe. Returns what failed."""
+    faults = []
+    if not any(r["recall_at_10"] >= target for r in sweeps[4]):
+        faults.append(f"no nprobe of the p 4 sweep reached recall@10 "
+                      f"{target}")
+    low = [(r["nprobe"], r["recall_at_10"]) for r in sweeps[3]
+           if r["recall_at_10"] < SWEEP_P3_FLOOR]
+    if low:
+        faults.append(f"the p 3 sweep under recall@10 {SWEEP_P3_FLOOR} at "
+                      f"(nprobe, recall) {low}")
+    return faults
+
+
+def sweep_kernel_line(torch, ivf_scan, roofline, tivf, index, queries,
+                      nprobe, p, card, what) -> dict:
+    """The list scan on ``ivf_search``'s own dispatch of ``queries`` at
+    ``nprobe`` (config 3's search, approx_select) with top-``p``: checked
+    against the plain version within ``F32_TOL``, timed beside it, the
+    library yardstick and ``roofline.scan_bound``."""
+    _, dispatch, _, dropped, qdisp, _ = tivf.scan_inputs(
+        index, queries, nprobe, approx_select=True)
+    lists, row_ids = index.lists, index.row_ids
+    nlist, qcap, d = qdisp.shape
+    kv, ki = ivf_scan.ivf_list_scan(qdisp, lists, row_ids, dispatch, p=p)
+    torch.cuda.synchronize()
+    rv, ri = ivf_scan.ivf_list_scan_reference(qdisp, lists, row_ids,
+                                              dispatch, p=p)
+    err = check_scan(kv, ki, rv, ri, False, qdisp, lists, what)
+    del kv, ki, rv, ri
+    ms = cuda_ms(lambda: ivf_scan.ivf_list_scan(
+        qdisp, lists, row_ids, dispatch, p=p), reps=10)
+    plain_ms = cuda_ms(lambda: ivf_scan.ivf_list_scan_reference(
+        qdisp, lists, row_ids, dispatch, p=p), reps=1, warmup=1)
+    library_ms, chunks = library_ms_of(qdisp, lists, p)
+    live_n = ivf_scan.live_slots(dispatch)
+    kind = "bf16" if lists.dtype == torch.bfloat16 else "f32"
+    bound_ms, bound_by, c = roofline.scan_bound(
+        row_ids, live_n, qcap, p, lists.element_size(), d, kind)
+    hist = torch.bincount(live_n.long()).tolist()   # to the largest
+    route = ivf_scan.scan_route(lists.dtype, qcap, d, p)
+    log(f"{what}: nprobe {nprobe}, nlist={nlist} qcap={qcap} (dropped "
+        f"{int(dropped)}) cap_len={lists.shape[1]} d={d} p={p}, route "
+        f"{route}, {c['lists_read']} lists with queries, {c['live_slots']} "
+        f"live slots, {c['rows_needed']} live rows of "
+        f"{c['rows_in_lists_read']}: max_abs_err={err:.3g} (tol "
+        f"{F32_TOL}); kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, "
+        f"torch.bmm+topk (f32, every slot, {chunks} list chunks) "
+        f"{library_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by}; "
+        f"{bound_ms / ms:.1%} of it) | {card}")
+    log(f"  lists by live slots 0..{len(hist) - 1}: {hist}")
+    del qdisp, dispatch
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms, "route": route,
+            "shape": {"nprobe": nprobe, "nlist": nlist, "qcap": qcap,
+                      "cap_len": lists.shape[1], "d": d, "p": p, **c}}
+
+
+def nprobe_phase(args, card, mods) -> list[dict]:
+    """Phase 27: BASELINE config 3 through ``tools.nprobe_sweep`` on the
+    card. Returns the kernels' entries of the bf16 and f32 routes."""
+    torch, ivf_scan, roofline, tivf = mods
+    from rag_foundation_tpu_torch.tools import nprobe_sweep as ns
+    t_phase = time.perf_counter()
+    corpus, queries = ns.make_corpus(SWEEP_ROWS, 768, 1024,
+                                     seed=args.seed, device="cuda")
+    index, build_s = ns.build(corpus, SWEEP_NLIST, seed=args.seed)
+    truth = ns.ground_truth(queries, corpus)
+    torch.cuda.synchronize()
+    live = int((index.row_ids >= 0).sum())
+    log(f"config 3 corpus {SWEEP_ROWS} x 768 ({8192} centres, noise "
+        f"0.5, queries 1024, qnoise 0.2): bf16 IVF-Flat build "
+        f"(k-means on 262,144 rows, 8 iterations) {build_s:.2f} s, "
+        f"nlist {index.nlist} cap_len {index.cap_len} ({live} live rows, "
+        f"mean list {live / index.nlist:.1f}) | {card}")
+    if live != SWEEP_ROWS:
+        fail(f"config 3: {live} live rows in the body, {SWEEP_ROWS} built")
+    ivf_scan.LAUNCHES.reset()                 # counts: the sweeps only
+    sweeps = {p: ns.sweep(index, queries, truth, p=p) for p in SWEEP_P}
+    launches = ivf_scan.LAUNCHES.count        # read just after
+    best = {p: ns.smallest_nprobe(rows) for p, rows in sweeps.items()}
+    for p, rows in sweeps.items():
+        for r in rows:
+            log(f"  p {p} nprobe {r['nprobe']:3d}: recall@10 "
+                f"{r['recall_at_10']:.4f} {r['qps']:,.0f} QPS "
+                f"({r['ms_per_batch']:.3f} ms a batch), dropped probes "
+                f"{r['dropped_probes']}")
+        log(f"config 3 sweep at p {p}: smallest nprobe reaching recall@10 "
+            f">= {ns.RECALL_TARGET}: {best[p]} | {card}")
+    log(f"config 3 sweeps: ivf_list_scan launches {launches} | {card}")
+    if launches == 0:
+        fail("config 3's sweep never launched ivf_list_scan")
+    faults = sweep_faults(sweeps, ns.RECALL_TARGET)
+    if faults:
+        fail("config 3: " + "; ".join(faults))
+    bf16 = {(n, p): sweep_kernel_line(torch, ivf_scan, roofline, tivf,
+                                      index, queries, n, p, card,
+                                      "ivf_list_scan bf16 config 3")
+            for n, p in SWEEP_CHECKED}
+    del index
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the same corpus as f32 lists: the engine's ivf_flat type, the scalar
+    # route, searched once at the first checked nprobe
+    index32, build32_s = ns.build(corpus, SWEEP_NLIST, seed=args.seed,
+                                  dtype=torch.float32)
+    del corpus
+    ivf_scan.LAUNCHES.reset()
+    n32, p32 = SWEEP_CHECKED[0]
+    point32 = ns.search_point(index32, queries, truth, n32, p=p32, reps=1)
+    launches32 = ivf_scan.LAUNCHES.count
+    log(f"config 3 corpus as f32 lists: build {build32_s:.2f} s, cap_len "
+        f"{index32.cap_len}; nprobe {n32} p {p32} recall@10 "
+        f"{point32['recall_at_10']:.4f} ({point32['ms_per_batch']:.3f} ms "
+        f"a batch), ivf_list_scan launches {launches32} | {card}")
+    if launches32 == 0:
+        fail("config 3's f32 search never launched ivf_list_scan")
+    f32 = sweep_kernel_line(torch, ivf_scan, roofline, tivf, index32,
+                            queries, n32, p32, card,
+                            "ivf_list_scan f32 config 3")
+    del index32, queries, truth
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_s = time.perf_counter() - t_phase
+    log(f"phase 27: {phase_s:.1f} s; device memory allocated "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    common = {"route": "cuda",
+              "source": "rag_foundation_tpu_torch/csrc/ivf_list_scan.cu",
+              "replaces": "rag_foundation_tpu/ops/pallas_ivf.py:101"}
+    first = bf16[SWEEP_CHECKED[0]]
+    return [{
+        "name": "ivf_list_scan_bf16", **common,
+        "kernel": "ivf_scan_bf16",
+        "launches": launches,
+        **{k: first[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                 "bound_ms", "bound_by", "library_ms")},
+        "dtype": "bfloat16", "kernel_route": first["route"],
+        "shape": first["shape"],
+        **{f"nprobe_{n}_p{p}": {k: bf16[n, p][k] for k in (
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms", "route", "shape")} for n, p in SWEEP_CHECKED[1:]},
+        "sweeps": {f"p{p}": rows for p, rows in sweeps.items()},
+        "smallest_nprobe_recall_0_95": {f"p{p}": b for p, b in best.items()},
+        "build_s": build_s, "phase_s": phase_s,
+    }, {
+        "name": "ivf_list_scan_f32", **common,
+        "kernel": "ivf_scan_kernel",
+        "launches": launches32,
+        **{k: f32[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                               "bound_by", "library_ms")},
+        "dtype": "float32", "kernel_route": f32["route"],
+        "shape": f32["shape"], "search": point32,
+    }]
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rows", type=int, default=10_000_000,
@@ -6503,14 +6724,14 @@ def main() -> None:
                     help="long documents (257 chunks each) of phase 13")
     ap.add_argument("--corpus-passages", type=int, default=6000,
                     help="passages of phase 15's ICT corpus")
-    ap.add_argument("--train-steps", type=int, default=300,
+    ap.add_argument("--train-steps", type=int, default=150,
                     help="steps of phase 15's training run")
-    ap.add_argument("--decoder-steps", type=int, default=300,
+    ap.add_argument("--decoder-steps", type=int, default=150,
                     help="steps of phase 20's decoder training (recipe "
                          "4000)")
-    ap.add_argument("--decoder-triples", type=int, default=6000,
+    ap.add_argument("--decoder-triples", type=int, default=2000,
                     help="triples of phase 20 (recipe 60000)")
-    ap.add_argument("--decoder-eval", type=int, default=64,
+    ap.add_argument("--decoder-eval", type=int, default=32,
                     help="eval questions of phase 20 (recipe 128)")
     ap.add_argument("--lengths-out", default=None,
                     help="write phase 15's layer-0 row lengths (JSON by S) "
@@ -6568,8 +6789,19 @@ def main() -> None:
     phase_small_kernels(ivf_scan, torch)
     phase_small_pq_kernels(pq_scan, gather, torch)
     phase_edge_kernels(ivf_scan, pq_scan, torch)
+
+    def lap(what: str, since: float) -> float:
+        now = time.perf_counter()
+        log(f"{what}: {now - since:.1f} s")
+        return now
+
+    lap("phases 1-2", t_start)
     rng = np.random.default_rng(args.seed)
     sampled = [int(i) for i in rng.choice(args.docs, size=64, replace=False)]
+
+    # -- phase 27: BASELINE config 3, nprobe swept (a clean card) ----------
+    sweep_kernels = nprobe_phase(args, card, (torch, ivf_scan, roofline,
+                                              tivf))
 
     # -- phase 26: the 100M capacity tier, while the host's memory is whole
     capacity = capacity_phase(
@@ -6578,6 +6810,7 @@ def main() -> None:
          HostArchive, tpq, pq_scan, quantize))
 
     # -- phase 3: the main path through the RPC entry point -----------------
+    t_lap = time.perf_counter()
     data_dir = tempfile.mkdtemp(prefix="ragtpu-chip-smoke-")
     sock = str(Path(data_dir) / "engine.sock")
     # a 20 ms admission window: 64 closed-loop clients then coalesce into
@@ -6830,6 +7063,8 @@ def main() -> None:
         "CUDA events between its stages in one call)")
     del qj
 
+    lap("phases 3-5", t_lap)
+
     # -- phase 19: the app's engine calls over the same body ----------------
     ivf_app, app_calls = app_calls_phase(
         args, card, (cfg, key, sock, body, body_cids, sampled, rng),
@@ -6838,7 +7073,9 @@ def main() -> None:
     gc.collect()
 
     # -- phase 23: the port's app on the card --------------------------------
+    t_lap = time.perf_counter()
     app_inproc = app_inprocess_phase(args, card)
+    lap("phase 23 (a)", t_lap)
     ivf_app_chat, app_split, app_chat = app_connect_phase(
         args, card, (cfg, key, sock, body, body_cids, sampled, rng),
         (Engine, EngineConfig, EngineRpcServer, tivf, ivf_scan))
@@ -6865,6 +7102,7 @@ def main() -> None:
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
 
     # -- phases 6-8: the ivf_pq store -----------------------------------------
+    t_lap = time.perf_counter()
     pq_kernels, host_rerank = pq_phases(
         args, card, rng, sampled,
         (Engine, EngineConfig, EngineRpcServer, RemoteEngine, search_profile,
@@ -6874,14 +7112,18 @@ def main() -> None:
     log(f"ivf_pq store released: device memory allocated "
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
 
+    t_lap = lap("phases 6-8 and 18", t_lap)
+
     # -- phases 9-11: the exact flat scan --------------------------------------
     exact_kernels = exact_phases(args, card)
+    t_lap = lap("phases 9-11", t_lap)
 
     # -- phases 12-13: the MiniLM encoder and its attention kernel ------------
     phase_small_attention(flash_attention, torch)
     attn_kernel = encoder_phases(
         args, card, rng, sampled,
         (Engine, EngineConfig, EngineRpcServer, RemoteEngine))
+    t_lap = lap("phases 12-13", t_lap)
 
     # -- phases 14-15: encoder training and the attention backward kernels ---
     phase_small_attention_bwd(flash_attention, torch)
@@ -6890,9 +7132,11 @@ def main() -> None:
     bwd_kernels, fwd_train = train_phases(args, card, rng, sampled, corpus,
                                           (Engine, EngineConfig))
     attn_kernel.update(fwd_train)
+    t_lap = lap("phases 14-15", t_lap)
 
     # -- phase 22: the sharded training step -------------------------------
     dp_train = sharded_train_phase(args, card, corpus)
+    lap("phase 22", t_lap)
 
     # -- phase 16: the generative chat path -------------------------------
     attn_kernel["launches_generative_chat"] = generator_phase(
@@ -6930,7 +7174,8 @@ def main() -> None:
         **ivf_app_chat,
         "launches_pod": pod["ivf_list_scan"],
         "pod_shard": pod["ivf_shard"],
-    }] + pq_kernels + exact_kernels + [attn_kernel] + bwd_kernels}
+    }] + sweep_kernels + pq_kernels + exact_kernels + [attn_kernel]
+        + bwd_kernels}
     # phase 21's launches in each of its two processes; phase 22's in one
     # sharded training step
     for entry in kernels["kernels"]:

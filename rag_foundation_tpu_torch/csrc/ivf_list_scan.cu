@@ -47,16 +47,57 @@
 //   slots, four interleaved (topp_keys.cuh), while the next sub-block's
 //   tiles are already in flight.
 //
-// f32 and bf16 lists take `ivf_scan_kernel` (one 128-thread block per
-// (list, sub-block), thread t owns row t, FMA with the query chunk
-// broadcast from shared memory): f32 keeps exact f32 FMA (TF32 tensor
-// cores would change its results); bf16 may move to bf16 `mma` later.
+// bf16 lists (BASELINE config 3: 1M x 768, nlist 4096) take
+// `ivf_scan_bf16`, the same design in bf16:
+//
+//   Bound: the live bf16 rows of every list with a query read once (2
+//   bytes an element), 2 * live slots * d operations a row, under the
+//   bf16 ridge (about 295 operations a byte) at any qcap here, so
+//   bytes bound it. The products are `mma.sync` m16n8k16 bf16 with f32
+//   accumulation (the TPU kernel's bf16 MXU product with f32
+//   accumulation); a bf16 k-step is 32 bytes, as an int8 one, so the
+//   ldmatrix addressing is ivf_scan_s8's. Differences:
+//   * One pass streams a list's rows once for up to QT = 16 or 32 live
+//     slots (by qcap: nprobe 32 gives qcap 16; nprobe 64 and 128 give 32
+//     and 64, the latter in passes of 32), each warp 32 rows x QT slots in
+//     registers, only the n-tiles of 8 slots that hold a live slot
+//     computed. Both keep two blocks an SM (4 and 3 ring stages); a 64-slot
+//     pass (a 99 KB query tile, one block an SM, 6 stages) took 2.43-2.74
+//     ms on an H100 against 1.64-1.65 for two 32-slot passes at config 3's
+//     nprobe 128 shape class (Poisson(32) live slots a list;
+//     tools/time_kernels.py --only flat --other-flat). There, streaming
+//     the rows alone (both passes, no products, scores or selection)
+//     takes 0.90 ms of the route's 1.66 against a 0.53 ms bound.
+//   * Fold. The index interleaves a list's rows over its sub-blocks, so
+//     the live rows of a sub-block are its first ceil(m / nsub): at
+//     config 3 about 41 of 128. The block reads each owned sub-block's
+//     row ids once up front (as bits in shared memory) and takes the live
+//     extent E of each: a sub-block of no live row is skipped (nothing
+//     read, (-inf, -1) written), and one with E <= 32 (or 64) lays FOUR
+//     (or two) K chunks ("folds") of its first 32 (64) rows side by side
+//     in one 128-row stage, so that a stage carries four (two) times the
+//     live bytes, each row's chunks are read 512 (256) contiguous bytes at
+//     a time, and the ring keeps that many more bytes in flight. Each warp
+//     computes 32 stage rows, a share of K of their sums; at the end of
+//     the sub-block the folds' shares are added in fold order
+//     (deterministic) before the top-p. On an H100 this beat stages
+//     shared by the first rows of two sub-blocks at one K chunk (each
+//     row's K in one warp, no adding of shares, 128 bytes of a row at a
+//     time).
+//   * Scores go to shared memory 16 slots a round, the top-p after each.
+//
+// f32 lists (the engine's ivf_flat mode), bf16 with p > 32 (a lane keeps
+// each pass's winner) and rows too wide for the shared-memory tiles take
+// `ivf_scan_kernel` (one 128-thread block per (list, sub-block), thread t
+// owns row t, FMA with the query chunk broadcast from shared memory): f32
+// keeps exact f32 FMA (TF32 tensor cores would change its results).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "mma_bf16.cuh"
 #include "mma_s8.cuh"
 #include "subblock_topp.cuh"
 #include "topp_keys.cuh"
@@ -409,6 +450,312 @@ cudaError_t launch_s8(const void* qdisp, const void* lists, const int* row_ids,
   return cudaGetLastError();
 }
 
+// ---- bf16 lists: bf16 tensor cores fed by a cp.async ring ------------------
+constexpr int BF_ROUND = 16;      // query slots a score round
+constexpr int BF_MAX_OWN = 128;   // sub-blocks a block owns at most
+
+// Shared memory of ivf_scan_bf16<QT, STAGES> for rows of `row_bytes`.
+__host__ __device__ inline size_t bf_smem_bytes(int qt, int stages,
+                                                int row_bytes) {
+  const int qstride = ((row_bytes + 31) & ~31) + 16;
+  return (size_t)stages * S8_STAGE_BYTES + (size_t)qt * qstride +
+         (size_t)BF_ROUND * SUB * 4 + (size_t)BF_MAX_OWN * 4 * 4 +
+         BF_MAX_OWN;
+}
+
+// A sub-block's fold from its live-row bits (four words of 32 rows): 0
+// when no row is live, else log2 of the rows a fold covers minus 4 (1: the
+// live rows lie in the first 32, four folds a stage; 2: in the first 64,
+// two; 3: one fold of all 128).
+__device__ __forceinline__ int fold_of(const unsigned* bits) {
+  if (bits[2] | bits[3]) return 3;
+  if (bits[1]) return 2;
+  return bits[0] ? 1 : 0;
+}
+
+template <int QT, int STAGES>
+__global__ void __launch_bounds__(S8_THREADS, 2)
+ivf_scan_bf16(const unsigned char* __restrict__ qdisp,
+              const unsigned char* __restrict__ lists,
+              const int* __restrict__ row_ids, const int* __restrict__ live_n,
+              float* __restrict__ out_vals, int* __restrict__ out_idx,
+              int qcap, int cap_len, int row_bytes, int p) {
+  constexpr int NT = QT / 8;                       // n-tiles of 8 slots
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int kpad = (row_bytes + 31) & ~31;        // K in whole mma steps
+  const int qstride = kpad + 16;
+  unsigned char* rows_s = smem;
+  unsigned char* q_s = smem + STAGES * S8_STAGE_BYTES;
+  float* score_s = reinterpret_cast<float*>(q_s + QT * qstride);
+  unsigned* bits_s = reinterpret_cast<unsigned*>(score_s + BF_ROUND * SUB);
+  unsigned char* fold_s =
+      reinterpret_cast<unsigned char*>(bits_s + BF_MAX_OWN * 4);
+
+  const int l = blockIdx.y;
+  const int nsub = cap_len / SUB;
+  const int width = nsub * p;
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const int g = lane >> 2, tig = lane & 3;
+  const int G = gridDim.x;
+  const int nown = (nsub - (int)blockIdx.x + G - 1) / G;   // sub-blocks owned
+  const int nlive = live_n == nullptr ? qcap : min(qcap, live_n[l]);
+
+  // dead tail of the dispatch: (-inf, -1), nothing read
+  if (nlive < qcap)
+    for (int k = 0; k < nown; ++k)
+      scan::fill_dead(out_vals, out_idx, l, qcap, width, nsub,
+                      blockIdx.x + k * G, p, nlive, qcap, t);
+  if (nlive == 0 || nown <= 0) return;
+
+  const size_t list0 = (size_t)l * cap_len;
+  const unsigned char* q_g = qdisp + (size_t)l * qcap * row_bytes;
+  const int nkc = (row_bytes + CHUNK - 1) / CHUNK;   // K chunks a row
+
+  // the owned sub-blocks' live rows as bits, their row ids read once
+  for (int k0 = 0; k0 < nown; k0 += 8) {
+    int v[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      v[j] = k0 + j < nown
+                 ? row_ids[list0 + (size_t)(blockIdx.x + (k0 + j) * G) * SUB +
+                           t]
+                 : -1;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const unsigned b = __ballot_sync(0xffffffffu, v[j] >= 0);
+      if (lane == 0 && k0 + j < nown) bits_s[(k0 + j) * 4 + warp] = b;
+    }
+  }
+  __syncthreads();
+  for (int k = t; k < nown; k += S8_THREADS) fold_s[k] = fold_of(bits_s + 4 * k);
+  __syncthreads();
+  int first = nown;
+  for (int k = nown - 1; k >= 0; --k) {
+    if (fold_s[k] != 0) {
+      first = k;
+    } else {   // no live row: (-inf, -1) for every live slot, nothing read
+      scan::fill_dead(out_vals, out_idx, l, qcap, width, nsub,
+                      blockIdx.x + k * G, p, 0, nlive, t);
+    }
+  }
+  if (first == nown) return;
+
+  // a unit is (sub-block k, first K chunk kc) of one stage; the producer
+  // and the consumer walk the same units
+  auto advance = [&](int& k, int& kc) {
+    kc += 8 >> fold_s[k];
+    if (kc >= nkc) {
+      kc = 0;
+      do { ++k; } while (k < nown && fold_s[k] == 0);
+    }
+  };
+  // copy assignment: 16-byte column c16 of stage rows r0 + 16 i, i < 8
+  const int c16 = t & 7, r0 = t >> 3;
+  const int lj = lane >> 3, lr = lane & 7;           // ldmatrix addressing
+
+  for (int q0 = 0; q0 < nlive; q0 += QT) {
+    const int nq = min(QT, nlive - q0);
+    const int nt = (nq + 7) >> 3;                    // live n-tiles
+    __syncthreads();   // the previous pass is done with every buffer
+    // the query tile, once a pass: nq slots, zero-filled to QT x kpad
+    for (int i = t; i < QT * (kpad / 16); i += S8_THREADS) {
+      const int j = i / (kpad / 16), c = i - j * (kpad / 16);
+      const bool ok = j < nq && c * 16 < row_bytes;
+      s8::cp_async16(q_s + j * qstride + c * 16,
+                     ok ? (const void*)(q_g + (size_t)(q0 + j) * row_bytes +
+                                        c * 16)
+                        : (const void*)q_g,
+                     ok ? 16 : 0);
+    }
+    s8::cp_async_commit();
+
+    // stage row j holds row (j mod E) of K chunk kc + j / E, E = 16 << fold
+    auto issue = [&](int k, int kc, int stage) {
+      const int sh = fold_s[k] + 4;
+      const size_t row0 = list0 + (size_t)(blockIdx.x + k * G) * SUB;
+      const unsigned* bits = bits_s + 4 * k;
+      unsigned char* st = rows_s + stage * S8_STAGE_BYTES;
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const int j = r0 + 16 * i;
+        const int r = j & ((1 << sh) - 1);
+        const int col = (kc + (j >> sh)) * CHUNK + c16 * 16;
+        // dead rows and K past the row are zero-filled, never read
+        const bool ok = col < row_bytes && ((bits[r >> 5] >> (r & 31)) & 1u);
+        s8::cp_async16(st + j * ROW_STRIDE + c16 * 16,
+                       ok ? (const void*)(lists + (row0 + r) * row_bytes + col)
+                          : (const void*)lists,
+                       ok ? 16 : 0);
+      }
+    };
+
+    float acc[2][NT][4];   // [row group of 16][n-tile of 8 slots][fragment]
+#pragma unroll
+    for (int a = 0; a < 2; ++a)
+#pragma unroll
+      for (int b = 0; b < NT; ++b)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[a][b][e] = 0.f;
+
+    int pk = first, pkc = 0;    // the next unit to issue
+    int ck = first, ckc = 0;    // the unit to compute
+#pragma unroll
+    for (int s = 0; s < STAGES - 1; ++s) {
+      if (pk < nown) {
+        issue(pk, pkc, s);
+        advance(pk, pkc);
+      }
+      s8::cp_async_commit();
+    }
+    for (int u = 0; ck < nown; ++u) {
+      s8::cp_async_wait<STAGES - 2>();   // unit u (and the tile) landed
+      __syncthreads();                   // ... for every thread; stage
+      if (pk < nown) {                   // (u-1) % STAGES is free again
+        issue(pk, pkc, (u + STAGES - 1) % STAGES);
+        advance(pk, pkc);
+      }
+      s8::cp_async_commit();
+
+      const int sh = fold_s[ck] + 4;
+      const int kc = ckc + ((warp * 32) >> sh);      // this warp's K chunk
+      const unsigned char* st = rows_s + (u % STAGES) * S8_STAGE_BYTES;
+      const int ksteps = kc < nkc ? min(CHUNK, kpad - kc * CHUNK) / 32 : 0;
+      for (int ks = 0; ks < ksteps; ++ks) {
+        // B: slots pr * 16 + (lj >> 1) * 8 + lr, bytes (lj & 1) * 16
+        unsigned b[NT][2];
+#pragma unroll
+        for (int pr = 0; pr < NT / 2; ++pr) {
+          if (2 * pr < nt) {
+            unsigned r[4];
+            s8::ldmatrix_x4(r, q_s + (pr * 16 + (lj >> 1) * 8 + lr) * qstride +
+                                   kc * CHUNK + ks * 32 + (lj & 1) * 16);
+            b[2 * pr][0] = r[0];
+            b[2 * pr][1] = r[1];
+            b[2 * pr + 1][0] = r[2];
+            b[2 * pr + 1][1] = r[3];
+          }
+        }
+#pragma unroll
+        for (int grp = 0; grp < 2; ++grp) {
+          // A: rows warp*32 + grp*16 + (lj & 1) * 8 + lr, bytes (lj >> 1) * 16
+          unsigned a[4];
+          s8::ldmatrix_x4(a, st + (warp * 32 + grp * 16 + (lj & 1) * 8 + lr) *
+                                      ROW_STRIDE + ks * 32 + (lj >> 1) * 16);
+#pragma unroll
+          for (int n = 0; n < NT; ++n)
+            if (n < nt) flash::mma_16816(acc[grp][n], a, b[n][0], b[n][1]);
+        }
+      }
+
+      if (ckc + (8 >> fold_s[ck]) >= nkc) {   // the sub-block is scored
+        const int sb = blockIdx.x + ck * G;
+        const int rows = 1 << sh;              // rows of a fold
+        const unsigned* bits = bits_s + 4 * ck;
+        const int row0 = (int)(list0 + (size_t)sb * SUB);
+#pragma unroll
+        for (int rd = 0; rd < QT / BF_ROUND; ++rd) {
+          if (rd * BF_ROUND < nq) {
+            const int nr = min(BF_ROUND, nq - rd * BF_ROUND);
+            // this warp's share of the round's slots at its stage rows
+#pragma unroll
+            for (int grp = 0; grp < 2; ++grp)
+#pragma unroll
+              for (int nn = 0; nn < 2; ++nn)
+#pragma unroll
+                for (int e = 0; e < 4; ++e) {
+                  const int row = warp * 32 + grp * 16 + g + (e >= 2 ? 8 : 0);
+                  const int slot = nn * 8 + tig * 2 + (e & 1);
+                  if (slot < nr)
+                    score_s[slot * SUB + row] = acc[grp][2 * rd + nn][e];
+                }
+            __syncthreads();
+            // the folds' shares added in fold order; dead rows -inf
+            for (int i = t; i < nr * rows; i += S8_THREADS) {
+              const int s = i >> sh, r = i & (rows - 1);
+              float* sc = score_s + s * SUB;
+              float v = sc[r];
+              for (int f = 1; f < (SUB >> sh); ++f) {
+                v += sc[f * rows + r];
+                sc[f * rows + r] = -INFINITY;
+              }
+              sc[r] = ((bits[r >> 5] >> (r & 31)) & 1u) ? v : -INFINITY;
+            }
+            __syncthreads();
+            const size_t out0 =
+                ((size_t)l * qcap + q0 + rd * BF_ROUND) * width;
+            // this warp's slots warp, warp + 4, ... interleaved
+            keys::warp_topp_slots(score_s, -INFINITY, warp, nr, S8_WARPS,
+                                  lane, p, nsub, sb, row0, 1.0f,
+                                  out_vals + out0, out_idx + out0, width);
+            if ((rd + 1) * BF_ROUND < nq) __syncthreads();
+          }
+        }
+#pragma unroll
+        for (int a = 0; a < 2; ++a)
+#pragma unroll
+          for (int b = 0; b < NT; ++b)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) acc[a][b][e] = 0.f;
+      }
+      advance(ck, ckc);
+    }
+  }
+}
+
+template <int QT, int STAGES>
+cudaError_t launch_bf16_as(const void* qdisp, const void* lists,
+                           const int* row_ids, const int* live_n, float* vals,
+                           int* idx, int nlist, int qcap, int cap_len,
+                           int row_bytes, int p, cudaStream_t stream) {
+  const size_t smem = bf_smem_bytes(QT, STAGES, row_bytes);
+  auto kernel = ivf_scan_bf16<QT, STAGES>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  // blocks a list: one at the engine's nlist; at small nlist enough to fill
+  // the SMs; enough that none owns more than BF_MAX_OWN sub-blocks
+  const int nsub = cap_len / SUB;
+  int groups = (264 + nlist - 1) / nlist;   // two blocks an SM
+  groups = groups > nsub ? nsub : groups;
+  const int least = (nsub + BF_MAX_OWN - 1) / BF_MAX_OWN;
+  groups = groups < least ? least : groups;
+  const dim3 grid(groups, nlist);
+  kernel<<<grid, S8_THREADS, smem, stream>>>(
+      static_cast<const unsigned char*>(qdisp),
+      static_cast<const unsigned char*>(lists), row_ids, live_n, vals, idx,
+      qcap, cap_len, row_bytes, p);
+  return cudaGetLastError();
+}
+
+// The kernel a launch takes for these shapes (one place decides it):
+// ROUTE_S8 ivf_scan_s8, 16 or 32 ivf_scan_bf16 with that many slots a pass,
+// ROUTE_SCALAR ivf_scan_kernel. The tensor-core kernels need their tiles
+// to fit shared memory and p <= 32 (a lane keeps each pass's winner); the
+// bf16 one takes 32 slots a pass past qcap 16 where those tiles fit.
+constexpr int ROUTE_SCALAR = 0;
+constexpr int ROUTE_S8 = 1;
+
+int route_of(int dtype, int qcap, int row_bytes, int p) {
+  constexpr size_t MAX_SMEM = 227 * 1024;
+  if (p > 32) return ROUTE_SCALAR;
+  if (dtype == 0)
+    return s8_smem_bytes(row_bytes) <= MAX_SMEM ? ROUTE_S8 : ROUTE_SCALAR;
+  if (dtype != 2) return ROUTE_SCALAR;
+  if (qcap > 16 && bf_smem_bytes(32, 3, row_bytes) <= MAX_SMEM) return 32;
+  return bf_smem_bytes(16, 4, row_bytes) <= MAX_SMEM ? 16 : ROUTE_SCALAR;
+}
+
+cudaError_t launch_bf16(int qt, const void* qdisp, const void* lists,
+                        const int* row_ids, const int* live_n, float* vals,
+                        int* idx, int nlist, int qcap, int cap_len,
+                        int row_bytes, int p, cudaStream_t stream) {
+  if (qt == 32)
+    return launch_bf16_as<32, 3>(qdisp, lists, row_ids, live_n, vals, idx,
+                                 nlist, qcap, cap_len, row_bytes, p, stream);
+  return launch_bf16_as<16, 4>(qdisp, lists, row_ids, live_n, vals, idx,
+                               nlist, qcap, cap_len, row_bytes, p, stream);
+}
+
 template <int KIND>
 cudaError_t launch_kind(const void* qdisp, const void* lists, const int* row_ids,
                         const int* live_n, float* vals, int* idx, int nlist,
@@ -429,6 +776,18 @@ cudaError_t launch_kind(const void* qdisp, const void* lists, const int* row_ids
 
 }  // namespace
 
+// C entry (loaded with ctypes): the route ivf_list_scan_launch takes for
+// these shapes, route_of's codes (0 ivf_scan_kernel, 1 ivf_scan_s8, 16 or
+// 32 ivf_scan_bf16), or -1 where the launch would refuse them. Reads no
+// device.
+extern "C" int ivf_list_scan_route(int dtype, int qcap, int d, int p) {
+  static const int elem[3] = {1, 4, 2};
+  if (dtype < 0 || dtype > 2 || qcap <= 0 || p <= 0 || d <= 0) return -1;
+  const long long row_bytes = (long long)d * elem[dtype];
+  if (row_bytes % 16 != 0 || row_bytes > (1 << 30)) return -1;
+  return route_of(dtype, qcap, (int)row_bytes, p);
+}
+
 // C entry point (loaded with ctypes). dtype: 0 int8, 1 float32, 2 bfloat16.
 // Shapes: qdisp [nlist, qcap, d], lists [nlist, cap_len, d], row_ids
 // [nlist, cap_len] int32, live_n [nlist] int32 or null (all slots live),
@@ -440,33 +799,29 @@ extern "C" int ivf_list_scan_launch(int dtype, const void* qdisp,
                                     int nlist, int qcap,
                                     int cap_len, int d, int p, float scale,
                                     void* stream) {
+  if (cap_len % SUB != 0 || nlist <= 0 || nlist > 65535 ||
+      cap_len / SUB > 65535)
+    return (int)cudaErrorInvalidValue;
+  const int route = ivf_list_scan_route(dtype, qcap, d, p);
+  if (route < 0) return (int)cudaErrorInvalidValue;
   static const int elem[3] = {1, 4, 2};
-  if (dtype < 0 || dtype > 2 || cap_len % SUB != 0 || nlist <= 0 ||
-      nlist > 65535 || cap_len / SUB > 65535 || qcap <= 0 || p <= 0 || d <= 0)
-    return (int)cudaErrorInvalidValue;
-  const long long row_bytes = (long long)d * elem[dtype];
-  if (row_bytes % 16 != 0 || row_bytes > (1 << 30))
-    return (int)cudaErrorInvalidValue;
+  const int row_bytes = d * elem[dtype];
   const auto s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
-  switch (dtype) {
-    case 0:   // the tensor-core kernel while its tiles fit shared memory
-              // and a lane can keep each pass's winner (p <= 32)
-      err = s8_smem_bytes((int)row_bytes) <= 227 * 1024 && p <= 32
-                ? launch_s8(qdisp, lists, row_ids, live_n, vals, idx, nlist,
-                            qcap, cap_len, (int)row_bytes, p, scale, s)
-                : launch_kind<0>(qdisp, lists, row_ids, live_n, vals, idx,
-                                 nlist, qcap, cap_len, (int)row_bytes, p,
-                                 scale, s);
-      break;
-    case 1:
-      err = launch_kind<1>(qdisp, lists, row_ids, live_n, vals, idx, nlist, qcap,
-                           cap_len, (int)row_bytes, p, scale, s);
-      break;
-    default:
-      err = launch_kind<2>(qdisp, lists, row_ids, live_n, vals, idx, nlist, qcap,
-                           cap_len, (int)row_bytes, p, scale, s);
-      break;
-  }
+  if (route == ROUTE_S8)
+    err = launch_s8(qdisp, lists, row_ids, live_n, vals, idx, nlist, qcap,
+                    cap_len, row_bytes, p, scale, s);
+  else if (route != ROUTE_SCALAR)
+    err = launch_bf16(route, qdisp, lists, row_ids, live_n, vals, idx, nlist,
+                      qcap, cap_len, row_bytes, p, s);
+  else if (dtype == 0)
+    err = launch_kind<0>(qdisp, lists, row_ids, live_n, vals, idx, nlist,
+                         qcap, cap_len, row_bytes, p, scale, s);
+  else if (dtype == 1)
+    err = launch_kind<1>(qdisp, lists, row_ids, live_n, vals, idx, nlist,
+                         qcap, cap_len, row_bytes, p, scale, s);
+  else
+    err = launch_kind<2>(qdisp, lists, row_ids, live_n, vals, idx, nlist,
+                         qcap, cap_len, row_bytes, p, scale, s);
   return (int)err;
 }

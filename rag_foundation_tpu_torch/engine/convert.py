@@ -41,7 +41,7 @@ def body_from_state(state: dict[str, np.ndarray],
     if kind == "IVFFlatIndex":
         return IVFFlatIndex(
             centroids=on_dev("f_centroids", np.float32),
-            lists=torch.tensor(np.asarray(state["f_lists"]), device=dev),
+            lists=_lists_on(state["f_lists"], dev),
             row_ids=on_dev("f_row_ids", np.int32),
             scale=float(np.float32(state["f_scale"])),
             n=int(state["f_n"]))
@@ -62,16 +62,32 @@ def body_from_state(state: dict[str, np.ndarray],
     raise ValueError(f"unknown body kind {kind!r}")
 
 
+def _lists_on(arr, dev: torch.device) -> torch.Tensor:
+    """A body's ``f_lists`` as a tensor on ``dev`` (a copy). numpy has no
+    bf16 type: bf16 lists come as a 2-byte void array, which is what
+    ``np.savez`` writes of the JAX package's ``ml_dtypes.bfloat16`` and
+    what ``body_to_state`` gives, or as that ``ml_dtypes`` array itself;
+    either holds the raw bf16 bits, carried over verbatim."""
+    a = np.asarray(arr)
+    if a.dtype.kind == "V" and a.dtype.itemsize == 2:
+        bits = np.ascontiguousarray(a).view(np.int16)
+        return torch.tensor(bits, device=dev).view(torch.bfloat16)
+    return torch.tensor(a, device=dev)
+
+
 def body_to_state(body: IVFFlatIndex | IVFPQIndex | ShardedBody
                   ) -> dict[str, np.ndarray]:
     """The ``f_*`` fields of ``body_state()`` for a port body. A sharded
     body saves what the unsharded one would (JAX's ``np.asarray`` of a
-    sharded array gathers it likewise)."""
+    sharded array gathers it likewise). bf16 lists become a 2-byte void
+    array of their bits, as ``np.savez`` stores the JAX package's."""
     if isinstance(body, ShardedBody):
         body = gather_body(body)
     out = {}
     for name, val in body._asdict().items():
-        if isinstance(val, torch.Tensor):
+        if isinstance(val, torch.Tensor) and val.dtype == torch.bfloat16:
+            out["f_" + name] = val.cpu().view(torch.int16).numpy().view("V2")
+        elif isinstance(val, torch.Tensor):
             out["f_" + name] = val.cpu().numpy()
         elif isinstance(val, int):
             out["f_" + name] = np.int64(val)

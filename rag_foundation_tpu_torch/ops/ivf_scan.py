@@ -37,6 +37,30 @@ _REF_LISTS = 64
 
 LAUNCHES = cuda_lib.LaunchCounter()   # kernel launches (CUDA path only)
 
+# How far the kernel's f32 and bf16 scores may lie from the plain
+# version's: the same exact products of unit rows (d <= 768) summed in
+# another order differ by at most d * 2^-24 * sum|q_i r_i| <= 4.6e-5
+F32_TOL = 5e-5
+_ROUTES = {0: "scalar", 1: "s8", 16: "bf16_qt16", 32: "bf16_qt32"}
+
+
+def scan_route(dtype: torch.dtype, qcap: int, d: int, p: int) -> str:
+    """The kernel ``csrc/ivf_list_scan.cu`` runs for these shapes, as its
+    C entry ``ivf_list_scan_route`` decides: ``"s8"`` (int8 tensor
+    cores), ``"bf16_qt16"`` or ``"bf16_qt32"`` (bf16 tensor cores, that
+    many query slots a pass over the rows), or ``"scalar"``
+    (``ivf_scan_kernel``: f32 lists, p > 32, rows too wide for the
+    tiles). Loads (and on first use builds) the library; reads no
+    device."""
+    fn = cuda_lib.load("ivf_list_scan").ivf_list_scan_route
+    fn.argtypes = [ctypes.c_int] * 4
+    fn.restype = ctypes.c_int
+    code = fn(_DTYPE_CODE[dtype], qcap, d, p)
+    if code not in _ROUTES:
+        raise ValueError(f"ivf_list_scan takes no {dtype} lists at qcap "
+                         f"{qcap}, d {d}, p {p}")
+    return _ROUTES[code]
+
 
 def live_slots(dispatch: torch.Tensor) -> torch.Tensor:
     """Per list, one past its last live slot (``dispatch >= 0``), int32."""

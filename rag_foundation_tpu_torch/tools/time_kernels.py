@@ -22,7 +22,12 @@ the card's name and power limit, then one line a variant: the ADC scan
 (``pq_list_scan``: qcap 16 and 8, with the dispatch and with every slot
 live, p 8 and 1, bf16 LUT, packed codes) and the flat scan
 (``ivf_list_scan``, p 3), each time beside its bound (``utils.roofline``'s
-``pq_scan_bound`` and ``scan_bound``). ``pq_tier`` times the ADC scan
+``pq_scan_bound`` and ``scan_bound``). The flat section then times
+BASELINE config 3's shape class (``CONFIG3``: 4,096 lists of 768 slots,
+244 live rows a list interleaved as the index lays them out, d 768, p 3):
+bf16 lists at a Poisson(8) dispatch (qcap 16, nprobe 32) and a Poisson(32)
+one (qcap 64, nprobe 128), f32 lists at the first, beside ``scan_bound``
+for their type. ``pq_tier`` times the ADC scan
 at the 100M capacity tier's shape class (``TIER``: 24,415 lists of 4,480
 slots, packed m=256 codes, about 14 GB of them, qcap 8, p 4, about 1.8
 live slots a list read), on random codes and on one repeated byte. With
@@ -35,7 +40,10 @@ on the main path's shape (int8, qcap 16, a Poisson(8) dispatch; p 8 for
 the ADC scan, 3 for the flat one) and times them in turns (other, this,
 this, other; five rounds of two pairs each, and the number of pairs
 this version won), so that two versions are compared within one run on
-one card.
+one card; ``--other-flat`` also at config 3's two bf16 dispatches, the
+outputs there held within ``ivf_scan.F32_TOL`` of each other (f32 sums in
+another order) rather than bit for bit. Both versions run through their C
+entry on the same ``live_n`` and preallocated outputs.
 Last come the exact-scan kernels on ``--exact-rows`` x 768 normal rows and
 1024 queries: ``block_topk`` (p 2 and 10, its kernel alone, stage 2 alone
 and the two together), ``fused_topk`` (the default split of the rows
@@ -78,6 +86,9 @@ import tempfile
 from pathlib import Path
 
 from rag_foundation_tpu_torch.utils import roofline
+
+
+FAILED: list[str] = []   # checks that failed; main() exits non-zero
 
 
 def _ms(fn, reps: int = 10) -> float:
@@ -294,6 +305,37 @@ def _pq_turns(torch, other_src, lut, codes, ids, disp, live, m, p, packed,
                pq_bound(ids, live_n, qcap, p, m, 1, m_bytes))
 
 
+def _flat_other(torch, other_src: str, tmp: str, code: int, q, lists, ids,
+                live_n, p: int, scale: float):
+    """Another ``ivf_list_scan.cu`` through its C entry on preallocated
+    outputs (and this version's the same way): the wrapper's small kernels
+    (``live_slots``, the allocations) fall on neither side."""
+    nlist, qcap, d = q.shape
+    cap_len = lists.shape[1]
+    w = (cap_len // 128) * p
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    argtypes = [ci, vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci,
+                ctypes.c_float, vp]
+    from rag_foundation_tpu_torch.ops import ivf_scan
+
+    def runner(fn):
+        v = torch.empty((nlist, qcap, w), dtype=torch.float32, device="cuda")
+        i = torch.empty((nlist, qcap, w), dtype=torch.int32, device="cuda")
+
+        def launch():
+            rc = fn(code, q.data_ptr(), lists.data_ptr(), ids.data_ptr(),
+                    live_n.data_ptr(), v.data_ptr(), i.data_ptr(), nlist,
+                    qcap, cap_len, d, p, scale,
+                    torch.cuda.current_stream().cuda_stream)
+            if rc != 0:
+                raise RuntimeError(f"ivf_list_scan_launch: CUDA error {rc}")
+            return v, i
+        return launch
+
+    return (runner(_other_fn(other_src, "ivf_list_scan_launch", argtypes,
+                             tmp)), runner(ivf_scan._kernel()))
+
+
 def time_flat(torch, g, nlist: int, live_rows: int,
               other_src: str | None) -> None:
     from rag_foundation_tpu_torch.ops import ivf_scan
@@ -314,26 +356,87 @@ def time_flat(torch, g, nlist: int, live_rows: int,
 
     if other_src is None:
         print(f"{name}: {_ms(this):.3f} ms, bound {bound}", flush=True)
-        return
-    w = (cap_len // 128) * p
-    ov = torch.empty((nlist, qcap, w), dtype=torch.float32, device="cuda")
-    oi = torch.empty((nlist, qcap, w), dtype=torch.int32, device="cuda")
-    vp, ci = ctypes.c_void_p, ctypes.c_int
-    with tempfile.TemporaryDirectory() as tmp:
-        fn = _other_fn(other_src, "ivf_list_scan_launch",
-                       [ci, vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci,
-                        ctypes.c_float, vp], tmp)
+    else:
+        with tempfile.TemporaryDirectory() as tmp:
+            other, mine = _flat_other(torch, other_src, tmp, 0, q, lists,
+                                      ids, live_n, p, 1e-4)
+            _turns(torch, f"{name}, other = {other_src}", other, mine, bound)
+    del lists, q, ids
+    time_flat_config3(torch, g, other_src)
 
-        def other():
-            rc = fn(0, q.data_ptr(), lists.data_ptr(), ids.data_ptr(),
-                    live_n.data_ptr(), ov.data_ptr(), oi.data_ptr(), nlist,
-                    qcap, cap_len, d, p, 1e-4,
-                    torch.cuda.current_stream().cuda_stream)
-            if rc != 0:
-                raise RuntimeError(f"other kernel: CUDA error {rc}")
-            return ov, oi
 
-        _turns(torch, f"{name}, other = {other_src}", other, this, bound)
+# BASELINE config 3's dispatches (chip_smoke.py phase 27): 1M rows over
+# 4,096 lists (about 244 live rows a list, interleaved over the sub-blocks
+# as the index lays them out), d 768, p 3; a Q=1024 batch at nprobe 32
+# gives Poisson(8) live slots a list (qcap 16), at nprobe 128 Poisson(32)
+# (qcap 64). cap_len is the largest list rounded up to 128: config 3's
+# build of 1M rows gave 768 (chip_smoke.py phase 27)
+CONFIG3 = {"nlist": 4096, "cap_len": 768, "d": 768, "live_rows": 244,
+           "p": 3, "dispatches": ((16, 8.0), (64, 32.0))}
+
+
+def _close(ov, tv) -> str:
+    """Two versions' outputs within ``ivf_scan.F32_TOL``, the -inf pattern
+    equal; indices may differ between rows scoring within it (counted)."""
+    import torch
+    from rag_foundation_tpu_torch.ops.ivf_scan import F32_TOL
+    fin = torch.isfinite(ov[0])
+    if not torch.equal(fin, torch.isfinite(tv[0])):
+        FAILED.append("flat bf16: -inf patterns differ")
+        return "DIFFER (-inf pattern)"
+    err = float((ov[0][fin] - tv[0][fin]).abs().max()) if fin.any() else 0.0
+    ids = int((ov[1] != tv[1]).sum())
+    if err > F32_TOL:
+        FAILED.append(f"flat bf16: max |other - this| {err}")
+    return (f"max |other - this| {err:.3g} (tol {F32_TOL}), {ids} indices "
+            f"differ" + ("" if err <= F32_TOL else " DIFFER"))
+
+
+def time_flat_config3(torch, g, other_src: str | None) -> None:
+    """bf16 lists of config 3's shape class (``CONFIG3``) at each of its
+    dispatches, beside ``scan_bound`` (2 bytes an element, the bf16 peak);
+    f32 lists (the engine's ``ivf_flat`` type, ``ivf_scan_kernel``) at the
+    first; with ``other_src`` that source in turns at each bf16 dispatch,
+    outputs compared within ``ivf_scan.F32_TOL``."""
+    from rag_foundation_tpu_torch.ops import ivf_scan
+    nlist, cap_len, d, p = (CONFIG3[k] for k in ("nlist", "cap_len", "d",
+                                                  "p"))
+    ids = _lists(torch, g, nlist, cap_len, CONFIG3["live_rows"])
+    lists = torch.randn((nlist, cap_len, d), generator=g, device="cuda")
+    lists /= lists.norm(dim=-1, keepdim=True)
+    for dt in (torch.bfloat16, torch.float32):
+        rows = lists.to(dt)
+        for qcap, lam in CONFIG3["dispatches"][:2 if dt == torch.bfloat16
+                                                else 1]:
+            q = torch.randn((nlist, qcap, d), generator=g, device="cuda")
+            q = (q / q.norm(dim=-1, keepdim=True)).to(dt)
+            n_live = torch.poisson(torch.full((nlist,), lam, device="cuda"),
+                                   generator=g).clamp(0, qcap).int()
+            disp = torch.where(torch.arange(qcap, device="cuda")[None, :]
+                               < n_live[:, None], 0, -1).int()
+            live_n = ivf_scan.live_slots(disp)
+            kind = "bf16" if dt == torch.bfloat16 else "f32"
+            bound = _bound(roofline.scan_bound(ids, live_n, qcap, p,
+                                               rows.element_size(), d, kind))
+            name = (f"ivf_list_scan {kind} config 3 shape (nlist {nlist}, "
+                    f"cap_len {cap_len}, {CONFIG3['live_rows']} live rows a "
+                    f"list) qcap={qcap} Poisson({lam:g}) dispatch "
+                    f"({int(live_n.sum())} live slots) p={p}, route "
+                    f"{ivf_scan.scan_route(dt, qcap, d, p)}")
+
+            def this():
+                return ivf_scan.ivf_list_scan(q, rows, ids, disp, p=p)
+
+            if other_src is None or dt != torch.bfloat16:
+                print(f"{name}: {_ms(this, reps=5):.4f} ms, bound {bound}",
+                      flush=True)
+                continue
+            with tempfile.TemporaryDirectory() as tmp:
+                other, mine = _flat_other(torch, other_src, tmp, 2, q, rows,
+                                          ids, live_n, p, 1.0)
+                _turns(torch, f"{name}, other = {other_src}", other, mine,
+                       bound, check=_close)
+        del rows
 
 
 def _exact_inputs(torch, g, n: int, d: int, q_n: int, dtype):
@@ -549,7 +652,6 @@ def _length_patterns(torch, g, b: int, s: int, lengths: dict | None):
                                     device="cuda")))
 
 
-FAILED: list[str] = []   # checks that failed; main() exits non-zero
 
 
 def _bwd_check(torch, fa, args, plain):

@@ -7,7 +7,9 @@ installed (``tests/conftest.py`` imports JAX; skip it there)::
 
 Tolerances: int8 list scans are bit-identical to the plain PyTorch
 version; f32/bf16 sums run in another order, so values agree within 1e-5
-(unit-norm rows, d=256) and the selected rows must be the same. The ADC
+(unit-norm rows, d=256) and the selected rows must be the same; on the
+bf16 route's shape class (d up to 768) within ``ivf_scan.F32_TOL`` (5e-5),
+an index differing only between rows scoring within that. The ADC
 list scan with an int8 LUT and the int8 gather-and-rescore are exact
 integer sums: bit-identical. With a bf16 LUT the f32 sum of m = 24
 unit-scale entries runs in another order: 1e-5 relative, and an index
@@ -293,6 +295,138 @@ def test_flat_scan_per_subblock_route_on_card(card):
     kv, ki = ivf_list_scan(*args, p=40, scale=1e-4)
     rv, ri = ivf_list_scan_reference(*args, p=40, scale=1e-4)
     assert torch.equal(kv, rv) and torch.equal(ki, ri)
+
+
+# live slots of the bf16 flat route's lists (capped at qcap): none, one,
+# a full pass of 16, one past it, one past 32, a full pass of 64
+BF16_LIVE = (0, 1, 16, 17, 33, 64)
+
+
+def _bf16_lists(card, cap_len, qcap, d, seed):
+    """Lists laid out as ``engine/ivf.py`` interleaves them (the live rows
+    of a list are the first ceil(m / nsub) of each sub-block) with m from
+    none to every row, so that sub-blocks of no live row, and of live
+    extents of at most 32, 64 and 128 rows all occur; one list also has a
+    sub-block of dead rows among live ones. The dispatch of list l has its
+    first ``BF16_LIVE[l % 6]`` slots (capped at qcap) live."""
+    rng = np.random.default_rng(seed)
+    nsub = cap_len // 128
+    members = (0, 5, 30 * nsub, 40 * nsub, 70 * nsub, cap_len, 130, 9)
+    nlist = len(members)
+    slot = np.arange(cap_len)
+    rank = (slot % 128) * nsub + slot // 128
+    ids = np.arange(nlist * cap_len, dtype=np.int32).reshape(nlist, cap_len)
+    ids[rank[None, :] >= np.asarray(members)[:, None]] = -1
+    ids[5, 128:256] = -1                     # a dead sub-block among live
+    q = rng.standard_normal((nlist, qcap, d)).astype(np.float32)
+    lists = rng.standard_normal((nlist, cap_len, d)).astype(np.float32)
+    q /= np.linalg.norm(q, axis=-1, keepdims=True)
+    lists /= np.linalg.norm(lists, axis=-1, keepdims=True)
+    disp = np.full((nlist, qcap), -1, np.int32)
+    for l in range(nlist):
+        disp[l, :min(qcap, BF16_LIVE[l % len(BF16_LIVE)])] = l
+    return [torch.as_tensor(x, device=card) for x in (q, lists, ids, disp)]
+
+
+def _near_tie_ids(kv, ki, rv, ri, q, lists, tol=ivf_scan.F32_TOL):
+    """Indices may differ only between rows scoring within ``tol``."""
+    cap_len = lists.shape[1]
+    for l, s, j in (ki != ri).nonzero().tolist():
+        a, b = int(ki[l, s, j]), int(ri[l, s, j])
+        qa = q[l, s].float()
+        sa = float(qa @ lists[a // cap_len, a % cap_len].float())
+        sb = float(qa @ lists[b // cap_len, b % cap_len].float())
+        assert abs(sa - sb) <= tol, ((l, s, j), a, sa, b, sb)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cap_len", [512, 768, 1024])
+@pytest.mark.parametrize("qcap", [8, 16, 32, 64])
+@pytest.mark.parametrize("p", [1, 3, 4])
+def test_bf16_flat_route_on_card(card, cap_len, qcap, p):
+    """The bf16 tensor-core route against its plain version across config
+    3's shape class: d 768, cap_len 512-1,024, qcap 8-64 (its 16- and
+    32-slot passes, two of 32 at qcap 64), 0, 1, 16, 17, 33 and 64 live
+    slots, lists of no live row, sub-blocks of no live row and of every
+    fold; p 1, config 3's 3 and the 4 phase 27 also sweeps."""
+    q, lists, ids, disp = _bf16_lists(card, cap_len, qcap, 768,
+                                      seed=cap_len + qcap + p)
+    q, lists = q.bfloat16(), lists.bfloat16()
+    assert ivf_scan.scan_route(torch.bfloat16, qcap, 768, p).startswith(
+        "bf16")
+    for dispatch in (disp, None):
+        before = ivf_scan.LAUNCHES.count
+        kv, ki = ivf_list_scan(q, lists, ids, dispatch, p=p)
+        torch.cuda.synchronize()
+        assert ivf_scan.LAUNCHES.count == before + 1
+        rv, ri = ivf_list_scan_reference(q, lists, ids, dispatch, p=p)
+        assert torch.equal(torch.isfinite(kv), torch.isfinite(rv))
+        fin = torch.isfinite(rv)
+        assert float((kv[fin] - rv[fin]).abs().max()) <= ivf_scan.F32_TOL
+        _near_tie_ids(kv, ki, rv, ri, q, lists)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [200, 64, 8])
+def test_bf16_flat_route_k_padding_on_card(card, d):
+    """Rows whose bytes are not a whole number of 32-byte k-steps or of
+    128-byte chunks: the K tail is zero-filled."""
+    q, lists, ids, disp = _bf16_lists(card, 640, 24, d, seed=d)
+    q, lists = q.bfloat16(), lists.bfloat16()
+    kv, ki = ivf_list_scan(q, lists, ids, disp, p=3)
+    torch.cuda.synchronize()
+    rv, ri = ivf_list_scan_reference(q, lists, ids, disp, p=3)
+    assert torch.equal(torch.isfinite(kv), torch.isfinite(rv))
+    fin = torch.isfinite(rv)
+    assert float((kv[fin] - rv[fin]).abs().max()) <= ivf_scan.F32_TOL
+    _near_tie_ids(kv, ki, rv, ri, q, lists)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,qcap,d,p,want", [
+    (torch.bfloat16, 8, 768, 3, "bf16_qt16"),
+    (torch.bfloat16, 16, 768, 3, "bf16_qt16"),
+    (torch.bfloat16, 32, 768, 3, "bf16_qt32"),
+    (torch.bfloat16, 64, 768, 4, "bf16_qt32"),
+    (torch.bfloat16, 128, 768, 3, "bf16_qt32"),
+    (torch.bfloat16, 64, 4096, 3, "bf16_qt16"),
+    (torch.bfloat16, 16, 768, 33, "scalar"),
+    (torch.float32, 16, 768, 3, "scalar"),
+    (torch.int8, 16, 768, 3, "s8"),
+    (torch.int8, 16, 768, 40, "scalar"),
+])
+def test_flat_scan_route_on_card(card, dtype, qcap, d, p, want):
+    """The C entry's choice (``ivf_list_scan_route``): config 3's qcap
+    8-64 at d 768 take the bf16 tensor-core route, 16 or 32 slots a
+    pass."""
+    assert ivf_scan.scan_route(dtype, qcap, d, p) == want
+
+
+@pytest.mark.cuda
+def test_f32_and_bf16_flat_routes_side_by_side_on_card(card):
+    """The same lists as f32 (``ivf_scan_kernel``) and as bf16 (the
+    tensor-core route), one dispatch: each against its plain version, and
+    the two agree but for bf16's rounding of the rows and queries."""
+    q, lists, ids, disp = _bf16_lists(card, 1024, 16, 768, seed=5)
+    assert ivf_scan.scan_route(torch.float32, 16, 768, 3) == "scalar"
+    assert ivf_scan.scan_route(torch.bfloat16, 16, 768, 3) == "bf16_qt16"
+    out = {}
+    for dt in (torch.float32, torch.bfloat16):
+        qt, lt = q.to(dt), lists.to(dt)
+        kv, ki = ivf_list_scan(qt, lt, ids, disp, p=3)
+        torch.cuda.synchronize()
+        rv, ri = ivf_list_scan_reference(qt, lt, ids, disp, p=3)
+        fin = torch.isfinite(rv)
+        assert torch.equal(torch.isfinite(kv), fin)
+        assert float((kv[fin] - rv[fin]).abs().max()) <= ivf_scan.F32_TOL
+        _near_tie_ids(kv, ki, rv, ri, qt, lt)
+        out[dt] = kv
+    fin = torch.isfinite(out[torch.float32])
+    assert torch.equal(fin, torch.isfinite(out[torch.bfloat16]))
+    # unit rows rounded to bf16 (2^-9 relative an element) move a dot by
+    # at most about 2 * 2^-9
+    assert float((out[torch.float32][fin]
+                  - out[torch.bfloat16][fin]).abs().max()) <= 2 ** -7
 
 
 # live slots of the ADC scan's route lists: none; one to eight, which
