@@ -22,8 +22,12 @@ Phases (each one fails the run: non-zero exit, no result line):
    ids, a table whose row count is not a multiple of 8); then both list
    scans on edge cases: 0, 1, 8, 9, 16 and 17 live slots of qcap 32,
    sub-blocks of 0, 1 and 128 live rows, p from 1 to 8, packed codes and
-   the bf16 LUT, f32 and bf16 flat lists; the ADC scan on lists of 29
-   sub-blocks at nlist 4, which it splits between blocks; and the ADC
+   the bf16 LUT, f32 (d 768, 384 and 96) and bf16 flat lists; the float
+   flat routes on interleaved lists of every live extent (``fold_lists``:
+   none, 1, 30, 40, 70 and 128 rows a sub-block, a dead sub-block, tied
+   rows, the f32 route's tie going to the lowest row) at qcap 16 and 64
+   with Poisson live slots and holes, p 1, 3 and 4; the ADC scan on lists
+   of 29 sub-blocks at nlist 4, which it splits between blocks; and the ADC
    scan at m=256 in the 100M tier's shape class (cap_len 4480, lists of
    0-17 live slots across its routes, packed and unpacked int8 LUTs with
    a slot of all -127 and one of all +127, a bf16 LUT, p 4 and 1).
@@ -87,7 +91,13 @@ Phases (each one fails the run: non-zero exit, no result line):
     searches over RPC (the kernel's launch counter must rise on ingest
     and on a single search; recall@10 >= 0.95 against the exact scan; the
     stored embeddings against the plain attention on the card, cosine
-    >= 0.999); the same documents under ``encoder="hybrid"`` (768 = 384
+    >= 0.999). The store is ``ivf_flat`` (f32 lists): ``ivf_list_scan``'s
+    counter, zeroed just before the searches and read just after, must
+    rise, and on one question's own dispatch (16 lists, qcap 8, d 384, p
+    10) the f32 route is held to the plain version within ``F32_TOL`` and
+    timed beside ``roofline.scan_bound``, the plain version and
+    ``torch.bmm`` + ``torch.topk``. Then the same documents under
+    ``encoder="hybrid"`` (768 = 384
     hash + 384 MiniLM, w=0.35); then a random MiniLM-L6 with
     ``max_len=512`` made by ``init_params`` from ``--seed``, saved with
     ``save_params`` and loaded by an ``Engine`` through
@@ -97,7 +107,9 @@ Phases (each one fails the run: non-zero exit, no result line):
     (bytes, tensor operations and one exponential a same-segment pair; the
     exponentials the kernel issues printed beside them), its plain version
     and ``scaled_dot_product_attention`` (timed only); the kernel's
-    launches on these serve phases are printed by (B, S).
+    launches on these serve phases are printed by (B, S), and the bucket
+    of most launches (B=1, S=64) is held and timed on its own layer-0
+    inputs the same way.
 
 14. The attention backward kernels (``flash_attention_bwd_dkv``,
     ``flash_attention_bwd_dq``) against their plain versions on the card,
@@ -132,8 +144,9 @@ Phases (each one fails the run: non-zero exit, no result line):
     ``RemoteEngine``: ``prewarm_generator``, the fact documents ingested,
     then for each of 16 fact questions a search (k=8) and
     ``generate_stream`` over its hits' texts. The flash-attention forward's
-    launch counter is zeroed just before and read just after, and must
-    rise in the searches; every stream ends with its done frame; every
+    launch counter and ``ivf_list_scan``'s are zeroed just before and
+    read just after, and must rise in the searches; every stream ends
+    with its done frame; every
     answer equals the in-process loop's, whose ids all lie in its prompt,
     the function words and EOS; for two questions the card's bf16
     prefill logits against the port's CPU path in f32 within
@@ -388,7 +401,8 @@ Phases (each one fails the run: non-zero exit, no result line):
     build's stages, the tail's overflow rows, ms a batch and QPS four
     deep, the ``search_profile`` stages, qcap drops, the card's busy share
     (``torch.profiler``), the recall probe's seconds and one exact-scan
-    launch's time beside its bound, the dispatch's lists by live slots
+    launch's time beside its bound and ``library_topk``'s (f32) on the
+    same step, the dispatch's lists by live slots
     and by the kernel's route, the kernel's time beside its bound and its
     plain version's.
 27. BASELINE config 3 (``benchmarks/sweep_nprobe.py``: 1M x 768 bf16
@@ -409,9 +423,10 @@ Phases (each one fails the run: non-zero exit, no result line):
     and timed beside its bound (``roofline.scan_bound``, 2 bytes an
     element), the plain version and ``torch.bmm`` + ``torch.topk``; then
     the same corpus is built as f32 lists (the engine's ``ivf_flat`` type,
-    the scalar route), searched at nprobe 32, p 3 (its launches counted)
-    and its dispatch checked and timed the same way. The phase releases
-    its tensors.
+    the f32 route), searched at nprobe 32 and 128, p 3 (its launches
+    counted, recall@10 held to ``SWEEP_P3_FLOOR``) and both dispatches
+    checked and timed the same way (4 bytes an element), each required to
+    take the f32 route. The phase releases its tensors.
 
 ``--cap-rows`` sets phase 26's rows (default 100M); ``--long-docs`` the
 number of long documents of phase 13; ``--decoder-steps``,
@@ -422,9 +437,11 @@ encode rates, right-first shares, latencies and qcap drops, phase 23's,
 phase 24's and phase 25's app numbers, phase 26's build, searches and
 recall probe), then the
 kernels' JSON (ten entries: ``ivf_list_scan``'s bf16 and f32 routes on
-phase 27's dispatches each have one of their own; the flash-attention forward's also holds
-its launches on phase 16's chat path and on phase 25's hybrid app path
-with each bucket's check and times, the two list scans their
+phase 27's dispatches each have one of their own, the f32 one also its
+launches on phases 13 and 16 and phase 13's dispatch; the
+flash-attention forward's also holds its launches on phase 16's chat
+path and on phase 25's hybrid app path with each bucket's check and
+times, and phase 13's B=1, S=64 bucket, the two list scans their
 launches and one shard's numbers on the sharded paths of phases 17-18,
 ``ivf_list_scan`` its launches on phase 19's app calls, on phase
 23's concurrent chats and on phase 24's admin recall probe, with those
@@ -735,14 +752,80 @@ def edge_rows(torch, g, cap_len=512, live=EDGE_LIVE):
     return ids, disp
 
 
+# members of the fold lists (times nsub where a multiple): none, 5 (one
+# live row a sub-block), live extents of 30, 40 and 70 rows (the float
+# routes' folds of four, two and one K chunks a stage), every row
+FOLD_MEMBERS = (0, 5, "30", "40", "70", "all")
+
+
+def fold_lists(torch, g, cap_len, qcap, d):
+    """Unit f32 lists laid out as ``engine/ivf.py`` interleaves them, one
+    a FOLD_MEMBERS entry, the fourth with a dead sub-block among live ones;
+    in every sub-block row 1 repeats row 0 and slot 0 of each list is row
+    0, a tie at the top. A dispatch of Poisson(qcap / 2) live slots a list
+    with slot 1 dead where 3 are live."""
+    nsub = cap_len // 128
+    members = [cap_len if m == "all" else int(m) * nsub
+               if isinstance(m, str) else m for m in FOLD_MEMBERS]
+    nlist = len(members)
+    slot = torch.arange(cap_len, device="cuda")
+    rank = (slot % 128) * nsub + slot // 128
+    ids = torch.arange(nlist * cap_len, dtype=torch.int32,
+                       device="cuda").view(nlist, cap_len)
+    ids = torch.where(rank[None, :] < torch.tensor(members, device="cuda")
+                      [:, None], ids, torch.full_like(ids, -1)).contiguous()
+    ids[3, 128:256] = -1
+    lists = torch.randn((nlist, cap_len, d), generator=g, device="cuda")
+    lists /= lists.norm(dim=-1, keepdim=True)
+    lists[:, 1::128] = lists[:, 0::128]
+    q = torch.randn((nlist, qcap, d), generator=g, device="cuda")
+    q /= q.norm(dim=-1, keepdim=True)
+    q[:, 0] = lists[:, 0]
+    n = torch.poisson(torch.full((nlist,), qcap / 2, device="cuda"),
+                      generator=g).clamp(0, qcap)
+    disp = torch.where(torch.arange(qcap, device="cuda")[None, :]
+                       < n[:, None], torch.arange(nlist, device="cuda")
+                       [:, None], -1).int()
+    disp[n >= 3, 1] = -1
+    return q, lists, ids, disp
+
+
 def phase_edge_kernels(ivf_scan, pq_scan, torch):
     """Both list scans against their plain versions on the edge cases
-    (``edge_rows``), p from 1 to 8, with and without the dispatch."""
+    (``edge_rows``), p from 1 to 8, with and without the dispatch; the
+    float routes (f32 and bf16) on interleaved lists of every fold
+    (``fold_lists``) at config 3's qcap 16 and 64."""
     g = torch.Generator(device="cuda").manual_seed(3)
+    for qcap in (16, 64):
+        q, lists, ids, disp = fold_lists(torch, g, 768, qcap, 768)
+        for dt, kind in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+            qt, lt = q.to(dt), lists.to(dt)
+            err = 0.0
+            for p in (1, 3, 4):
+                kv, ki = ivf_scan.ivf_list_scan(qt, lt, ids, disp, p=p)
+                torch.cuda.synchronize()
+                rv, ri = ivf_scan.ivf_list_scan_reference(qt, lt, ids, disp,
+                                                          p=p)
+                what = f"ivf_list_scan {kind} fold lists qcap={qcap} p={p}"
+                err = max(err, check_scan(kv, ki, rv, ri, False, qt, lt,
+                                          what))
+                # f32: the tie at the top of sub-block 0 (one value in K
+                # order alike), row 0 first, then its copy
+                top = (ids[:, 1] >= 0) & (ivf_scan.live_slots(disp) > 0)
+                base = (torch.arange(len(ids), device="cuda") * 768).int()
+                if kind == "f32" and p > 1 and not (
+                        torch.equal(ki[top, 0, 0], base[top])
+                        and torch.equal(ki[top, 0, 6], base[top] + 1)):
+                    fail(f"{what}: the tied copies not lowest first")
+            log(f"kernel check ivf_list_scan {kind} fold lists (cap_len "
+                f"768, d 768, members {FOLD_MEMBERS}, a dead sub-block, "
+                f"ties; Poisson({qcap // 2}) live slots of qcap {qcap} with "
+                f"holes; route {ivf_scan.scan_route(dt, qcap, 768, 3)}; p "
+                f"1, 3, 4): max_abs_err={err:.3g} (tol {F32_TOL})")
     ids, disp = edge_rows(torch, g)
     nlist, cap_len = ids.shape
     for kind, d in (("int8", 768), ("int8", 48), ("f32", 768),
-                    ("bf16", 768)):
+                    ("f32", 384), ("f32", 96), ("bf16", 768)):
         q = torch.randn((nlist, 32, d), generator=g, device="cuda")
         rows = torch.randn((nlist, cap_len, d), generator=g, device="cuda")
         q /= q.norm(dim=-1, keepdim=True)
@@ -2537,15 +2620,19 @@ def phase_small_attention(fa, torch):
             + ", ".join(report))
 
 
-def encoder_phases(args, card, rng, sampled, mods) -> dict:
-    """Phase 13: the MiniLM encoder path. Returns the flash_attention
-    entry of the ``kernels`` line."""
+def encoder_phases(args, card, rng, sampled, mods) -> tuple[dict, dict]:
+    """Phase 13: the MiniLM encoder path. Returns ``ivf_list_scan``'s
+    launches on the MiniLM store's searches (its ``ivf_flat`` body: f32
+    lists) with the f32 route held and timed on one question's own
+    dispatch, and the flash_attention entry of the ``kernels`` line."""
     import numpy as np
     import torch
     from rag_foundation_tpu_torch.utils import roofline
     import torch.nn.functional as F
+    from rag_foundation_tpu_torch.engine import ivf as tivf
     from rag_foundation_tpu_torch.models import encoder as tenc
     from rag_foundation_tpu_torch.ops import flash_attention as fa
+    from rag_foundation_tpu_torch.ops import ivf_scan
     Engine, EngineConfig, EngineRpcServer, RemoteEngine = mods
     ckpt = ROOT / "checkpoints" / "minilm_ict.npz"
     if not ckpt.exists():
@@ -2562,7 +2649,7 @@ def encoder_phases(args, card, rng, sampled, mods) -> dict:
                 nlist=16, nprobe=16, ivf_p=10, build_threshold=256,
                 batch_window_s=0.02, device="cuda")
     fa.LAUNCHES.reset()                          # counts: this path only
-    tally = ShapeTally(fa).start()
+    tally = ShapeCapture(fa).start()
     engine = Engine(EngineConfig(dim=384, encoder="minilm",
                                  encoder_ckpt=str(ckpt), data_dir=data_dir,
                                  **base))
@@ -2590,6 +2677,7 @@ def encoder_phases(args, card, rng, sampled, mods) -> dict:
         if ingest_launches == 0 or single_launches == 0:
             fail(f"the MiniLM path launched flash_attention {ingest_launches}"
                  f" times on ingest and {single_launches} on a search")
+        ivf_scan.LAUNCHES.reset()              # counts: the searches below
         lat, served, right = [], [], 0
         for i, q in zip(sampled, queries):
             t0 = time.perf_counter()
@@ -2617,9 +2705,25 @@ def encoder_phases(args, card, rng, sampled, mods) -> dict:
                                     [fact_query(i) for i in qids], threads)
         right_c = sum(1 for i, h in zip(qids, hits)
                       if h and h[0].doc_id == f"doc-{i}")
+        scan_launches = ivf_scan.LAUNCHES.count  # read just after
         log(f"minilm concurrent search over RPC: {threads} threads, "
             f"{len(qids)} queries in {wall:.3f} s = {len(qids) / wall:,.1f} "
-            f"QPS; right top hit {right_c}/{len(qids)} | {card}")
+            f"QPS; right top hit {right_c}/{len(qids)}; ivf_list_scan "
+            f"launches in the single and concurrent searches {scan_launches}"
+            f" | {card}")
+        if scan_launches == 0:
+            fail("the MiniLM store's searches never launched ivf_list_scan")
+        # one question's own dispatch (Q=1: Q*nprobe*8 > nlist, so a single
+        # search takes the batched path), as the store sends it
+        body = seg.body
+        flat = sweep_kernel_line(
+            torch, ivf_scan, roofline, tivf, body,
+            torch.as_tensor(qv[:1], device="cuda"),
+            min(seg.nprobe, body.nlist), seg.ivf_p, card,
+            "ivf_list_scan f32 MiniLM store (phase 13, one question)",
+            approx_select=seg.approx_routing)
+        if flat["route"] != "f32":
+            fail(f"the MiniLM store's dispatch took route {flat['route']}")
         # the stored embeddings against the plain attention on the card
         vecs, cids = seg.live_rows()
         store = engine._store(key)
@@ -2641,7 +2745,7 @@ def encoder_phases(args, card, rng, sampled, mods) -> dict:
         remote.close()
         server.shutdown()
     shutil.rmtree(data_dir, ignore_errors=True)
-    del engine, server, remote, seg, store, enc
+    del engine, server, remote, seg, store, enc, body
 
     # -- the same documents under the hybrid encoder -------------------------
     hyb = Engine(EngineConfig(dim=768, encoder="hybrid",
@@ -2687,6 +2791,12 @@ def encoder_phases(args, card, rng, sampled, mods) -> dict:
     by_shape = tally.stop()
     log(f"flash_attention launches on the serve phases by shape: "
         f"{tally.text()} | {card}")
+    # the serve bucket of most launches (B=1, S=64: the single questions'
+    # encodes) on its own layer-0 inputs
+    serve_buckets = attention_buckets(
+        fa, torch, {bs: x for bs, x in tally.inputs.items() if bs == (1, 64)},
+        card, "the serve phases'")
+    del tally
     store = long_e._store(key)
     texts = [store.chunks[c].text for c in sorted(store.chunks)]
     lens = (enc.tokenizer.encode_batch(texts[:LONG_BATCH], 512) != 0).sum(
@@ -2761,7 +2871,9 @@ def encoder_phases(args, card, rng, sampled, mods) -> dict:
     shutil.rmtree(tmp, ignore_errors=True)
     gc.collect()
     torch.cuda.empty_cache()
-    return {"name": "flash_attention", "route": "cuda",
+    return {"launches_minilm_store": scan_launches,
+            "minilm_store": flat}, {
+            "name": "flash_attention", "route": "cuda",
             "source": "rag_foundation_tpu_torch/csrc/flash_attention.cu",
             "replaces": "jax/experimental/pallas/ops/tpu/flash_attention.py"
                         ":758 (called at rag_foundation_tpu/models/"
@@ -2771,6 +2883,7 @@ def encoder_phases(args, card, rng, sampled, mods) -> dict:
             "library_ms": library_ms, "dtype": "bf16",
             "launches_by_b_s": {f"{bb},{ss}": n
                                 for (bb, ss), n in by_shape.items()},
+            "serve_buckets": serve_buckets,
             "shape": {"B": b, "H": h, "S": s, "D": d, **c}}
 
 
@@ -3358,9 +3471,10 @@ def greedy_answer(gen, tdec, torch, np, question, evidences,
     return ids, logits[0], bias_np, out
 
 
-def generator_phase(args, card, sampled, mods) -> int:
+def generator_phase(args, card, sampled, mods) -> tuple[int, int]:
     """Phase 16: the generative chat path at full width. Returns the
-    flash-attention forward's launches on it."""
+    flash-attention forward's and ``ivf_list_scan``'s (the MiniLM store's
+    f32 lists) launches on it."""
     import numpy as np
     import torch
     from rag_foundation_tpu_torch.models import decoder as tdec
@@ -3427,6 +3541,8 @@ def generator_phase(args, card, sampled, mods) -> int:
             f"{scan_launches} | {card}")
         if search_launches == 0:
             fail("the chat path's searches never launched flash_attention")
+        if scan_launches == 0:
+            fail("the chat path's searches never launched ivf_list_scan")
 
         # every answer is grounded: the ids the stream emitted (the
         # in-process loop's, which decode to the text served over RPC) all
@@ -3606,7 +3722,7 @@ def generator_phase(args, card, sampled, mods) -> int:
     gc.collect()
     torch.cuda.empty_cache()
     log(f"phase 16: {time.perf_counter() - t_phase:.1f} s")
-    return chat_launches
+    return chat_launches, scan_launches
 
 
 def decoder_grads(torch, tdec, tenc, params, cfg, tokens, mask):
@@ -5563,10 +5679,12 @@ def first_swap(engines: dict, query: str) -> tuple[int, float]:
     return -1, 0.0
 
 
-def attention_buckets(fa, torch, inputs: dict, card) -> dict:
-    """The forward kernel on the app's own layer-0 inputs of each (B, S)
-    it launched at: held to the plain version, timed beside its bound,
-    the plain version and ``scaled_dot_product_attention``."""
+def attention_buckets(fa, torch, inputs: dict, card,
+                      whose: str = "the hybrid app's") -> dict:
+    """The forward kernel on a path's own layer-0 inputs of each (B, S)
+    it launched at (the app's by default): held to the plain version,
+    timed beside its bound, the plain version and
+    ``scaled_dot_product_attention``."""
     import torch.nn.functional as F
     from rag_foundation_tpu_torch.utils import roofline
     out_by = {}
@@ -5585,7 +5703,7 @@ def attention_buckets(fa, torch, inputs: dict, card) -> dict:
         library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
             q, k, v, attn_mask=mask, scale=scale), reps=20)
         bound_ms, bound_by, c = roofline.attention_bound(sq, skv, h, d, 2)
-        log(f"flash_attention bf16 on the hybrid app's layer-0 inputs, B={b}"
+        log(f"flash_attention bf16 on {whose} layer-0 inputs, B={b}"
             f" H={h} S={s} D={d} ({c['pairs']} of {c['dense_pairs']} pairs "
             f"share a segment): max_abs_err={err:.3g} (tol {tol:.3g}); "
             f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
@@ -6025,15 +6143,17 @@ def card_exact_topk(torch, ft, merge_topk, arch, q, k: int, step: int):
     to f32 (the int8 values, whose order the archive's scale keeps), each
     step's top-k merged with ``merge_topk`` (the earlier rows first: ties
     go to the lowest row). Returns (scores [Q, k] f32 with the scale,
-    rows [Q, k] int64) on the host and the card's ms of one ``fused_topk``
+    rows [Q, k] int64) on the host, the card's ms of one ``fused_topk``
     call on a full step (the second, warm; CUDA events around it, its
-    rows already uploaded)."""
+    rows already uploaded) and of ``library_topk`` (f32) on the same step
+    (its second run)."""
     import numpy as np
     qt = torch.as_tensor(q, device="cuda")
     best_v = best_i = None
     a = torch.cuda.Event(enable_timing=True)
     b = torch.cuda.Event(enable_timing=True)
     timed = step if arch.n >= 2 * step else 0
+    library_ms = None
     for lo in range(0, arch.n, step):
         hi = min(arch.n, lo + step)
         rows = torch.as_tensor(np.asarray(arch.chunk_i8(lo, hi)),
@@ -6043,6 +6163,8 @@ def card_exact_topk(torch, ft, merge_topk, arch, q, k: int, step: int):
         v, i = ft.fused_topk(qt, rows, k)
         if lo == timed:
             b.record()
+            library_ms = cuda_ms(lambda: library_topk(torch, qt, rows, k),
+                                 reps=1, warmup=1)
         i = torch.where(i >= 0, i.long() + lo, torch.full_like(i.long(), -1))
         if best_v is None:
             best_v, best_i = v, i
@@ -6051,7 +6173,7 @@ def card_exact_topk(torch, ft, merge_topk, arch, q, k: int, step: int):
         del rows
     torch.cuda.synchronize()
     return ((best_v * arch.scale).cpu().numpy(), best_i.cpu().numpy(),
-            a.elapsed_time(b))
+            a.elapsed_time(b), library_ms)
 
 
 def archive_recall_with_ties(arch, q, served_rows, exact_rows,
@@ -6319,7 +6441,7 @@ def capacity_phase(args, card, sampled, mods) -> dict:
         # the exact reference on the card: fused_topk over the archive
         ft.LAUNCHES.reset()
         t0 = time.perf_counter()
-        _, exact_rows, exact_ms = card_exact_topk(
+        _, exact_rows, exact_ms, exact_lib_ms = card_exact_topk(
             torch, ft, merge_topk, arch, np.concatenate([qv, qf]), 10,
             CAP_EXACT_STEP)
         exact_s = time.perf_counter() - t0
@@ -6335,7 +6457,9 @@ def capacity_phase(args, card, sampled, mods) -> dict:
             f"merged with merge_topk: {len(qv) + len(qf)} queries in "
             f"{exact_s:.2f} s, {exact_launches} launches; one launch on "
             f"a step of {exact_step} rows {exact_ms:.3f} ms (CUDA events), "
-            f"bound {exact_bound[0]:.3f} ms ({exact_bound[1]}); a query's "
+            f"library_topk (torch.matmul f32 over 65,536-row blocks + "
+            f"torch.topk) on the same step {exact_lib_ms:.3f} ms, bound "
+            f"{exact_bound[0]:.3f} ms ({exact_bound[1]}); a query's "
             f"own row is its exact first for {self_exact:.4f} | {card}")
         if self_exact < 1.0:
             fail(f"capacity tier: a query's own row is not its exact "
@@ -6521,7 +6645,7 @@ def capacity_phase(args, card, sampled, mods) -> dict:
             "exact_reference_one_launch": {
                 "rows": exact_step, "queries": len(qv) + len(qf),
                 "ms": exact_ms, "bound_ms": exact_bound[0],
-                "bound_by": exact_bound[1]},
+                "bound_by": exact_bound[1], "library_ms": exact_lib_ms},
             "rows": total, "build_s": build_s, "fill_s": fill_s,
             "tail_rows": tail_n,
             "tiers": tiers, "fact_recall_at_10": fact_rec,
@@ -6536,7 +6660,7 @@ SWEEP_ROWS = 1_000_000
 SWEEP_NLIST = 4096
 # the sweep's own dispatches held to the plain version and timed: bf16 at
 # (nprobe, p) 32 and 128 at p 3 (qcap 16 and 64) and 32 at p 4; f32 lists
-# at the first
+# at the two of p 3
 SWEEP_CHECKED = ((32, 3), (128, 3), (32, 4))
 # p of the sweeps: sweep_nprobe.py's default 3, and 4, the p of the JAX
 # package's recorded config 3 run (benchmarks/results/nprobe_sweep.json).
@@ -6566,13 +6690,13 @@ def sweep_faults(sweeps: dict, target: float) -> list[str]:
 
 
 def sweep_kernel_line(torch, ivf_scan, roofline, tivf, index, queries,
-                      nprobe, p, card, what) -> dict:
+                      nprobe, p, card, what, approx_select=True) -> dict:
     """The list scan on ``ivf_search``'s own dispatch of ``queries`` at
-    ``nprobe`` (config 3's search, approx_select) with top-``p``: checked
-    against the plain version within ``F32_TOL``, timed beside it, the
-    library yardstick and ``roofline.scan_bound``."""
+    ``nprobe`` (config 3's search routes with approx_select) with
+    top-``p``: checked against the plain version within ``F32_TOL``,
+    timed beside it, the library yardstick and ``roofline.scan_bound``."""
     _, dispatch, _, dropped, qdisp, _ = tivf.scan_inputs(
-        index, queries, nprobe, approx_select=True)
+        index, queries, nprobe, approx_select=approx_select)
     lists, row_ids = index.lists, index.row_ids
     nlist, qcap, d = qdisp.shape
     kv, ki = ivf_scan.ivf_list_scan(qdisp, lists, row_ids, dispatch, p=p)
@@ -6654,24 +6778,37 @@ def nprobe_phase(args, card, mods) -> list[dict]:
     del index
     gc.collect()
     torch.cuda.empty_cache()
-    # the same corpus as f32 lists: the engine's ivf_flat type, the scalar
-    # route, searched once at the first checked nprobe
+    # the same corpus as f32 lists: the engine's ivf_flat type, the f32
+    # route, searched at each checked nprobe of p 3
     index32, build32_s = ns.build(corpus, SWEEP_NLIST, seed=args.seed,
                                   dtype=torch.float32)
     del corpus
-    ivf_scan.LAUNCHES.reset()
-    n32, p32 = SWEEP_CHECKED[0]
-    point32 = ns.search_point(index32, queries, truth, n32, p=p32, reps=1)
-    launches32 = ivf_scan.LAUNCHES.count
+    checked32 = [(n, p) for n, p in SWEEP_CHECKED if p == 3]
+    ivf_scan.LAUNCHES.reset()                 # counts: the f32 searches
+    points32 = {n: ns.search_point(index32, queries, truth, n, p=p, reps=1)
+                for n, p in checked32}
+    launches32 = ivf_scan.LAUNCHES.count      # read just after
     log(f"config 3 corpus as f32 lists: build {build32_s:.2f} s, cap_len "
-        f"{index32.cap_len}; nprobe {n32} p {p32} recall@10 "
-        f"{point32['recall_at_10']:.4f} ({point32['ms_per_batch']:.3f} ms "
-        f"a batch), ivf_list_scan launches {launches32} | {card}")
+        f"{index32.cap_len}; "
+        + "; ".join(f"nprobe {n} p {p} recall@10 "
+                    f"{points32[n]['recall_at_10']:.4f} "
+                    f"({points32[n]['ms_per_batch']:.3f} ms a batch)"
+                    for n, p in checked32)
+        + f"; ivf_list_scan launches {launches32} | {card}")
     if launches32 == 0:
-        fail("config 3's f32 search never launched ivf_list_scan")
-    f32 = sweep_kernel_line(torch, ivf_scan, roofline, tivf, index32,
-                            queries, n32, p32, card,
-                            "ivf_list_scan f32 config 3")
+        fail("config 3's f32 searches never launched ivf_list_scan")
+    low = [(n, r["recall_at_10"]) for n, r in points32.items()
+           if r["recall_at_10"] < SWEEP_P3_FLOOR]
+    if low:
+        fail(f"config 3 as f32 lists under recall@10 {SWEEP_P3_FLOOR} at "
+             f"(nprobe, recall) {low}")
+    f32 = {(n, p): sweep_kernel_line(torch, ivf_scan, roofline, tivf,
+                                     index32, queries, n, p, card,
+                                     "ivf_list_scan f32 config 3")
+           for n, p in checked32}
+    for line in f32.values():
+        if line["route"] != "f32":
+            fail(f"config 3's f32 dispatch took route {line['route']}")
     del index32, queries, truth
     gc.collect()
     torch.cuda.empty_cache()
@@ -6698,12 +6835,18 @@ def nprobe_phase(args, card, mods) -> list[dict]:
         "build_s": build_s, "phase_s": phase_s,
     }, {
         "name": "ivf_list_scan_f32", **common,
-        "kernel": "ivf_scan_kernel",
+        "kernel": "ivf_scan_f32",
         "launches": launches32,
-        **{k: f32[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
-                               "bound_by", "library_ms")},
-        "dtype": "float32", "kernel_route": f32["route"],
-        "shape": f32["shape"], "search": point32,
+        **{k: f32[checked32[0]][k] for k in (
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")},
+        "dtype": "float32", "kernel_route": f32[checked32[0]]["route"],
+        "shape": f32[checked32[0]]["shape"],
+        "search": points32[checked32[0][0]],
+        **{f"nprobe_{n}_p{p}": {**{k: f32[n, p][k] for k in (
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms", "route", "shape")}, "search": points32[n]}
+           for n, p in checked32[1:]},
     }]
 
 
@@ -7120,7 +7263,7 @@ def main() -> None:
 
     # -- phases 12-13: the MiniLM encoder and its attention kernel ------------
     phase_small_attention(flash_attention, torch)
-    attn_kernel = encoder_phases(
+    flat_minilm, attn_kernel = encoder_phases(
         args, card, rng, sampled,
         (Engine, EngineConfig, EngineRpcServer, RemoteEngine))
     t_lap = lap("phases 12-13", t_lap)
@@ -7139,7 +7282,7 @@ def main() -> None:
     lap("phase 22", t_lap)
 
     # -- phase 16: the generative chat path -------------------------------
-    attn_kernel["launches_generative_chat"] = generator_phase(
+    attn_kernel["launches_generative_chat"], chat_scan = generator_phase(
         args, card, sampled,
         (Engine, EngineConfig, EngineRpcServer, RemoteEngine))
 
@@ -7179,6 +7322,11 @@ def main() -> None:
     # phase 21's launches in each of its two processes; phase 22's in one
     # sharded training step
     for entry in kernels["kernels"]:
+        if entry["name"] == "ivf_list_scan_f32":
+            # the MiniLM store's f32 lists: phase 13's searches and one
+            # question's dispatch, phase 16's generative chats
+            entry.update(flat_minilm)
+            entry["launches_generative_chat"] = chat_scan
         if entry["name"] == "pq_list_scan":
             entry["launches_pod"] = pod["pq_list_scan"]
             entry["pod_shard"] = pod["pq_shard"]

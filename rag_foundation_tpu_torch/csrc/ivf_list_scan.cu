@@ -86,11 +86,45 @@
 //     time).
 //   * Scores go to shared memory 16 slots a round, the top-p after each.
 //
-// f32 lists (the engine's ivf_flat mode), bf16 with p > 32 (a lane keeps
-// each pass's winner) and rows too wide for the shared-memory tiles take
-// `ivf_scan_kernel` (one 128-thread block per (list, sub-block), thread t
-// owns row t, FMA with the query chunk broadcast from shared memory): f32
-// keeps exact f32 FMA (TF32 tensor cores would change its results).
+// f32 lists (the engine's ivf_flat mode) take `ivf_scan_f32`, the same
+// ring with exact f32 FMA:
+//
+//   Bound: the live f32 rows read once (4 bytes an element); 2 * live
+//   slots * d operations a row at the f32 FMA peak (67 TFLOP/s) stay under
+//   the bytes line at config 3's nprobe 32 (about a fifth of it) and near
+//   it at nprobe 128, so no tensor core is needed for speed, and TF32
+//   (about three decimal digits) is not allowed for the results: every
+//   product is an `fmaf` into an f32 sum, in K order within each part of
+//   K and the parts added in part order, so a run is deterministic.
+//   Differences from ivf_scan_bf16:
+//   * An f32 query tile does not fit shared memory (64 slots x 3,072
+//     bytes), so each stage carries the pass's live slots at its own K
+//     chunk beside the rows' (a 16 KB row tile and an 8 KB query tile,
+//     swizzled by 16-byte unit, three stages, two blocks an SM), and one
+//     pass streams the rows once for up to 64 live slots.
+//   * Groups, not folds. A sub-block's live rows are its first E (about
+//     41 of 128 at config 3), so the block packs the live extents of
+//     consecutive sub-blocks side by side into one 128-row stage (three
+//     at config 3: 123 rows of 128 computed where folds of 64 rows would
+//     compute 82 for 41) and walks each group's K chunks; every stage
+//     reads one K chunk of the queries, shared by all its rows.
+//   * Shared memory, not the FMA pipe, is the first limit of FMA products
+//     from a tile: a 16-byte load costs four wavefronts whatever lanes
+//     share it (on an H100, 128 bytes a clock an SM against 128 FMAs), so
+//     a loaded value has to feed four FMAs. Each lane therefore holds 8
+//     rows x 4-12 slots: the 32 floats of a stage's K are split over the
+//     warps (a quarter each up to 3 live groups of 8 slots, a half a pair
+//     up to 6, whole past that), each part's sums added in part order at
+//     the group's end. Only live groups are computed: each group count has
+//     its own instantiation of the pass, registers and all.
+//   * At a group's end its scores go to shared memory (every slot of the
+//     pass at once); each warp then takes (sub-block, 4 slots) turns of
+//     the top-p, masked by the sub-block's extent and live bits.
+//
+// int8 and bf16 rows too wide for their query tiles, and any type at
+// p > 32 (a lane keeps each pass's winner), take `ivf_scan_kernel`
+// (one 128-thread block per (list, sub-block), thread t owns row t, FMA
+// with the query chunk broadcast from shared memory).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -727,20 +761,449 @@ cudaError_t launch_bf16_as(const void* qdisp, const void* lists,
   return cudaGetLastError();
 }
 
+// ---- f32 lists: exact f32 FMA fed by a cp.async ring -----------------------
+constexpr int F32_QT = 64;                       // query slots a pass
+constexpr int F32_STAGES = 3;                    // ring depth
+constexpr int F32_ROWS = SUB * CHUNK;            // row tile: 128 x 128 bytes
+constexpr int F32_QTILE = F32_QT * CHUNK;        // query tile: 64 x 128 bytes
+constexpr int F32_STAGE_BYTES = F32_ROWS + F32_QTILE;
+
+// Shared memory of ivf_scan_f32, whatever the row width: the ring, the
+// pass's scores, the owned sub-blocks' live bits, and per sub-block its
+// live extent, its offset in its group and the groups' first sub-blocks
+constexpr size_t f32_smem_bytes() {
+  return (size_t)F32_STAGES * F32_STAGE_BYTES + (size_t)F32_QT * SUB * 4 +
+         (size_t)BF_MAX_OWN * 4 * 4 + (size_t)BF_MAX_OWN * 4;
+}
+static_assert(2 * (f32_smem_bytes() + 1024) <= 228 * 1024,
+              "ivf_scan_f32 keeps two blocks an SM");
+
+// Byte offset of 16-byte unit c of row j of a tile of 128-byte rows: the
+// units are swizzled by j mod 8 so that the eight rows a quarter-warp
+// reads at one unit lie on distinct banks
+__device__ __forceinline__ int swz(int j, int c) {
+  return j * CHUNK + ((c ^ (j & 7)) << 4);
+}
+
+// The split of a stage's products for NG live groups of 8 slots: the 32
+// floats of K go to KS parts (4 warps each a quarter of K up to 3 groups,
+// 2 pairs of warps each a half up to 6, the block whole past that); in a
+// part, lane rl = tp & 15 holds the 8 stage rows rl + 16 i and slot lane
+// sl = tp >> 4 the TN slots sl + SL j, so a 16-byte load (4 K values)
+// feeds 4 TN or 32 FMAs, and a lane holds 8 TN <= 96 sums
+template <int NG> struct F32Split {
+  static constexpr int KS = NG <= 3 ? 4 : NG <= 6 ? 2 : 1;   // parts of K
+  static constexpr int SL = 8 / KS;              // slot lanes of a part
+  static constexpr int TN = NG * KS;             // slots a lane
+  static constexpr int NK = 8 / KS;              // 16-byte K steps a part
+};
+
+// One stage's products: rows `rows` (the packed stage tile) against the
+// pass's slots `qs`, this thread's part of K, summed into acc[i][j] in K
+// order with exact fmaf.
+template <int NG>
+__device__ __forceinline__ void f32_products(
+    const unsigned char* rows, const unsigned char* qs, int t,
+    float (&acc)[8][F32Split<NG>::TN]) {
+  using P = F32Split<NG>;
+  const int part = t / (SUB / P::KS), tp = t % (SUB / P::KS);
+  const int rl = tp & 15, sl = tp >> 4;
+#pragma unroll 1
+  for (int kk = 0; kk < P::NK; ++kk) {
+    const int k4 = part * P::NK + kk;
+    float4 r[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+      r[i] = *reinterpret_cast<const float4*>(rows + swz(rl + 16 * i, k4));
+#pragma unroll
+    for (int j = 0; j < P::TN; ++j) {
+      const float4 q =
+          *reinterpret_cast<const float4*>(qs + swz(sl + P::SL * j, k4));
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        float a = acc[i][j];
+        a = fmaf(r[i].x, q.x, a);
+        a = fmaf(r[i].y, q.y, a);
+        a = fmaf(r[i].z, q.z, a);
+        a = fmaf(r[i].w, q.w, a);
+        acc[i][j] = a;
+      }
+    }
+  }
+}
+
+// A group's scores: the parts' sums added into score_s[slot][stage row]
+// in part order (deterministic), a block barrier after each part.
+template <int NG>
+__device__ __forceinline__ void f32_scores(
+    float* score_s, int t, const float (&acc)[8][F32Split<NG>::TN]) {
+  using P = F32Split<NG>;
+  const int part = t / (SUB / P::KS), tp = t % (SUB / P::KS);
+  const int rl = tp & 15, sl = tp >> 4;
+#pragma unroll
+  for (int pt = 0; pt < P::KS; ++pt) {
+    if (part == pt) {
+#pragma unroll
+      for (int j = 0; j < P::TN; ++j) {
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          float* d = score_s + (sl + P::SL * j) * SUB + rl + 16 * i;
+          *d = pt == 0 ? acc[i][j] : *d + acc[i][j];
+        }
+      }
+    }
+    __syncthreads();
+  }
+}
+
+// The top-p of four slots of one sub-block, interleaved, as keys::warp_topp
+// selects (value descending, the lowest row winning ties): the scores of
+// slot q at sc[q * SUB + r] for rows r < E (the sub-block's live extent),
+// a row dead where its bit is clear; slots q < count written.
+__device__ __forceinline__ void f32_topp4(const float* sc, int E,
+                                          const unsigned* bits, int lane,
+                                          int p, int nsub, int sb, int row0,
+                                          int count, float* out_vals,
+                                          int* out_idx, int ostride) {
+  unsigned k[4][4];
+  int c[4][4];
+  auto cas = [](unsigned& ka, int& ca, unsigned& kb, int& cb) {
+    if (kb > ka || (kb == ka && cb < ca)) {
+      const unsigned tk = ka; ka = kb; kb = tk;
+      const int tc = ca; ca = cb; cb = tc;
+    }
+  };
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int pos = lane + 32 * i;
+      const bool live = pos < E && ((bits[i] >> lane) & 1u);
+      c[q][i] = pos;
+      k[q][i] = scan::order_key(live ? sc[q * SUB + min(pos, E - 1)]
+                                     : -INFINITY);
+    }
+    cas(k[q][0], c[q][0], k[q][1], c[q][1]);
+    cas(k[q][2], c[q][2], k[q][3], c[q][3]);
+    cas(k[q][0], c[q][0], k[q][2], c[q][2]);
+    cas(k[q][1], c[q][1], k[q][3], c[q][3]);
+    cas(k[q][1], c[q][1], k[q][2], c[q][2]);
+  }
+  unsigned wk[4] = {};   // lane j keeps pass j's winner
+  int wc[4] = {};
+  for (int pass = 0; pass < p; ++pass) {
+    unsigned kb[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+      kb[q] = __reduce_max_sync(0xffffffffu, k[q][0]);
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int cb = (int)__reduce_min_sync(
+          0xffffffffu, k[q][0] == kb[q] ? (unsigned)c[q][0] : 0xffu);
+      const bool pop = c[q][0] == cb;
+      k[q][0] = pop ? k[q][1] : k[q][0];  c[q][0] = pop ? c[q][1] : c[q][0];
+      k[q][1] = pop ? k[q][2] : k[q][1];  c[q][1] = pop ? c[q][2] : c[q][1];
+      k[q][2] = pop ? k[q][3] : k[q][2];  c[q][2] = pop ? c[q][3] : c[q][2];
+      k[q][3] = pop ? 0u : k[q][3];       c[q][3] = pop ? 0xff : c[q][3];
+      wk[q] = lane == pass ? kb[q] : wk[q];
+      wc[q] = lane == pass ? cb : wc[q];
+    }
+  }
+  if (lane < p) {
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      if (q < count) {
+        const size_t o = (size_t)q * ostride + (size_t)lane * nsub + sb;
+        const float best = scan::key_value(wk[q]);
+        out_vals[o] = best;
+        out_idx[o] = best == -INFINITY ? -1 : row0 + wc[q];
+      }
+    }
+  }
+}
+
+// What a pass of ivf_scan_f32 reads: the block's list, its owned
+// sub-blocks' live bits, extents and groups (shared memory), the ring
+struct F32Block {
+  const unsigned char* lists;
+  const unsigned char* q_g;          // the list's query slots
+  float* out_vals;
+  int* out_idx;
+  unsigned char* ring;
+  float* score_s;
+  const unsigned* bits_s;
+  const unsigned char* ext_s;
+  const unsigned char* off_s;
+  const unsigned char* gfirst_s;
+  size_t list0;
+  int l, qcap, width, nsub, p, row_bytes, nkc, ngroups;
+};
+
+// One pass of ivf_scan_f32 over slots q0 .. q0 + nq - 1 (NG = ceil(nq / 8)
+// live groups): every group's rows streamed once, one K chunk a stage.
+template <int NG>
+__device__ __forceinline__ void f32_pass(const F32Block& b, int q0, int nq) {
+  using P = F32Split<NG>;
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const int G = gridDim.x;
+  // copy assignment: 16-byte column c16 of stage rows r0 + 16 i, i < 8,
+  // each the list row roff[i] of the group being issued (or -1: zeros)
+  const int c16 = t & 7, r0 = t >> 3;
+  int roff[8];
+  auto plan_rows = [&](int g) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) roff[i] = -1;
+    for (int k = b.gfirst_s[g]; k < b.gfirst_s[g + 1]; ++k) {
+      const int e = b.ext_s[k], o = b.off_s[k];
+      const unsigned* bits = b.bits_s + 4 * k;
+      const int base = (blockIdx.x + k * G) * SUB;
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const int r = r0 + 16 * i - o;
+        if (r >= 0 && r < e && ((bits[r >> 5] >> (r & 31)) & 1u))
+          roff[i] = base + r;
+      }
+    }
+  };
+  // one stage: the group's rows and the pass's 8 NG slots at K chunk kc
+  auto issue = [&](int kc, int stage) {
+    unsigned char* st = b.ring + stage * F32_STAGE_BYTES;
+    const int col = kc * CHUNK + c16 * 16;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      // dead rows, rows past the group and K past the row are
+      // zero-filled, never read
+      const bool ok = roff[i] >= 0 && col < b.row_bytes;
+      s8::cp_async16(
+          st + swz(r0 + 16 * i, c16),
+          ok ? (const void*)(b.lists + (b.list0 + roff[i]) * b.row_bytes +
+                             col)
+             : (const void*)b.lists,
+          ok ? 16 : 0);
+    }
+    unsigned char* qt = st + F32_ROWS;
+#pragma unroll
+    for (int u0 = 0; u0 < NG * 64; u0 += S8_THREADS) {
+      const int u = u0 + t;
+      const int s = u >> 3, c = u & 7;
+      const int cq = kc * CHUNK + c * 16;
+      // the pass's dead slots and K past the row are zero-filled
+      const bool ok = s < nq && cq < b.row_bytes;
+      if (u < NG * 64)
+        s8::cp_async16(qt + swz(s, c),
+                       ok ? (const void*)(b.q_g + (size_t)(q0 + s) *
+                                                      b.row_bytes + cq)
+                          : (const void*)b.q_g,
+                       ok ? 16 : 0);
+    }
+  };
+
+  float acc[8][P::TN];   // [stage row i][slot j] of this thread's part
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < P::TN; ++j) acc[i][j] = 0.f;
+
+  __syncthreads();   // the previous pass is done with every buffer
+  // a unit is (group g, K chunk kc) of one stage; the producer and the
+  // consumer walk the same units
+  int pg = 0, pkc = 0;    // the next unit to issue
+  int cg = 0, ckc = 0;    // the unit to compute
+#pragma unroll
+  for (int s = 0; s < F32_STAGES - 1; ++s) {
+    if (pg < b.ngroups) {
+      if (pkc == 0) plan_rows(pg);
+      issue(pkc, s);
+      if (++pkc == b.nkc) { pkc = 0; ++pg; }
+    }
+    s8::cp_async_commit();
+  }
+  for (int u = 0; cg < b.ngroups; ++u) {
+    s8::cp_async_wait<F32_STAGES - 2>();   // unit u landed
+    __syncthreads();                       // ... for every thread; stage
+    if (pg < b.ngroups) {                  // (u-1) % STAGES is free again
+      if (pkc == 0) plan_rows(pg);
+      issue(pkc, (u + F32_STAGES - 1) % F32_STAGES);
+      if (++pkc == b.nkc) { pkc = 0; ++pg; }
+    }
+    s8::cp_async_commit();
+
+    const unsigned char* st = b.ring + (u % F32_STAGES) * F32_STAGE_BYTES;
+    f32_products<NG>(st, st + F32_ROWS, t, acc);
+
+    if (ckc == b.nkc - 1) {   // the group is scored
+      f32_scores<NG>(b.score_s, t, acc);
+      // the top-p of every (sub-block, 4 slots) of the group, the warps
+      // taking turns
+      const int nc = (nq + 3) >> 2;
+      int task = 0;
+      for (int k = b.gfirst_s[cg]; k < b.gfirst_s[cg + 1]; ++k) {
+        const int e = b.ext_s[k];
+        if (e == 0) continue;
+        const int sb = blockIdx.x + k * G;
+        for (int c = 0; c < nc; ++c, ++task) {
+          if ((task & (S8_WARPS - 1)) != warp) continue;
+          const size_t out0 = ((size_t)b.l * b.qcap + q0 + 4 * c) * b.width;
+          f32_topp4(b.score_s + 4 * c * SUB + b.off_s[k], e, b.bits_s + 4 * k,
+                    lane, b.p, b.nsub, sb, (int)(b.list0 + (size_t)sb * SUB),
+                    min(4, nq - 4 * c), b.out_vals + out0, b.out_idx + out0,
+                    b.width);
+        }
+      }
+      __syncthreads();
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < P::TN; ++j) acc[i][j] = 0.f;
+    }
+    if (++ckc == b.nkc) { ckc = 0; ++cg; }
+  }
+}
+
+__global__ void __launch_bounds__(S8_THREADS, 2)
+ivf_scan_f32(const unsigned char* __restrict__ qdisp,
+             const unsigned char* __restrict__ lists,
+             const int* __restrict__ row_ids, const int* __restrict__ live_n,
+             float* __restrict__ out_vals, int* __restrict__ out_idx,
+             int qcap, int cap_len, int row_bytes, int p) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* score_s =
+      reinterpret_cast<float*>(smem + F32_STAGES * F32_STAGE_BYTES);
+  unsigned* bits_s = reinterpret_cast<unsigned*>(score_s + F32_QT * SUB);
+  unsigned char* ext_s =
+      reinterpret_cast<unsigned char*>(bits_s + BF_MAX_OWN * 4);
+  unsigned char* off_s = ext_s + BF_MAX_OWN;      // row offset in its group
+  unsigned char* gfirst_s = off_s + BF_MAX_OWN;   // groups' first, + end
+  int* ngroups_s = reinterpret_cast<int*>(gfirst_s + BF_MAX_OWN + 4);
+
+  const int l = blockIdx.y;
+  const int nsub = cap_len / SUB;
+  const int width = nsub * p;
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const int G = gridDim.x;
+  const int nown = (nsub - (int)blockIdx.x + G - 1) / G;   // sub-blocks owned
+  const int nlive = live_n == nullptr ? qcap : min(qcap, live_n[l]);
+
+  // dead tail of the dispatch: (-inf, -1), nothing read
+  if (nlive < qcap)
+    for (int k = 0; k < nown; ++k)
+      scan::fill_dead(out_vals, out_idx, l, qcap, width, nsub,
+                      blockIdx.x + k * G, p, nlive, qcap, t);
+  if (nlive == 0 || nown <= 0) return;
+
+  const size_t list0 = (size_t)l * cap_len;
+  const unsigned char* q_g = qdisp + (size_t)l * qcap * row_bytes;
+  const int nkc = (row_bytes + CHUNK - 1) / CHUNK;   // K chunks a row
+
+  // the owned sub-blocks' live rows as bits, their row ids read once
+  for (int k0 = 0; k0 < nown; k0 += 8) {
+    int v[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      v[j] = k0 + j < nown
+                 ? row_ids[list0 + (size_t)(blockIdx.x + (k0 + j) * G) * SUB +
+                           t]
+                 : -1;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const unsigned b = __ballot_sync(0xffffffffu, v[j] >= 0);
+      if (lane == 0 && k0 + j < nown) bits_s[(k0 + j) * 4 + warp] = b;
+    }
+  }
+  __syncthreads();
+  // live extents: one past each sub-block's last live row (the index
+  // interleaves a list's rows, so its live rows are the first few)
+  for (int k = t; k < nown; k += S8_THREADS) {
+    const unsigned* b = bits_s + 4 * k;
+    int e = 0;
+    for (int w = 3; w >= 0 && e == 0; --w)
+      if (b[w]) e = 32 * w + 32 - __clz(b[w]);
+    ext_s[k] = e;
+  }
+  __syncthreads();
+  // groups: the live sub-blocks in order, packed while their extents fit
+  // one 128-row stage; a stage holds a group's rows at one K chunk
+  if (t == 0) {
+    int ng = 0, rows = SUB + 1;
+    for (int k = 0; k < nown; ++k) {
+      const int e = ext_s[k];
+      if (e == 0) continue;
+      if (rows + e > SUB) {
+        gfirst_s[ng++] = k;
+        rows = 0;
+      }
+      off_s[k] = rows;
+      rows += e;
+    }
+    gfirst_s[ng] = nown;
+    *ngroups_s = ng;
+  }
+  for (int k = 0; k < nown; ++k)
+    if (ext_s[k] == 0)   // no live row: (-inf, -1) for every live slot
+      scan::fill_dead(out_vals, out_idx, l, qcap, width, nsub,
+                      blockIdx.x + k * G, p, 0, nlive, t);
+  __syncthreads();
+  const int ngroups = *ngroups_s;
+  if (ngroups == 0) return;
+
+  const F32Block blk{lists, q_g, out_vals, out_idx, smem, score_s, bits_s,
+                     ext_s, off_s, gfirst_s, list0, l, qcap, width, nsub, p,
+                     row_bytes, nkc, ngroups};
+  for (int q0 = 0; q0 < nlive; q0 += F32_QT) {
+    const int nq = min(F32_QT, nlive - q0);
+    switch ((nq + 7) >> 3) {   // live groups of 8 slots
+      case 1: f32_pass<1>(blk, q0, nq); break;
+      case 2: f32_pass<2>(blk, q0, nq); break;
+      case 3: f32_pass<3>(blk, q0, nq); break;
+      case 4: f32_pass<4>(blk, q0, nq); break;
+      case 5: f32_pass<5>(blk, q0, nq); break;
+      case 6: f32_pass<6>(blk, q0, nq); break;
+      case 7: f32_pass<7>(blk, q0, nq); break;
+      default: f32_pass<8>(blk, q0, nq); break;
+    }
+  }
+}
+
+cudaError_t launch_f32(const void* qdisp, const void* lists,
+                       const int* row_ids, const int* live_n, float* vals,
+                       int* idx, int nlist, int qcap, int cap_len,
+                       int row_bytes, int p, cudaStream_t stream) {
+  constexpr size_t smem = f32_smem_bytes();
+  auto kernel = ivf_scan_f32;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  // blocks a list as launch_bf16_as gives them
+  const int nsub = cap_len / SUB;
+  int groups = (264 + nlist - 1) / nlist;   // two blocks an SM
+  groups = groups > nsub ? nsub : groups;
+  const int least = (nsub + BF_MAX_OWN - 1) / BF_MAX_OWN;
+  groups = groups < least ? least : groups;
+  const dim3 grid(groups, nlist);
+  kernel<<<grid, S8_THREADS, smem, stream>>>(
+      static_cast<const unsigned char*>(qdisp),
+      static_cast<const unsigned char*>(lists), row_ids, live_n, vals, idx,
+      qcap, cap_len, row_bytes, p);
+  return cudaGetLastError();
+}
+
 // The kernel a launch takes for these shapes (one place decides it):
 // ROUTE_S8 ivf_scan_s8, 16 or 32 ivf_scan_bf16 with that many slots a pass,
-// ROUTE_SCALAR ivf_scan_kernel. The tensor-core kernels need their tiles
-// to fit shared memory and p <= 32 (a lane keeps each pass's winner); the
-// bf16 one takes 32 slots a pass past qcap 16 where those tiles fit.
+// ROUTE_F32 ivf_scan_f32, ROUTE_SCALAR ivf_scan_kernel. The redesigned
+// kernels need p <= 32 (a lane keeps each pass's winner) and, for int8
+// and bf16, their query tiles to fit shared memory (ivf_scan_f32 streams
+// its queries with the rows, so it takes any row width); the bf16 one
+// takes 32 slots a pass past qcap 16 where those tiles fit.
 constexpr int ROUTE_SCALAR = 0;
 constexpr int ROUTE_S8 = 1;
+constexpr int ROUTE_F32 = 4;
 
 int route_of(int dtype, int qcap, int row_bytes, int p) {
   constexpr size_t MAX_SMEM = 227 * 1024;
   if (p > 32) return ROUTE_SCALAR;
   if (dtype == 0)
     return s8_smem_bytes(row_bytes) <= MAX_SMEM ? ROUTE_S8 : ROUTE_SCALAR;
-  if (dtype != 2) return ROUTE_SCALAR;
+  if (dtype == 1) return ROUTE_F32;
   if (qcap > 16 && bf_smem_bytes(32, 3, row_bytes) <= MAX_SMEM) return 32;
   return bf_smem_bytes(16, 4, row_bytes) <= MAX_SMEM ? 16 : ROUTE_SCALAR;
 }
@@ -777,9 +1240,9 @@ cudaError_t launch_kind(const void* qdisp, const void* lists, const int* row_ids
 }  // namespace
 
 // C entry (loaded with ctypes): the route ivf_list_scan_launch takes for
-// these shapes, route_of's codes (0 ivf_scan_kernel, 1 ivf_scan_s8, 16 or
-// 32 ivf_scan_bf16), or -1 where the launch would refuse them. Reads no
-// device.
+// these shapes, route_of's codes (0 ivf_scan_kernel, 1 ivf_scan_s8, 4
+// ivf_scan_f32, 16 or 32 ivf_scan_bf16), or -1 where the launch would
+// refuse them. Reads no device.
 extern "C" int ivf_list_scan_route(int dtype, int qcap, int d, int p) {
   static const int elem[3] = {1, 4, 2};
   if (dtype < 0 || dtype > 2 || qcap <= 0 || p <= 0 || d <= 0) return -1;
@@ -811,6 +1274,9 @@ extern "C" int ivf_list_scan_launch(int dtype, const void* qdisp,
   if (route == ROUTE_S8)
     err = launch_s8(qdisp, lists, row_ids, live_n, vals, idx, nlist, qcap,
                     cap_len, row_bytes, p, scale, s);
+  else if (route == ROUTE_F32)
+    err = launch_f32(qdisp, lists, row_ids, live_n, vals, idx, nlist, qcap,
+                     cap_len, row_bytes, p, s);
   else if (route != ROUTE_SCALAR)
     err = launch_bf16(route, qdisp, lists, row_ids, live_n, vals, idx, nlist,
                       qcap, cap_len, row_bytes, p, s);

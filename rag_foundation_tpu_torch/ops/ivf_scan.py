@@ -41,15 +41,16 @@ LAUNCHES = cuda_lib.LaunchCounter()   # kernel launches (CUDA path only)
 # version's: the same exact products of unit rows (d <= 768) summed in
 # another order differ by at most d * 2^-24 * sum|q_i r_i| <= 4.6e-5
 F32_TOL = 5e-5
-_ROUTES = {0: "scalar", 1: "s8", 16: "bf16_qt16", 32: "bf16_qt32"}
+_ROUTES = {0: "scalar", 1: "s8", 4: "f32", 16: "bf16_qt16", 32: "bf16_qt32"}
 
 
 def scan_route(dtype: torch.dtype, qcap: int, d: int, p: int) -> str:
     """The kernel ``csrc/ivf_list_scan.cu`` runs for these shapes, as its
     C entry ``ivf_list_scan_route`` decides: ``"s8"`` (int8 tensor
     cores), ``"bf16_qt16"`` or ``"bf16_qt32"`` (bf16 tensor cores, that
-    many query slots a pass over the rows), or ``"scalar"``
-    (``ivf_scan_kernel``: f32 lists, p > 32, rows too wide for the
+    many query slots a pass over the rows), ``"f32"`` (exact f32 FMA, up
+    to 64 slots a pass, any row width), or ``"scalar"``
+    (``ivf_scan_kernel``: p > 32, int8 and bf16 rows too wide for their
     tiles). Loads (and on first use builds) the library; reads no
     device."""
     fn = cuda_lib.load("ivf_list_scan").ivf_list_scan_route

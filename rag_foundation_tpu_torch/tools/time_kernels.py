@@ -3,7 +3,7 @@
     python -m rag_foundation_tpu_torch.tools.time_kernels
     python -m rag_foundation_tpu_torch.tools.time_kernels --only pq flat \\
         --other-pq path/to/another/pq_list_scan.cu [more...] \\
-        --other-flat path/to/another/ivf_list_scan.cu
+        --other-flat path/to/another/ivf_list_scan.cu [more...]
     python -m rag_foundation_tpu_torch.tools.time_kernels --only pq_tier \\
         --other-pq path/to/another/pq_list_scan.cu [more...]
     python -m rag_foundation_tpu_torch.tools.time_kernels \\
@@ -25,25 +25,25 @@ live, p 8 and 1, bf16 LUT, packed codes) and the flat scan
 ``pq_scan_bound`` and ``scan_bound``). The flat section then times
 BASELINE config 3's shape class (``CONFIG3``: 4,096 lists of 768 slots,
 244 live rows a list interleaved as the index lays them out, d 768, p 3):
-bf16 lists at a Poisson(8) dispatch (qcap 16, nprobe 32) and a Poisson(32)
-one (qcap 64, nprobe 128), f32 lists at the first, beside ``scan_bound``
-for their type. ``pq_tier`` times the ADC scan
+bf16 and f32 lists at a Poisson(8) dispatch (qcap 16, nprobe 32) and a
+Poisson(32) one (qcap 64, nprobe 128), beside ``scan_bound`` for their
+type. ``pq_tier`` times the ADC scan
 at the 100M capacity tier's shape class (``TIER``: 24,415 lists of 4,480
 slots, packed m=256 codes, about 14 GB of them, qcap 8, p 4, about 1.8
 live slots a list read), on random codes and on one repeated byte. With
-``--other-pq`` (one or more sources, each in turn: at m=192 in ``pq``, at
-the tier's shape in ``pq_tier``) or ``--other-flat`` it also builds that
-source (another
+``--other-pq`` (at m=192 in ``pq``, at the tier's shape in ``pq_tier``)
+or ``--other-flat`` (one or more sources each, each in turn) it also
+builds that source (another
 version of the kernel with the same C entry point; headers are taken
 from its own directory), checks that the two give bit-identical outputs
 on the main path's shape (int8, qcap 16, a Poisson(8) dispatch; p 8 for
 the ADC scan, 3 for the flat one) and times them in turns (other, this,
 this, other; five rounds of two pairs each, and the number of pairs
 this version won), so that two versions are compared within one run on
-one card; ``--other-flat`` also at config 3's two bf16 dispatches, the
-outputs there held within ``ivf_scan.F32_TOL`` of each other (f32 sums in
-another order) rather than bit for bit. Both versions run through their C
-entry on the same ``live_n`` and preallocated outputs.
+one card; ``--other-flat`` also at config 3's two dispatches in bf16 and
+in f32, the outputs there held within ``ivf_scan.F32_TOL`` of each other
+(f32 sums in another order) rather than bit for bit. Both versions run
+through their C entry on the same ``live_n`` and preallocated outputs.
 Last come the exact-scan kernels on ``--exact-rows`` x 768 normal rows and
 1024 queries: ``block_topk`` (p 2 and 10, its kernel alone, stage 2 alone
 and the two together), ``fused_topk`` (the default split of the rows
@@ -337,7 +337,7 @@ def _flat_other(torch, other_src: str, tmp: str, code: int, q, lists, ids,
 
 
 def time_flat(torch, g, nlist: int, live_rows: int,
-              other_src: str | None) -> None:
+              other_srcs: list[str]) -> None:
     from rag_foundation_tpu_torch.ops import ivf_scan
     qcap, cap_len, d, p = 16, 2816, 768, 3
     lists = torch.randint(-127, 128, (nlist, cap_len, d), generator=g,
@@ -354,15 +354,15 @@ def time_flat(torch, g, nlist: int, live_rows: int,
     def this():
         return ivf_scan.ivf_list_scan(q, lists, ids, disp, p=p, scale=1e-4)
 
-    if other_src is None:
+    if not other_srcs:
         print(f"{name}: {_ms(this):.3f} ms, bound {bound}", flush=True)
-    else:
+    for src in other_srcs:
         with tempfile.TemporaryDirectory() as tmp:
-            other, mine = _flat_other(torch, other_src, tmp, 0, q, lists,
-                                      ids, live_n, p, 1e-4)
-            _turns(torch, f"{name}, other = {other_src}", other, mine, bound)
+            other, mine = _flat_other(torch, src, tmp, 0, q, lists, ids,
+                                      live_n, p, 1e-4)
+            _turns(torch, f"{name}, other = {src}", other, mine, bound)
     del lists, q, ids
-    time_flat_config3(torch, g, other_src)
+    time_flat_config3(torch, g, other_srcs)
 
 
 # BASELINE config 3's dispatches (chip_smoke.py phase 27): 1M rows over
@@ -382,22 +382,22 @@ def _close(ov, tv) -> str:
     from rag_foundation_tpu_torch.ops.ivf_scan import F32_TOL
     fin = torch.isfinite(ov[0])
     if not torch.equal(fin, torch.isfinite(tv[0])):
-        FAILED.append("flat bf16: -inf patterns differ")
+        FAILED.append("flat config 3: -inf patterns differ")
         return "DIFFER (-inf pattern)"
     err = float((ov[0][fin] - tv[0][fin]).abs().max()) if fin.any() else 0.0
     ids = int((ov[1] != tv[1]).sum())
     if err > F32_TOL:
-        FAILED.append(f"flat bf16: max |other - this| {err}")
+        FAILED.append(f"flat config 3: max |other - this| {err}")
     return (f"max |other - this| {err:.3g} (tol {F32_TOL}), {ids} indices "
             f"differ" + ("" if err <= F32_TOL else " DIFFER"))
 
 
-def time_flat_config3(torch, g, other_src: str | None) -> None:
-    """bf16 lists of config 3's shape class (``CONFIG3``) at each of its
-    dispatches, beside ``scan_bound`` (2 bytes an element, the bf16 peak);
-    f32 lists (the engine's ``ivf_flat`` type, ``ivf_scan_kernel``) at the
-    first; with ``other_src`` that source in turns at each bf16 dispatch,
-    outputs compared within ``ivf_scan.F32_TOL``."""
+def time_flat_config3(torch, g, other_srcs: list[str]) -> None:
+    """bf16 and f32 lists (the engine's ``ivf_flat`` type) of config 3's
+    shape class (``CONFIG3``) at each of its dispatches, beside
+    ``scan_bound`` (2 or 4 bytes an element, the type's peak); with
+    ``other_srcs`` each source in turns at each, outputs compared within
+    ``ivf_scan.F32_TOL``."""
     from rag_foundation_tpu_torch.ops import ivf_scan
     nlist, cap_len, d, p = (CONFIG3[k] for k in ("nlist", "cap_len", "d",
                                                   "p"))
@@ -406,8 +406,7 @@ def time_flat_config3(torch, g, other_src: str | None) -> None:
     lists /= lists.norm(dim=-1, keepdim=True)
     for dt in (torch.bfloat16, torch.float32):
         rows = lists.to(dt)
-        for qcap, lam in CONFIG3["dispatches"][:2 if dt == torch.bfloat16
-                                                else 1]:
+        for qcap, lam in CONFIG3["dispatches"]:
             q = torch.randn((nlist, qcap, d), generator=g, device="cuda")
             q = (q / q.norm(dim=-1, keepdim=True)).to(dt)
             n_live = torch.poisson(torch.full((nlist,), lam, device="cuda"),
@@ -427,15 +426,16 @@ def time_flat_config3(torch, g, other_src: str | None) -> None:
             def this():
                 return ivf_scan.ivf_list_scan(q, rows, ids, disp, p=p)
 
-            if other_src is None or dt != torch.bfloat16:
+            if not other_srcs:
                 print(f"{name}: {_ms(this, reps=5):.4f} ms, bound {bound}",
                       flush=True)
-                continue
-            with tempfile.TemporaryDirectory() as tmp:
-                other, mine = _flat_other(torch, other_src, tmp, 2, q, rows,
-                                          ids, live_n, p, 1.0)
-                _turns(torch, f"{name}, other = {other_src}", other, mine,
-                       bound, check=_close)
+            for src in other_srcs:
+                with tempfile.TemporaryDirectory() as tmp:
+                    other, mine = _flat_other(torch, src, tmp,
+                                              ivf_scan._DTYPE_CODE[dt], q,
+                                              rows, ids, live_n, p, 1.0)
+                    _turns(torch, f"{name}, other = {src}", other, mine,
+                           bound, check=_close)
         del rows
 
 
@@ -818,8 +818,8 @@ def main() -> None:
     ap.add_argument("--nlist", type=int, default=4096)
     ap.add_argument("--live-rows", type=int, default=2441,
                     help="live rows a list (10M rows over 4096 lists)")
-    ap.add_argument("--other-flat", default=None,
-                    help="another ivf_list_scan.cu to time in turns")
+    ap.add_argument("--other-flat", nargs="+", default=[],
+                    help="other ivf_list_scan.cu sources to time in turns")
     ap.add_argument("--other-pq", nargs="+", default=[],
                     help="other pq_list_scan.cu sources to time in turns")
     ap.add_argument("--other-exact", nargs="+", default=[],

@@ -8,8 +8,9 @@ installed (``tests/conftest.py`` imports JAX; skip it there)::
 Tolerances: int8 list scans are bit-identical to the plain PyTorch
 version; f32/bf16 sums run in another order, so values agree within 1e-5
 (unit-norm rows, d=256) and the selected rows must be the same; on the
-bf16 route's shape class (d up to 768) within ``ivf_scan.F32_TOL`` (5e-5),
-an index differing only between rows scoring within that. The ADC
+f32 and bf16 routes' shape classes (d up to 768) within
+``ivf_scan.F32_TOL`` (5e-5), an index differing only between rows scoring
+within that, and tied copies of a row taken lowest first by the f32 route. The ADC
 list scan with an int8 LUT and the int8 gather-and-rescore are exact
 integer sums: bit-identical. With a bf16 LUT the f32 sum of m = 24
 unit-scale entries runs in another order: 1e-5 relative, and an index
@@ -217,7 +218,8 @@ def _edge_rows(card, cap_len=512, seed=0, live=EDGE_LIVE):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("kind,d", [("int8", 768), ("int8", 48),
-                                    ("f32", 96), ("bf16", 256)])
+                                    ("f32", 96), ("bf16", 256),
+                                    ("f32", 768), ("f32", 384)])
 @pytest.mark.parametrize("p", [1, 2, 5, 8])
 def test_flat_kernel_edge_cases_on_card(card, kind, d, p):
     ids, disp = _edge_rows(card, seed=d + p)
@@ -284,17 +286,26 @@ def test_pq_kernel_split_lists_on_card(card, packed, p):
 
 
 @pytest.mark.cuda
-def test_flat_scan_per_subblock_route_on_card(card):
-    """p > 32 leaves the redesigned int8 flat scan for the per-sub-block
-    kernel: the same outputs."""
+@pytest.mark.parametrize("kind,p", [("int8", 40), ("f32", 33)])
+def test_flat_scan_per_subblock_route_on_card(card, kind, p):
+    """p > 32 leaves the redesigned int8 and f32 flat scans for the
+    per-sub-block kernel: the same outputs (f32 within F32_TOL, an index
+    differing only at a near-tie)."""
     ids, disp = _edge_rows(card, seed=7)
-    q, lists, _ = _inputs("int8", nlist=len(EDGE_LIVE), qcap=32, d=256,
+    q, lists, _ = _inputs(kind, nlist=len(EDGE_LIVE), qcap=32, d=256,
                           cap_len=512, seed=7)
     args = (torch.as_tensor(q, device=card),
             torch.as_tensor(lists, device=card), ids, disp)
-    kv, ki = ivf_list_scan(*args, p=40, scale=1e-4)
-    rv, ri = ivf_list_scan_reference(*args, p=40, scale=1e-4)
-    assert torch.equal(kv, rv) and torch.equal(ki, ri)
+    assert ivf_scan.scan_route(args[0].dtype, 32, 256, p) == "scalar"
+    kv, ki = ivf_list_scan(*args, p=p, scale=1e-4)
+    rv, ri = ivf_list_scan_reference(*args, p=p, scale=1e-4)
+    if kind == "int8":
+        assert torch.equal(kv, rv) and torch.equal(ki, ri)
+    else:
+        fin = torch.isfinite(rv)
+        assert torch.equal(torch.isfinite(kv), fin)
+        assert float((kv[fin] - rv[fin]).abs().max()) <= ivf_scan.F32_TOL
+        _near_tie_ids(kv, ki, rv, ri, args[0], args[1])
 
 
 # live slots of the bf16 flat route's lists (capped at qcap): none, one,
@@ -391,42 +402,90 @@ def test_bf16_flat_route_k_padding_on_card(card, d):
     (torch.bfloat16, 128, 768, 3, "bf16_qt32"),
     (torch.bfloat16, 64, 4096, 3, "bf16_qt16"),
     (torch.bfloat16, 16, 768, 33, "scalar"),
-    (torch.float32, 16, 768, 3, "scalar"),
+    (torch.float32, 16, 768, 3, "f32"),
     (torch.int8, 16, 768, 3, "s8"),
     (torch.int8, 16, 768, 40, "scalar"),
+    (torch.float32, 8, 768, 3, "f32"),
+    (torch.float32, 32, 768, 3, "f32"),
+    (torch.float32, 64, 768, 4, "f32"),
+    (torch.float32, 8, 384, 10, "f32"),
+    (torch.float32, 64, 384, 32, "f32"),
+    (torch.float32, 128, 4096, 3, "f32"),
+    (torch.float32, 16, 768, 33, "scalar"),
+    (torch.float32, 8, 384, 33, "scalar"),
 ])
 def test_flat_scan_route_on_card(card, dtype, qcap, d, p, want):
     """The C entry's choice (``ivf_list_scan_route``): config 3's qcap
     8-64 at d 768 take the bf16 tensor-core route, 16 or 32 slots a
-    pass."""
+    pass, or as f32 lists the f32 route (any qcap and width, the MiniLM
+    store's d 384 included) while p <= 32."""
     assert ivf_scan.scan_route(dtype, qcap, d, p) == want
 
 
+def _poisson_dispatch(card, nlist, qcap, seed):
+    """Live slots a list Poisson(qcap / 2) capped at qcap (config 3's
+    dispatches: nprobe 32 gives Poisson(8) at qcap 16, nprobe 128
+    Poisson(32) at qcap 64), with a hole: slot 1 dead where 3 are live."""
+    rng = np.random.default_rng(seed)
+    n = np.minimum(rng.poisson(qcap / 2, nlist), qcap)
+    disp = np.where(np.arange(qcap)[None, :] < n[:, None],
+                    np.arange(nlist)[:, None], -1).astype(np.int32)
+    disp[n >= 3, 1] = -1
+    return torch.as_tensor(disp, device=card)
+
+
 @pytest.mark.cuda
-def test_f32_and_bf16_flat_routes_side_by_side_on_card(card):
-    """The same lists as f32 (``ivf_scan_kernel``) and as bf16 (the
-    tensor-core route), one dispatch: each against its plain version, and
-    the two agree but for bf16's rounding of the rows and queries."""
-    q, lists, ids, disp = _bf16_lists(card, 1024, 16, 768, seed=5)
-    assert ivf_scan.scan_route(torch.float32, 16, 768, 3) == "scalar"
-    assert ivf_scan.scan_route(torch.bfloat16, 16, 768, 3) == "bf16_qt16"
-    out = {}
-    for dt in (torch.float32, torch.bfloat16):
-        qt, lt = q.to(dt), lists.to(dt)
-        kv, ki = ivf_list_scan(qt, lt, ids, disp, p=3)
-        torch.cuda.synchronize()
-        rv, ri = ivf_list_scan_reference(qt, lt, ids, disp, p=3)
-        fin = torch.isfinite(rv)
-        assert torch.equal(torch.isfinite(kv), fin)
-        assert float((kv[fin] - rv[fin]).abs().max()) <= ivf_scan.F32_TOL
-        _near_tie_ids(kv, ki, rv, ri, qt, lt)
-        out[dt] = kv
-    fin = torch.isfinite(out[torch.float32])
-    assert torch.equal(fin, torch.isfinite(out[torch.bfloat16]))
-    # unit rows rounded to bf16 (2^-9 relative an element) move a dot by
-    # at most about 2 * 2^-9
-    assert float((out[torch.float32][fin]
-                  - out[torch.bfloat16][fin]).abs().max()) <= 2 ** -7
+@pytest.mark.parametrize("cap_len,qcap,d,p", [
+    *((c, qc, 768, p) for c in (512, 768, 1024) for qc in (8, 16, 32, 64)
+      for p in (1, 3, 4)),
+    (256, 8, 384, 10),   # the MiniLM store's dispatch (phases 13, 16)
+    (384, 24, 96, 3),    # d not a multiple of 32: a part K chunk
+    (640, 128, 200, 2),  # two passes of 64 slots; 800-byte rows
+])
+def test_f32_and_bf16_flat_routes_side_by_side_on_card(card, cap_len, qcap,
+                                                       d, p):
+    """The same lists as f32 (the f32 route) and as bf16 (the tensor-core
+    route) across config 3's shape class, the MiniLM store's dispatch and
+    part K chunks: lists of no live row, sub-blocks of no live row and of
+    every fold, dead dispatch tails and a Poisson dispatch with holes,
+    duplicated rows tied at the top of each list's slot 0. Each against
+    its plain version within F32_TOL (an index differing only at a
+    near-tie; the tied copies in K order alike, the lower first), and the
+    two agree but for bf16's rounding of the rows and queries."""
+    q, lists, ids, disp = _bf16_lists(card, cap_len, qcap, d,
+                                      seed=cap_len + qcap + d + p)
+    lists[:, 1::128] = lists[:, 0::128]      # ties in every sub-block
+    q[:, 0] = lists[:, 0]
+    assert ivf_scan.scan_route(torch.float32, qcap, d, p) == "f32"
+    assert ivf_scan.scan_route(torch.bfloat16, qcap, d, p).startswith("bf16")
+    for dispatch in (disp, _poisson_dispatch(card, len(ids), qcap, p)):
+        out = {}
+        for dt in (torch.float32, torch.bfloat16):
+            qt, lt = q.to(dt), lists.to(dt)
+            before = ivf_scan.LAUNCHES.count
+            kv, ki = ivf_list_scan(qt, lt, ids, dispatch, p=p)
+            torch.cuda.synchronize()
+            assert ivf_scan.LAUNCHES.count == before + 1
+            rv, ri = ivf_list_scan_reference(qt, lt, ids, dispatch, p=p)
+            fin = torch.isfinite(rv)
+            assert torch.equal(torch.isfinite(kv), fin)
+            assert float((kv[fin] - rv[fin]).abs().max()) <= ivf_scan.F32_TOL
+            _near_tie_ids(kv, ki, rv, ri, qt, lt)
+            if dt == torch.float32 and p > 1:
+                # the tie: row 0 then its copy, one value
+                live = (ids[:, 1] >= 0) & (ivf_scan.live_slots(dispatch) > 0)
+                nsub = cap_len // 128
+                base = torch.arange(len(ids), device=card) * cap_len
+                assert torch.equal(ki[live, 0, 0], base[live].int())
+                assert torch.equal(ki[live, 0, nsub], base[live].int() + 1)
+                assert torch.equal(kv[live, 0, 0], kv[live, 0, nsub])
+            out[dt] = kv
+        fin = torch.isfinite(out[torch.float32])
+        assert torch.equal(fin, torch.isfinite(out[torch.bfloat16]))
+        # unit rows rounded to bf16 (2^-9 relative an element) move a dot
+        # by at most about 2 * 2^-9
+        assert float((out[torch.float32][fin]
+                      - out[torch.bfloat16][fin]).abs().max()) <= 2 ** -7
 
 
 # live slots of the ADC scan's route lists: none; one to eight, which

@@ -4,7 +4,8 @@ JAX package's Pallas ``ivf_list_scan`` (interpret mode on the CPU).
 Tolerances: int8 scores are exact int32 dots times one f32 scale, so the
 plain PyTorch version must match bit for bit. f32 and bf16 dots sum in
 another order than XLA, so values agree within 1e-5 relative (unit-scale
-inputs) and the selected rows must be the same.
+inputs) and the selected rows must be the same (duplicated rows score
+alike in both, so the lowest wins their tie in both).
 """
 
 import jax.numpy as jnp
@@ -58,14 +59,62 @@ def test_int8_bit_identical_to_jax(p, qcap):
     assert np.all(ti.numpy()[1, :, 1::nsub] == -1)
 
 
-@pytest.mark.parametrize("p", [1, 3])
-def test_f32_matches_jax(p):
-    q, lists, ids = _inputs("f32", seed=10 + p)
+def _interleaved(nlist, qcap, d, cap_len, members, seed):
+    """f32 lists laid out as the engine's index interleaves them (the live
+    rows of a list with m members are the first ceil(m / nsub) of each
+    sub-block, ``engine/ivf.py::interleave_slots``), and duplicated rows:
+    in every sub-block row 1 repeats row 0, and slot 0 of each list is
+    row 0 of its first sub-block, so the two tie at the top score."""
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((nlist, qcap, d)).astype(np.float32)
+    lists = rng.standard_normal((nlist, cap_len, d)).astype(np.float32)
+    q /= np.linalg.norm(q, axis=-1, keepdims=True)
+    lists /= np.linalg.norm(lists, axis=-1, keepdims=True)
+    lists[:, 1::128] = lists[:, 0::128]
+    q[:, 0] = lists[:, 0]
+    nsub = cap_len // 128
+    slot = np.arange(cap_len)
+    rank = (slot % 128) * nsub + slot // 128
+    ids = np.arange(nlist * cap_len, dtype=np.int32).reshape(nlist, cap_len)
+    ids[rank[None, :] >= np.asarray(members)[:, None]] = -1
+    return q, lists, ids
+
+
+# (p, inputs): small random lists; the MiniLM store's dispatch in
+# chip_smoke.py phases 13 and 16 (ivf_flat, d 384, nlist 16, qcap 8 at
+# Q=1, ivf_p 10); config 3's interleaved lists (cap_len 768, about 244
+# live rows a list, lists of none, a few, 244 and every row live) with
+# ties
+F32_CASES = {
+    "1": (1, lambda: _inputs("f32", seed=11)),
+    "3": (3, lambda: _inputs("f32", seed=13)),
+    "minilm-10": (10, lambda: _interleaved(16, 8, 384, 256,
+                                           [60 + 9 * i for i in range(16)],
+                                           seed=14)),
+    "config3-3": (3, lambda: _interleaved(4, 16, 768, 768,
+                                          (0, 20, 244, 768), seed=15)),
+    "config3-4": (4, lambda: _interleaved(4, 16, 768, 768,
+                                          (130, 244, 300, 5), seed=16)),
+}
+
+
+@pytest.mark.parametrize("case", list(F32_CASES))
+def test_f32_matches_jax(case):
+    p, make = F32_CASES[case]
+    q, lists, ids = make()
     jv, ji = _jax(q, lists, ids, p, 1.0)
     tv, ti = ivf_list_scan(torch.as_tensor(q), torch.as_tensor(lists),
                            torch.as_tensor(ids), p=p)
     np.testing.assert_allclose(tv.numpy(), jv, rtol=1e-5, atol=1e-6)
     np.testing.assert_array_equal(ti.numpy(), ji)
+    if case[0].isdigit():
+        return
+    # slot 0's tie at the top of sub-block 0: row 0 first, its copy next
+    nsub = lists.shape[1] // 128
+    for l in np.nonzero(ids[:, 1] >= 0)[0]:
+        base = l * lists.shape[1]
+        assert ji[l, 0, 0] == base and ji[l, 0, nsub] == base + 1
+        assert jv[l, 0, 0] == jv[l, 0, nsub]
 
 
 def test_bf16_matches_jax():
