@@ -1,0 +1,11 @@
+"""``index.merge_host_ms`` (host milliseconds a batch in
+``search_profile``'s ``idmap_merge`` stage, over the untraced part of a
+traced run's window) in the cells that report no ``qps`` end to end."""
+
+UNIT = "ms"
+STAGE = "idmap_merge"
+
+
+def read(ctx):
+    seconds, calls = ctx.profile.get(STAGE, (0.0, 0))
+    return seconds / calls * 1e3 if calls else None
