@@ -538,7 +538,6 @@ class StoreIndex:
     def _dispatch_padded(self, queries: np.ndarray, k: int):
         """Launch all device work for one padded batch; the returned
         context goes to ``_finalize_padded`` (fetch + host merge)."""
-        q_n = queries.shape[0]
         # snapshot the tail BEFORE the body work: a racing flush
         # publishes the appended body first and swaps self.tail second,
         # so (old tail, either body) always covers every row
@@ -548,8 +547,18 @@ class StoreIndex:
         fetch = min(bucket_pow2(k + len(self._dead)),
                     bucket_pow2(k * 4 + 16))
         queries = np.asarray(queries)
-        if self.mode == "ivf_pq":
-            return self._dispatch_pq(queries, k, fetch, tail)
+        # the batch's device stages are timed by events on one device's
+        # stream: a mesh's shards may sit on several
+        with search_profile.open_batch(
+                self.device if self.mesh is None else None) as batch:
+            if self.mode == "ivf_pq":
+                return self._dispatch_pq(queries, k, fetch, tail) + (batch,)
+            return self._dispatch_flat(queries, k, fetch, tail) + (batch,)
+
+    def _dispatch_flat(self, queries: np.ndarray, k: int, fetch: int,
+                       tail: VectorSegment):
+        """The ``ivf_flat`` / ``ivf_flat_int8`` body dispatch."""
+        q_n = queries.shape[0]
         with search_profile.stage("body_dispatch"), self._body_lock:
             # body, its scale and its row->chunk-id table are read
             # together under the lock: the queries are quantized with the
@@ -566,11 +575,14 @@ class StoreIndex:
                       and self.mesh is None and queries.dtype == np.float32)
             with search_profile.stage("q_upload"):
                 if q_int8:
-                    qj = torch.as_tensor(np.clip(
-                        np.round(queries / np.float32(body.scale)), -127,
-                        127).astype(np.int8), device=self.device)
+                    with search_profile.stage("q_quantize"):
+                        qh = np.clip(np.round(
+                            queries / np.float32(body.scale)), -127,
+                            127).astype(np.int8)
                 else:
-                    qj = torch.as_tensor(queries, device=self.device)
+                    qh = queries
+                with search_profile.stage("q_copy"):
+                    qj = torch.as_tensor(qh, device=self.device)
             if isinstance(body, ShardedBody):
                 # every batch, a single query included: per-shard routing
                 # over each shard's lists (no small-batch path)
@@ -608,26 +620,26 @@ class StoreIndex:
             and self._pq_archive is not None
         q_scale = None
         with search_profile.stage("q_upload"):
-            if self.mesh is not None:
-                # the JAX engine's mesh transport: with the host re-rank
-                # the device only proposes candidates and the host f32
-                # rescore ranks them, so queries cross as bf16 (the tail
-                # scan shares them); else f32
-                qj = torch.as_tensor(queries, device=self.device)
-                if host_refine and queries.dtype == np.float32:
-                    qj = qj.to(torch.bfloat16)
-            elif queries.dtype == np.float32:
+            qh = queries
+            if self.mesh is None and queries.dtype == np.float32:
                 # queries cross to the device as int8 + one scale, a
                 # quarter of the f32 bytes. The batch-absmax scale is
                 # computed here on the host in numpy, as the JAX engine
                 # does, so both quantize alike; the noise (~0.4% of
                 # range) is far below the 4-bit ADC's own resolution
-                q_scale = float(np.abs(queries).max()) / 127.0 or 1.0
-                qj = torch.as_tensor(np.clip(np.round(queries / q_scale),
-                                             -127, 127).astype(np.int8),
-                                     device=self.device)
-            else:
-                qj = torch.as_tensor(queries, device=self.device)
+                with search_profile.stage("q_quantize"):
+                    q_scale = float(np.abs(queries).max()) / 127.0 or 1.0
+                    qh = np.clip(np.round(queries / q_scale), -127,
+                                 127).astype(np.int8)
+            with search_profile.stage("q_copy"):
+                qj = torch.as_tensor(qh, device=self.device)
+            if self.mesh is not None and host_refine \
+                    and queries.dtype == np.float32:
+                # the JAX engine's mesh transport: with the host re-rank
+                # the device only proposes candidates and the host f32
+                # rescore ranks them, so queries cross as bf16 (the tail
+                # scan shares them); else f32
+                qj = qj.to(torch.bfloat16)
         rescore_arch = None
         with search_profile.stage("body_dispatch"), self._body_lock:
             body = self.body
@@ -678,17 +690,27 @@ class StoreIndex:
         if ctx[0] == "tail":
             _, tail, handle = ctx
             return tail.search_finalize(handle)
-        (_, q_n, k, fetch, rescore_arch, body_chunk_ids, b_vals, b_rows,
-         tail, tail_h, q32) = ctx
+        with ctx[-1]:
+            return self._finalize_body(*ctx[1:])
+
+    def _finalize_body(self, q_n, k, fetch, rescore_arch, body_chunk_ids,
+                       b_vals, b_rows, tail, tail_h, q32, batch
+                       ) -> tuple[np.ndarray, np.ndarray]:
         with search_profile.stage("tail_fetch"):
             if tail_h is _EMPTY_TAIL:
                 t_vals, t_ids = None, None
             else:
                 t_vals, t_ids = tail.search_finalize(tail_h)
         with search_profile.stage("rows_fetch"):
+            if batch.marks:
+                # the batch's own work: its last body launch's event (the
+                # copy below also waits for whatever was queued after)
+                with search_profile.stage("own_wait"):
+                    batch.marks[-1][1].synchronize()
             b_rows = b_rows.cpu().numpy()
             if rescore_arch is None:
                 b_vals = b_vals.cpu().numpy()
+        search_profile.close_batch(batch)
         if rescore_arch is not None:
             # the ADC values are REPLACED by the host rescore, so they
             # are never fetched from the device

@@ -22,6 +22,7 @@ from typing import Callable, NamedTuple
 import numpy as np
 import torch
 
+from rag_foundation_tpu_torch.engine.profile import search_profile
 from rag_foundation_tpu_torch.ops.ivf_scan import ivf_list_scan
 from rag_foundation_tpu_torch.ops.kmeans import assign_clusters, kmeans_fit
 from rag_foundation_tpu_torch.ops.quantize import (int8_matmul,
@@ -509,39 +510,46 @@ def ivf_search_small(
     lists per query and score them exactly (no list-scan kernel).
 
     The data moved is ``Q x nprobe x cap_len x d`` bytes instead of the
-    whole index. Returns (values [Q, k], row ids [Q, k]).
+    whole index. Returns (values [Q, k], row ids [Q, k]). No probe is
+    dropped: there is no ``qcap``.
     """
     q_n, d = queries.shape
     nlist, cap_len = index.row_ids.shape
     nprobe = min(nprobe, nlist)
-    queries = queries.to(index.lists.device)
-    q32, pre_quant = _queries_f32(index, queries)
-    coarse = q32 @ index.centroids.T
-    _, probe_lists = stable_topk(coarse, nprobe)          # [Q, nprobe]
-    cand_ids = index.row_ids[probe_lists.reshape(-1)].view(
-        q_n, nprobe * cap_len)
-    int8 = index.lists.dtype == torch.int8
-    if int8:
-        qq = queries if pre_quant else quantize_with_scale(q32, index.scale)
-        s2 = float(np.float32(index.scale) * np.float32(index.scale))
-    # one query at a time: its probed lists are the only rows gathered
-    # (and widened to a float type for the matmul)
-    scores = torch.empty((q_n, nprobe * cap_len), dtype=torch.float32,
-                         device=q32.device)
-    for i in range(q_n):
-        cand = index.lists[probe_lists[i]].view(nprobe * cap_len, d)
+    with search_profile.stage("route"):
+        queries = queries.to(index.lists.device)
+        q32, pre_quant = _queries_f32(index, queries)
+        coarse = q32 @ index.centroids.T
+        _, probe_lists = stable_topk(coarse, nprobe)      # [Q, nprobe]
+        search_profile.count_probes(q_n * nprobe)
+        cand_ids = index.row_ids[probe_lists.reshape(-1)].view(
+            q_n, nprobe * cap_len)
+        int8 = index.lists.dtype == torch.int8
         if int8:
-            scores[i] = int8_matmul(qq[i:i + 1], cand.T)[0] * s2
-        else:
-            scores[i] = (q32[i:i + 1] @ cand.float().T)[0]
-    scores = scores.masked_fill(cand_ids < 0, NEG_INF)
-    # clamp: k larger than the candidate width degrades to fewer results
-    k_eff = min(k, nprobe * cap_len)
-    top_vals, pos = stable_topk(scores, k_eff)
-    rows = torch.gather(cand_ids, 1, pos)
-    rows = torch.where(torch.isfinite(top_vals), rows,
-                       torch.full_like(rows, -1))
-    return _pad_k(top_vals, rows, k)
+            qq = queries if pre_quant else quantize_with_scale(q32,
+                                                               index.scale)
+            s2 = float(np.float32(index.scale) * np.float32(index.scale))
+    with search_profile.stage("scan"):
+        # one query at a time: its probed lists are the only rows
+        # gathered (and widened to a float type for the matmul)
+        scores = torch.empty((q_n, nprobe * cap_len), dtype=torch.float32,
+                             device=q32.device)
+        for i in range(q_n):
+            cand = index.lists[probe_lists[i]].view(nprobe * cap_len, d)
+            if int8:
+                scores[i] = int8_matmul(qq[i:i + 1], cand.T)[0] * s2
+            else:
+                scores[i] = (q32[i:i + 1] @ cand.float().T)[0]
+        scores = scores.masked_fill(cand_ids < 0, NEG_INF)
+    with search_profile.stage("regather"):
+        # clamp: k larger than the candidate width degrades to fewer
+        # results
+        k_eff = min(k, nprobe * cap_len)
+        top_vals, pos = stable_topk(scores, k_eff)
+        rows = torch.gather(cand_ids, 1, pos)
+        rows = torch.where(torch.isfinite(top_vals), rows,
+                           torch.full_like(rows, -1))
+        return _pad_k(top_vals, rows, k)
 
 
 def _pad_k(vals: torch.Tensor, rows: torch.Tensor, k: int
@@ -570,7 +578,8 @@ def scan_inputs(
     """Route a batch and invert it for the list scan: (probe_lists,
     dispatch, slot, dropped, qdisp [nlist, qcap, d], scan scale).
     ``qcap=None`` takes the JAX package's ``default_qcap``; probes past a
-    list's capacity are dropped, as there."""
+    list's capacity are dropped, as there, and counted in
+    ``search_profile``."""
     q_n = queries.shape[0]
     if qcap is None:
         qcap = default_qcap(q_n, nprobe, index.nlist)
@@ -579,6 +588,7 @@ def scan_inputs(
     coarse = q32 @ index.centroids.T
     probe_lists, dispatch, slot, dropped = build_dispatch(
         coarse, nprobe, qcap, approx=approx_select)
+    search_profile.count_probes(q_n * nprobe, dropped)
     safe_q = torch.clamp(dispatch, 0, q_n - 1).long()
     if index.lists.dtype == torch.int8:
         q_quant = queries if pre_quant else quantize_with_scale(q32,
@@ -604,13 +614,16 @@ def ivf_search(
     """IVF top-k. Returns (values [Q,k] f32, row_ids [Q,k] int32 global
     vector ids, dropped_probes [] int32)."""
     nprobe = min(nprobe, index.nlist)
-    probe_lists, dispatch, slot, dropped, qdisp, scan_scale = scan_inputs(
-        index, queries, nprobe, qcap, approx_select)
-    vals, flat_idx = ivf_list_scan(qdisp, index.lists, index.row_ids,
-                                   dispatch, p=p, scale=scan_scale)
-    top_vals, row_ids = select_rows(index, vals, flat_idx, probe_lists, slot,
-                                    k)
-    top_vals, row_ids = _pad_k(top_vals, row_ids, k)
+    with search_profile.stage("route"):
+        probe_lists, dispatch, slot, dropped, qdisp, scan_scale = \
+            scan_inputs(index, queries, nprobe, qcap, approx_select)
+    with search_profile.stage("scan"):
+        vals, flat_idx = ivf_list_scan(qdisp, index.lists, index.row_ids,
+                                       dispatch, p=p, scale=scan_scale)
+    with search_profile.stage("regather"):
+        top_vals, row_ids = select_rows(index, vals, flat_idx, probe_lists,
+                                        slot, k)
+        top_vals, row_ids = _pad_k(top_vals, row_ids, k)
     return top_vals, row_ids, dropped
 
 

@@ -35,6 +35,7 @@ from rag_foundation_tpu_torch.engine.ivf import (LBLOCK, NEG_INF, _pad_k,
                                                  build_dispatch,
                                                  default_qcap,
                                                  interleave_slots)
+from rag_foundation_tpu_torch.engine.profile import search_profile
 from rag_foundation_tpu_torch.ops.gather import gather_rescore_int8
 from rag_foundation_tpu_torch.ops.kmeans import (assign_clusters,
                                                  assign_clusters_top2,
@@ -630,13 +631,11 @@ def scan_inputs(index: IVFPQIndex, q32: torch.Tensor, dispatch: torch.Tensor,
     return lut_flat[safe_q], lut_scale
 
 
-def _adc_candidates_kernel(index: IVFPQIndex, q32, coarse, dispatch,
-                           probe_lists, slot, *, p, qcap, lut_dtype):
-    """Kernel ADC path (K=16): per-query candidates [Q, nprobe*w]."""
-    q_n = q32.shape[0]
-    lut_disp, lut_scale = scan_inputs(index, q32, dispatch, lut_dtype)
-    vals, flat_idx = pq_list_scan(lut_disp, index.codes, index.row_ids,
-                                  dispatch, k_codes=index.k_codes, p=p)
+def _kernel_candidates(vals, flat_idx, lut_scale, coarse, probe_lists, slot,
+                       qcap):
+    """Kernel ADC path (K=16): per-query candidates [Q, nprobe*w] from the
+    list scan's outputs."""
+    q_n = probe_lists.shape[0]
     cand_vals, cand_idx = _regather(vals, flat_idx, probe_lists, slot, qcap)
     # per-query LUT scale (int8 LUTs), then the coarse term q·c_list —
     # both constant within a (query, list) pair, so neither can change
@@ -724,7 +723,8 @@ def route(index: IVFPQIndex, queries: torch.Tensor, nprobe: int,
     """Dequantize (``q_scale``), score the coarse centroids and invert the
     batch: (q32, coarse [Q, nlist], probe_lists, dispatch, slot,
     dropped). ``qcap=None`` takes the JAX package's default; probes past
-    a list's capacity are dropped, as there."""
+    a list's capacity are dropped, as there, and counted in
+    ``search_profile``."""
     q_n = queries.shape[0]
     if qcap is None:
         qcap = default_qcap(q_n, nprobe, index.nlist)
@@ -732,7 +732,10 @@ def route(index: IVFPQIndex, queries: torch.Tensor, nprobe: int,
     if q_scale is not None:
         q32 = q32 * q_scale
     coarse = q32 @ index.centroids.T                       # [Q, nlist]
-    return (q32, coarse) + build_dispatch(coarse, nprobe, qcap)
+    probe_lists, dispatch, slot, dropped = build_dispatch(coarse, nprobe,
+                                                          qcap)
+    search_profile.count_probes(q_n * nprobe, dropped)
+    return q32, coarse, probe_lists, dispatch, slot, dropped
 
 
 def adc_top_rows(
@@ -747,36 +750,62 @@ def adc_top_rows(
     list_block: int = 32,
     lut_dtype: str = "int8",
     q_scale: float | None = None,
+    rerank_k: int | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """The candidate stage of ``ivfpq_search``: route, ADC-scan the
     probed lists, and keep the ADC top-C rows (C = ``refine_c`` or
     ``max(4k, 32)`` with a refine store, else ``k``). Returns (q32
     [Q, d], values [Q, C], global row ids [Q, C] int32 (-1 pads),
-    dropped_probes)."""
+    dropped_probes). With ``rerank_k``, the values and rows are then
+    ``ivfpq_search``'s top ``rerank_k``: re-ranked against the refine
+    store where the index has one, padded to ``rerank_k``.
+
+    ``search_profile`` stages: ``route`` (coarse product, dispatch, LUTs),
+    ``scan`` (the list scan), ``regather`` (candidates per query, the
+    selection, the re-rank)."""
     nlist, cap_len, _ = index.codes.shape
     nprobe = min(nprobe, nlist)
-    q32, coarse, probe_lists, dispatch, slot, dropped = route(
-        index, queries, nprobe, qcap, q_scale)
-    qcap = dispatch.shape[1]
-    if index.k_codes == 16:
-        cand_vals, cand_idx = _adc_candidates_kernel(
-            index, q32, coarse, dispatch, probe_lists, slot, p=p, qcap=qcap,
-            lut_dtype=torch.int8 if lut_dtype == "int8" else torch.bfloat16)
-    else:
-        cand_vals, cand_idx = _adc_candidates_decode(
-            index, q32, coarse, dispatch, probe_lists, slot, p=p, qcap=qcap,
-            list_block=list_block)
-
-    width = cand_vals.shape[1]
-    has_refine = index.refine.shape[0] > 0
-    c_eff = min(refine_c or max(4 * k, 32), width) if has_refine \
-        else min(k, width)
-    top_vals, pos = stable_topk(cand_vals, c_eff)
-    top_flat = torch.gather(cand_idx, 1, pos)
-    safe_flat = torch.clamp(top_flat, 0, nlist * cap_len - 1).long()
-    rows = index.row_ids.reshape(-1)[safe_flat]
-    rows = torch.where((top_flat >= 0) & torch.isfinite(top_vals), rows,
-                       torch.full_like(rows, -1))
+    kernel = index.k_codes == 16
+    with search_profile.stage("route"):
+        q32, coarse, probe_lists, dispatch, slot, dropped = route(
+            index, queries, nprobe, qcap, q_scale)
+        qcap = dispatch.shape[1]
+        if kernel:
+            lut_disp, lut_scale = scan_inputs(
+                index, q32, dispatch,
+                torch.int8 if lut_dtype == "int8" else torch.bfloat16)
+    with search_profile.stage("scan"):
+        if kernel:
+            vals, flat_idx = pq_list_scan(lut_disp, index.codes,
+                                          index.row_ids, dispatch,
+                                          k_codes=index.k_codes, p=p)
+        else:
+            cand_vals, cand_idx = _adc_candidates_decode(
+                index, q32, coarse, dispatch, probe_lists, slot, p=p,
+                qcap=qcap, list_block=list_block)
+    with search_profile.stage("regather"):
+        if kernel:
+            cand_vals, cand_idx = _kernel_candidates(
+                vals, flat_idx, lut_scale, coarse, probe_lists, slot, qcap)
+        width = cand_vals.shape[1]
+        has_refine = index.refine.shape[0] > 0
+        c_eff = min(refine_c or max(4 * k, 32), width) if has_refine \
+            else min(k, width)
+        top_vals, pos = stable_topk(cand_vals, c_eff)
+        top_flat = torch.gather(cand_idx, 1, pos)
+        safe_flat = torch.clamp(top_flat, 0, nlist * cap_len - 1).long()
+        rows = index.row_ids.reshape(-1)[safe_flat]
+        rows = torch.where((top_flat >= 0) & torch.isfinite(top_vals), rows,
+                           torch.full_like(rows, -1))
+        if rerank_k is not None:
+            if has_refine:
+                top_vals, rows, _ = _refine_rerank(index, q32, rows,
+                                                   rerank_k)
+            else:
+                top_vals = torch.where(rows >= 0, top_vals,
+                                       torch.full_like(top_vals, NEG_INF))
+            top_vals, rows = _pad_k(top_vals[:, :rerank_k],
+                                    rows[:, :rerank_k], rerank_k)
     return q32, top_vals, rows, dropped
 
 
@@ -808,13 +837,8 @@ def ivfpq_search(
     accepted for interface parity and has no effect.
     """
     del cap_block
-    q32, top_vals, rows, dropped = adc_top_rows(
+    _, top_vals, rows, dropped = adc_top_rows(
         index, queries, k, nprobe=nprobe, p=p, qcap=qcap, refine_c=refine_c,
-        list_block=list_block, lut_dtype=lut_dtype, q_scale=q_scale)
-    if index.refine.shape[0] > 0:
-        top_vals, rows, _ = _refine_rerank(index, q32, rows, k)
-    else:
-        top_vals = torch.where(rows >= 0, top_vals,
-                               torch.full_like(top_vals, NEG_INF))
-    top_vals, rows = _pad_k(top_vals[:, :k], rows[:, :k], k)
+        list_block=list_block, lut_dtype=lut_dtype, q_scale=q_scale,
+        rerank_k=k)
     return top_vals, rows, dropped

@@ -12,8 +12,8 @@ only when no shard owns more than ``nprobe_local`` of a query's best
 lists, so size ``nprobe_local`` with headroom past
 ``ceil(nprobe / n_shards)`` for skewed corpora. Each shard's qcap is
 ``default_qcap(Q, nprobe_local, nlist_local)``; probes past it are
-dropped without a count in the result, as there (``route_shards``
-returns them per shard).
+dropped without a count in the result, as there; each shard's routing
+adds its count to ``engine.profile.search_profile``.
 
 A sharded body is a ``ShardedBody``: one ``IVFFlatIndex`` or
 ``IVFPQIndex`` a shard, over its lists, on its device. Where every shard
@@ -47,6 +47,7 @@ from rag_foundation_tpu_torch.engine.ivf import (IVFFlatIndex,
                                                  interleave_slots,
                                                  scan_inputs, select_rows)
 from rag_foundation_tpu_torch.engine.ivfpq import IVFPQIndex, adc_top_rows
+from rag_foundation_tpu_torch.engine.profile import search_profile
 from rag_foundation_tpu_torch.ops.ivf_scan import ivf_list_scan
 from rag_foundation_tpu_torch.ops.kmeans import assign_clusters
 from rag_foundation_tpu_torch.ops.quantize import quantize_with_scale
@@ -217,19 +218,22 @@ def sharded_ivf_search(
     """Returns ``(values [Q, k], global row ids [Q, k])`` on the lead
     device. ``k`` is clamped to a shard's candidate width (over-fetches
     past it come back as ``(-inf, -1)`` columns, as in ``ivf_search``).
-    Probes past a shard's qcap are dropped silently: size qcap
-    generously for skewed routing."""
+    Probes past a shard's qcap are dropped (counted in
+    ``search_profile``): size qcap generously for skewed routing."""
     _check_mesh(index, mesh)
     if qcap is None:
         qcap = default_qcap(queries.shape[0], nprobe_local,
                             index.nlist_local)
     nprobe = min(nprobe_local, index.nlist_local)
-    routed = route_shards(index, queries, nprobe, qcap, mesh)
-    scanned = scan_shards(index, routed, p, mesh)
-    cands = select_shards(index, routed, scanned, k, mesh)
-    vals, rows = merge_over_mesh([c[0] for c in cands],
-                                 [c[1] for c in cands], k, mesh)
-    return _pad_k(vals, rows, k)
+    with search_profile.stage("route"):
+        routed = route_shards(index, queries, nprobe, qcap, mesh)
+    with search_profile.stage("scan"):
+        scanned = scan_shards(index, routed, p, mesh)
+    with search_profile.stage("regather"):
+        cands = select_shards(index, routed, scanned, k, mesh)
+        vals, rows = merge_over_mesh([c[0] for c in cands],
+                                     [c[1] for c in cands], k, mesh)
+        return _pad_k(vals, rows, k)
 
 
 def sharded_ivf_append(

@@ -36,7 +36,9 @@ class StageTimer:
 @contextlib.contextmanager
 def maybe_trace(name: str = "ragtpu"):
     """Wrap a block in ``torch.profiler.profile`` when RAGTPU_TRACE_DIR
-    is set and write ``<dir>/<name>.<pid>.<ns>.json``; no-op otherwise."""
+    is set and write ``<dir>/<name>.<pid>.<ns>.json``; no-op otherwise.
+    Shapes are recorded, and with them the batch number that each
+    ``index.<stage>`` range of ``engine/profile.py`` carries."""
     trace_dir = os.environ.get("RAGTPU_TRACE_DIR")
     if not trace_dir:
         yield
@@ -46,7 +48,7 @@ def maybe_trace(name: str = "ragtpu"):
     if torch.cuda.is_available():
         acts.append(torch.profiler.ProfilerActivity.CUDA)
     os.makedirs(trace_dir, exist_ok=True)
-    with torch.profiler.profile(activities=acts) as prof:
+    with torch.profiler.profile(activities=acts, record_shapes=True) as prof:
         yield
     prof.export_chrome_trace(os.path.join(
         trace_dir, f"{name}.{os.getpid()}.{time.time_ns()}.json"))

@@ -1300,3 +1300,90 @@ def test_mesh_pq_store_on_card_matches_the_cpu(card):
     assert same.mean() >= 0.95, same.mean()
     np.testing.assert_allclose(got_v[same], want_v[same], rtol=1e-5,
                                atol=1e-6)
+
+
+def _traced_store(card, mode):
+    """A 16,384-row store on the card and four Q=1024 batches of its rows
+    (Q x nprobe x 8 > nlist: the batched path with its list scan)."""
+    from rag_foundation_tpu_torch.engine.index import StoreIndex
+    rng = np.random.default_rng(4)
+    x = rng.standard_normal((16384, 64)).astype(np.float32)
+    x /= np.linalg.norm(x, axis=1, keepdims=True)
+    store = StoreIndex(64, mode=mode, nlist=64, nprobe=8,
+                       build_threshold=16384, pq_m=16, device=card)
+    store.add(x, np.arange(len(x)))
+    assert store.body is not None
+    return store, [x[i * 1024:(i + 1) * 1024] for i in range(4)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["ivf_flat_int8", "ivf_pq"])
+def test_device_stages_on_card(card, mode, monkeypatch):
+    """Each timed batch adds one call of each device stage, every one
+    positive, and one ``own_wait``; ``close_batch`` finds every event of
+    its batch complete, so ``elapsed_time`` never waits. By default one
+    batch in ``TIMED_EVERY`` is timed."""
+    from rag_foundation_tpu_torch.engine import profile as prof
+    from rag_foundation_tpu_torch.engine.profile import search_profile
+    store, batches = _traced_store(card, mode)
+    store.search_many(batches[:1], 10)                    # builds
+    real = search_profile.close_batch
+    pending = []
+
+    def checked(batch):
+        if batch.marks:
+            pending.append(sum(not ev.query() for _, ev in batch.marks))
+        real(batch)
+
+    monkeypatch.setattr(search_profile, "close_batch", checked)
+    with monkeypatch.context() as m:
+        m.setattr(prof, "TIMED_EVERY", 1)
+        search_profile.reset()
+        store.search_many(batches, 10)
+    assert pending == [0] * 4
+    for name in ("upload", "route", "scan", "regather"):
+        assert search_profile.calls["device." + name] == 4, name
+        assert search_profile.seconds["device." + name] > 0, name
+    assert search_profile.calls["own_wait"] == 4
+    assert search_profile.counts()["probes"] == 4 * 1024 * 8
+    search_profile.reset()
+    store.search_many(batches * (2 * prof.TIMED_EVERY // 4), 10)
+    assert search_profile.calls["device.scan"] == 2
+    assert search_profile.calls["own_wait"] == 2
+    assert search_profile.calls["rows_fetch"] == 2 * prof.TIMED_EVERY
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["ivf_flat_int8", "ivf_pq"])
+def test_tracing_adds_one_event_wait_a_batch(card, mode, monkeypatch):
+    """A profiled timed batch with the drop counter makes the CUDA calls
+    it makes without its events or the counter (stream synchronisations
+    and copies alike: no host read of a device value) plus exactly one
+    ``cudaEventSynchronize``, its own event's."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from rag_foundation_tpu_torch.engine import profile as prof
+    from rag_foundation_tpu_torch.engine.profile import search_profile
+    store, batches = _traced_store(card, mode)
+    store.search(batches[0], 10)                          # builds
+
+    def api_calls():
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as p:
+            store.search(batches[1], 10)
+        names = [e.name for e in p.events()]
+        return {"sync": names.count("cudaStreamSynchronize")
+                + names.count("cudaDeviceSynchronize"),
+                "copy": sum(n.startswith("cudaMemcpy") for n in names),
+                "event_sync": names.count("cudaEventSynchronize")}
+
+    monkeypatch.setattr(prof, "TIMED_EVERY", 1)
+    traced = api_calls()
+    real_open = search_profile.open_batch
+    with monkeypatch.context() as m:
+        m.setattr(search_profile, "open_batch", lambda device:
+                  real_open(None))
+        m.setattr(search_profile, "count_probes", lambda *a: None)
+        untraced = api_calls()
+    assert untraced["event_sync"] == 0 and untraced["sync"] > 0
+    assert traced == dict(untraced, event_sync=1)
