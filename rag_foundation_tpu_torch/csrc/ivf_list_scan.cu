@@ -29,26 +29,48 @@
 //   outputs; its products are 2 * live slots * d a row byte, far below the
 //   card's int8 ridge (about 590 operations a byte), so bytes bound it.
 //   Design: a block of four warps owns a list (or every gridDim.x-th of its
-//   sub-blocks at small nlist) and walks its sub-blocks. It stages the
-//   list's query tile (16 slots) ONCE, then streams (sub-block, 128-byte
-//   K chunk) tiles of 128 rows through a ring of four shared-memory stages
-//   filled by 16-byte `cp.async`, three tiles in flight while it computes
-//   the fourth (about 48 KB in flight a block, two blocks an SM). Dead rows
-//   are zero-filled by `cp.async` with a source size of 0: their bytes are
-//   never read, which a TMA box could not skip (a box reads the about 13%
-//   dead rows the store interleaves through every sub-block). The scores
-//   are int8 tensor-core products (`mma.sync` m16n8k32, rows as A through
-//   `ldmatrix`, the query tile as B) into int32 accumulators in registers,
-//   each warp 32 rows x 16 slots; only the n-tiles of 8 slots that hold a
-//   live slot are computed, so a list with at most 8 live slots does half
-//   the products. Row ids are loaded a sub-block ahead. After the last
-//   chunk of a sub-block the scores (float(int32 dot) * scale, -inf for
-//   dead rows) go to shared memory and each warp runs the top-p of its
-//   slots, four interleaved (topp_keys.cuh), while the next sub-block's
-//   tiles are already in flight.
+//   sub-blocks at small nlist). It stages the list's query tile (16 slots)
+//   ONCE, then streams tiles of 128 stage rows x one 128-byte K chunk
+//   through a ring of four shared-memory stages filled by 16-byte
+//   `cp.async`, three tiles in flight while it computes the fourth (about
+//   48 KB in flight a block, two blocks an SM). Dead rows are zero-filled
+//   by `cp.async` with a source size of 0: their bytes are never read. The
+//   scores are int8 tensor-core products (`mma.sync` m16n8k32, rows as A
+//   through `ldmatrix`, the query tile as B) into int32 accumulators in
+//   registers, each warp 32 stage rows x 16 slots; only the n-tiles of 8
+//   slots that hold a live slot are computed, so a list with at most 8
+//   live slots does half the products.
+//   Groups (ivf_scan_f32's, below). The index interleaves a list's m rows
+//   over its nsub sub-blocks, so the live rows of a sub-block are its first
+//   ceil(m / nsub) or so, and uneven lists leave most of each sub-block
+//   dead (the benchmark's 10M-row body: lists of 7 to 9,537 rows, cap_len
+//   10,112, a live extent of about 31 of 128 rows on the mean list). The
+//   block reads its sub-blocks' row ids once, up front, as live bits,
+//   skips a sub-block of no live row, and packs the live extents of
+//   consecutive sub-blocks side by side into 128-row stages (four of the
+//   mean list's); each stage holds its group's rows at one K chunk. After
+//   a group's last chunk the scores (float(int32 dot) * scale) go to
+//   shared memory and the warps take turns at each sub-block's top-p over
+//   its window of them (four slots interleaved, dead rows masked by their
+//   bits), while the next group's tiles are already in flight. On an H100
+//   (700 W), on that body's own dispatches, groups beat folds
+//   (ivf_scan_bf16's, below, in int8: a sub-block whose live rows lie in
+//   its first 32 or 64 lays four or two K chunks of them side by side in a
+//   stage, shares of K summed in int32): 3.75-3.85 ms against 5.34-5.49 at
+//   Q=1024 and 1.62-1.65 against 2.18-2.27 at Q=64, and at 87 % live pad
+//   rows 2.90-2.92 against 3.00-3.03. With d = 768 a fold of 32 rows
+//   fills six of its two stages' eight K chunks, and a fold of 64 or 128
+//   rows stages nearly twice the rows of a sub-block whose extent is just
+//   past 32 or 64, where groups pack extents to the row. The plan code is
+//   ivf_scan_f32's, kept apart: a version sharing one copy with it took
+//   1-2 % longer here (3.79-3.92 ms against 3.76-3.84) and 0.7-1.3 % longer
+//   in ivf_scan_f32. Against the plain ring that staged every 128-row
+//   sub-block (tools/time_kernels.py, the body's shape class): 3.81-3.87
+//   ms against 8.57-8.76 at Q=1024, 1.62-1.66 against 3.48-3.59 at Q=64,
+//   2.90-2.91 against 2.94-2.97 on the pad rows.
 //
 // bf16 lists (BASELINE config 3: 1M x 768, nlist 4096) take
-// `ivf_scan_bf16`, the same design in bf16:
+// `ivf_scan_bf16`, the same ring in bf16, with folds:
 //
 //   Bound: the live bf16 rows of every list with a query read once (2
 //   bytes an element), 2 * live slots * d operations a row, under the
@@ -142,6 +164,17 @@ constexpr int SUB = scan::SUB;           // rows per sub-block = threads
 constexpr int CHUNK = 128;               // bytes of each row per stage
 constexpr int ROW_STRIDE = CHUNK + 16;   // padded: conflict-free 16 B reads
 constexpr int WARPS = SUB / 32;
+constexpr int MAX_OWN = 128;             // sub-blocks a ring block owns
+
+// Blocks of a ring kernel a list of `nsub` sub-blocks takes: one at the
+// engine's nlist; at small nlist enough to give every SM two; enough that
+// none owns more than MAX_OWN sub-blocks.
+inline int blocks_a_list(int nlist, int nsub) {
+  int groups = (264 + nlist - 1) / nlist;
+  groups = groups > nsub ? nsub : groups;
+  const int least = (nsub + MAX_OWN - 1) / MAX_OWN;
+  return groups < least ? least : groups;
+}
 
 __device__ __forceinline__ void dot16(const int4 r, const int4 q, int& acc) {
   acc = __dp4a(r.x, q.x, acc);
@@ -277,224 +310,25 @@ ivf_scan_kernel(const unsigned char* __restrict__ qdisp,
   }
 }
 
-// ---- int8 lists: tensor cores fed by a cp.async ring ------------------------
+// ---- the ring kernels' block and tile (int8, bf16, f32 lists) -------------
 constexpr int S8_WARPS = 4;
 constexpr int S8_THREADS = S8_WARPS * 32;            // 128: 32 rows a warp
-constexpr int S8_STAGES = 4;                         // ring depth
-constexpr int S8_QT = 16;                            // query slots a pass
+constexpr int S8_STAGES = 4;                         // int8 ring depth
+constexpr int S8_QT = 16;                            // int8 query slots a pass
 constexpr int S8_STAGE_BYTES = SUB * ROW_STRIDE;     // one 128 x 128-byte tile
-constexpr int S8_LIVE_BUFS = 4;                      // sub-blocks' row flags
 static_assert(S8_THREADS == SUB, "fill_dead strides by SUB threads");
 
-// Shared memory of ivf_scan_s8 for rows of `row_bytes` bytes.
-__host__ __device__ inline size_t s8_smem_bytes(int row_bytes) {
-  const int qstride = ((row_bytes + 31) & ~31) + 16;
-  return (size_t)S8_STAGES * S8_STAGE_BYTES + (size_t)S8_QT * qstride +
-         (size_t)S8_QT * SUB * 4 + (size_t)S8_LIVE_BUFS * SUB;
-}
-
-__global__ void __launch_bounds__(S8_THREADS, 2)
-ivf_scan_s8(const signed char* __restrict__ qdisp,
-            const signed char* __restrict__ lists,
-            const int* __restrict__ row_ids, const int* __restrict__ live_n,
-            float* __restrict__ out_vals, int* __restrict__ out_idx, int qcap,
-            int cap_len, int row_bytes, int p, float scale) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int kpad = (row_bytes + 31) & ~31;        // K in whole mma steps
-  const int qstride = kpad + 16;                  // odd 16-byte units: no
-  unsigned char* rows_s = smem;                   // ldmatrix conflicts
-  unsigned char* q_s = smem + S8_STAGES * S8_STAGE_BYTES;
-  float* score_s = reinterpret_cast<float*>(q_s + S8_QT * qstride);
-  unsigned char* live_s = reinterpret_cast<unsigned char*>(score_s + S8_QT * SUB);
-
-  const int l = blockIdx.y;
-  const int nsub = cap_len / SUB;
-  const int width = nsub * p;
-  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
-  const int g = lane >> 2, tig = lane & 3;
-  const int G = gridDim.x;
-  const int nown = (nsub - (int)blockIdx.x + G - 1) / G;   // sub-blocks owned
-  const int nlive = live_n == nullptr ? qcap : min(qcap, live_n[l]);
-
-  // dead tail of the dispatch: (-inf, -1), nothing read
-  if (nlive < qcap)
-    for (int k = 0; k < nown; ++k)
-      scan::fill_dead(out_vals, out_idx, l, qcap, width, nsub,
-                      blockIdx.x + k * G, p, nlive, qcap, t);
-  if (nlive == 0 || nown <= 0) return;
-
-  const int nkc = (row_bytes + CHUNK - 1) / CHUNK;   // K chunks a row
-  const int units = nown * nkc;                      // (sub-block, chunk)
-  const size_t list0 = (size_t)l * cap_len;
-  const signed char* q_g = qdisp + (size_t)l * qcap * row_bytes;
-  // copy assignment: 16-byte column c16 of rows r0 + 16 i, i < 8
-  const int c16 = t & 7, r0 = t >> 3;
-  const int lj = lane >> 3, lr = lane & 7;           // ldmatrix addressing
-
-  for (int q0 = 0; q0 < nlive; q0 += S8_QT) {
-    const int nq = min(S8_QT, nlive - q0);
-    const int nt = (nq + 7) >> 3;                    // live n-tiles: 1 or 2
-    __syncthreads();   // the previous pass is done with every buffer
-    // the query tile, once a pass: nq slots, zero-filled to 16 x kpad
-    for (int i = t; i < S8_QT * (kpad / 16); i += S8_THREADS) {
-      const int j = i / (kpad / 16), c = i - j * (kpad / 16);
-      const bool ok = j < nq && c * 16 < row_bytes;
-      s8::cp_async16(q_s + j * qstride + c * 16,
-                     ok ? (const void*)(q_g + (size_t)(q0 + j) * row_bytes +
-                                        c * 16)
-                        : (const void*)q_g,
-                     ok ? 16 : 0);
-    }
-    s8::cp_async_commit();
-
-    unsigned live_bits = 0;   // this thread's copy rows of the sub-block
-    int ids_next[8];          // their ids in the next sub-block, loaded a
-    auto load_ids = [&](int k) {   // sub-block ahead
-      if (k >= nown) return;
-      const size_t row0 = list0 + (size_t)(blockIdx.x + k * G) * SUB;
-#pragma unroll
-      for (int i = 0; i < 8; ++i) ids_next[i] = row_ids[row0 + r0 + 16 * i];
-    };
-    load_ids(0);
-    auto issue = [&](int u) {
-      const int k = u / nkc, kc = u - k * nkc;
-      const size_t row0 = list0 + (size_t)(blockIdx.x + k * G) * SUB;
-      unsigned char* st = rows_s + (u % S8_STAGES) * S8_STAGE_BYTES;
-      if (kc == 0) {
-        live_bits = 0;
-#pragma unroll
-        for (int i = 0; i < 8; ++i) {
-          const int r = r0 + 16 * i;
-          const bool lv = ids_next[i] >= 0;
-          live_bits |= (unsigned)lv << i;
-          if (c16 == 0) live_s[(k % S8_LIVE_BUFS) * SUB + r] = lv;
-        }
-        load_ids(k + 1);
-      }
-      const int col = kc * CHUNK + c16 * 16;
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        const int r = r0 + 16 * i;
-        // dead rows and the K padding are zero-filled, never read
-        const bool ok = col < row_bytes && ((live_bits >> i) & 1u);
-        s8::cp_async16(st + r * ROW_STRIDE + c16 * 16,
-                       ok ? (const void*)(lists + (row0 + r) * row_bytes + col)
-                          : (const void*)lists,
-                       ok ? 16 : 0);
-      }
-    };
-
-    int acc[2][2][4];   // [row group of 16][n-tile of 8 slots][fragment]
-#pragma unroll
-    for (int a = 0; a < 2; ++a)
-#pragma unroll
-      for (int b = 0; b < 2; ++b)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[a][b][e] = 0;
-
-#pragma unroll
-    for (int s = 0; s < S8_STAGES - 1; ++s) {
-      if (s < units) issue(s);
-      s8::cp_async_commit();
-    }
-    for (int u = 0; u < units; ++u) {
-      s8::cp_async_wait<S8_STAGES - 2>();   // unit u (and the tile) landed
-      __syncthreads();                      // ... for every thread; stage
-      if (u + S8_STAGES - 1 < units)        // (u-1) % S is free again
-        issue(u + S8_STAGES - 1);
-      s8::cp_async_commit();
-
-      const int k = u / nkc, kc = u - k * nkc;
-      const unsigned char* st = rows_s + (u % S8_STAGES) * S8_STAGE_BYTES;
-      const int ksteps = min(CHUNK, kpad - kc * CHUNK) / 32;
-      for (int ks = 0; ks < ksteps; ++ks) {
-        // B: slots (lj >> 1) * 8 + lr, bytes (lj & 1) * 16 of this k-step
-        unsigned b[2][2];
-        const unsigned char* qp = q_s + ((lj >> 1) * 8 + lr) * qstride +
-                                  kc * CHUNK + ks * 32 + (lj & 1) * 16;
-        if (nt == 2) {
-          unsigned r[4];
-          s8::ldmatrix_x4(r, qp);
-          b[0][0] = r[0]; b[0][1] = r[1]; b[1][0] = r[2]; b[1][1] = r[3];
-        } else {
-          unsigned r[2];
-          s8::ldmatrix_x2(r, qp);
-          b[0][0] = r[0]; b[0][1] = r[1]; b[1][0] = 0u; b[1][1] = 0u;
-        }
-#pragma unroll
-        for (int grp = 0; grp < 2; ++grp) {
-          // A: rows warp*32 + grp*16 + (lj & 1) * 8 + lr, bytes (lj >> 1) * 16
-          unsigned a[4];
-          s8::ldmatrix_x4(a, st + (warp * 32 + grp * 16 + (lj & 1) * 8 + lr) *
-                                      ROW_STRIDE + ks * 32 + (lj >> 1) * 16);
-          s8::mma_s8(acc[grp][0], a, b[0][0], b[0][1]);
-          if (nt == 2) s8::mma_s8(acc[grp][1], a, b[1][0], b[1][1]);
-        }
-      }
-
-      if (kc == nkc - 1) {   // the sub-block is scored: top-p
-        const int sb = blockIdx.x + k * G;
-        const unsigned char* lv = live_s + (k % S8_LIVE_BUFS) * SUB;
-#pragma unroll
-        for (int grp = 0; grp < 2; ++grp)
-#pragma unroll
-          for (int n = 0; n < 2; ++n)
-#pragma unroll
-            for (int e = 0; e < 4; ++e) {
-              const int row = warp * 32 + grp * 16 + g + (e >= 2 ? 8 : 0);
-              const int slot = n * 8 + tig * 2 + (e & 1);
-              if (n < nt && slot < nq)
-                score_s[slot * SUB + row] =
-                    lv[row] ? __int2float_rn(acc[grp][n][e]) * scale
-                            : -INFINITY;
-              acc[grp][n][e] = 0;
-            }
-        __syncthreads();
-        const int row0 = (int)(list0 + (size_t)sb * SUB);
-        // this warp's slots warp, warp + 4, ... interleaved (topp_keys.cuh)
-        keys::warp_topp_slots(score_s, -INFINITY, warp, nq, S8_WARPS, lane,
-                              p, nsub, sb, row0, 1.0f,
-                              out_vals + ((size_t)l * qcap + q0) * width,
-                              out_idx + ((size_t)l * qcap + q0) * width,
-                              width);
-      }
-    }
-  }
-}
-
-cudaError_t launch_s8(const void* qdisp, const void* lists, const int* row_ids,
-                      const int* live_n, float* vals, int* idx, int nlist,
-                      int qcap, int cap_len, int row_bytes, int p, float scale,
-                      cudaStream_t stream) {
-  const size_t smem = s8_smem_bytes(row_bytes);
-  auto kernel = ivf_scan_s8;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  // blocks a list: one at the engine's nlist; at small nlist enough to
-  // give every SM two
-  const int nsub = cap_len / SUB;
-  int groups = (264 + nlist - 1) / nlist;
-  groups = groups > nsub ? nsub : groups;
-  const dim3 grid(groups, nlist);
-  kernel<<<grid, S8_THREADS, smem, stream>>>(
-      static_cast<const signed char*>(qdisp),
-      static_cast<const signed char*>(lists), row_ids, live_n, vals, idx,
-      qcap, cap_len, row_bytes, p, scale);
-  return cudaGetLastError();
-}
 
 // ---- bf16 lists: bf16 tensor cores fed by a cp.async ring ------------------
 constexpr int BF_ROUND = 16;      // query slots a score round
-constexpr int BF_MAX_OWN = 128;   // sub-blocks a block owns at most
 
 // Shared memory of ivf_scan_bf16<QT, STAGES> for rows of `row_bytes`.
 __host__ __device__ inline size_t bf_smem_bytes(int qt, int stages,
                                                 int row_bytes) {
   const int qstride = ((row_bytes + 31) & ~31) + 16;
   return (size_t)stages * S8_STAGE_BYTES + (size_t)qt * qstride +
-         (size_t)BF_ROUND * SUB * 4 + (size_t)BF_MAX_OWN * 4 * 4 +
-         BF_MAX_OWN;
+         (size_t)BF_ROUND * SUB * 4 + (size_t)MAX_OWN * 4 * 4 +
+         MAX_OWN;
 }
 
 // A sub-block's fold from its live-row bits (four words of 32 rows): 0
@@ -523,7 +357,7 @@ ivf_scan_bf16(const unsigned char* __restrict__ qdisp,
   float* score_s = reinterpret_cast<float*>(q_s + QT * qstride);
   unsigned* bits_s = reinterpret_cast<unsigned*>(score_s + BF_ROUND * SUB);
   unsigned char* fold_s =
-      reinterpret_cast<unsigned char*>(bits_s + BF_MAX_OWN * 4);
+      reinterpret_cast<unsigned char*>(bits_s + MAX_OWN * 4);
 
   const int l = blockIdx.y;
   const int nsub = cap_len / SUB;
@@ -746,14 +580,7 @@ cudaError_t launch_bf16_as(const void* qdisp, const void* lists,
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  // blocks a list: one at the engine's nlist; at small nlist enough to fill
-  // the SMs; enough that none owns more than BF_MAX_OWN sub-blocks
-  const int nsub = cap_len / SUB;
-  int groups = (264 + nlist - 1) / nlist;   // two blocks an SM
-  groups = groups > nsub ? nsub : groups;
-  const int least = (nsub + BF_MAX_OWN - 1) / BF_MAX_OWN;
-  groups = groups < least ? least : groups;
-  const dim3 grid(groups, nlist);
+  const dim3 grid(blocks_a_list(nlist, cap_len / SUB), nlist);
   kernel<<<grid, S8_THREADS, smem, stream>>>(
       static_cast<const unsigned char*>(qdisp),
       static_cast<const unsigned char*>(lists), row_ids, live_n, vals, idx,
@@ -773,7 +600,7 @@ constexpr int F32_STAGE_BYTES = F32_ROWS + F32_QTILE;
 // live extent, its offset in its group and the groups' first sub-blocks
 constexpr size_t f32_smem_bytes() {
   return (size_t)F32_STAGES * F32_STAGE_BYTES + (size_t)F32_QT * SUB * 4 +
-         (size_t)BF_MAX_OWN * 4 * 4 + (size_t)BF_MAX_OWN * 4;
+         (size_t)MAX_OWN * 4 * 4 + (size_t)MAX_OWN * 4;
 }
 static_assert(2 * (f32_smem_bytes() + 1024) <= 228 * 1024,
               "ivf_scan_f32 keeps two blocks an SM");
@@ -1071,10 +898,10 @@ ivf_scan_f32(const unsigned char* __restrict__ qdisp,
       reinterpret_cast<float*>(smem + F32_STAGES * F32_STAGE_BYTES);
   unsigned* bits_s = reinterpret_cast<unsigned*>(score_s + F32_QT * SUB);
   unsigned char* ext_s =
-      reinterpret_cast<unsigned char*>(bits_s + BF_MAX_OWN * 4);
-  unsigned char* off_s = ext_s + BF_MAX_OWN;      // row offset in its group
-  unsigned char* gfirst_s = off_s + BF_MAX_OWN;   // groups' first, + end
-  int* ngroups_s = reinterpret_cast<int*>(gfirst_s + BF_MAX_OWN + 4);
+      reinterpret_cast<unsigned char*>(bits_s + MAX_OWN * 4);
+  unsigned char* off_s = ext_s + MAX_OWN;         // row offset in its group
+  unsigned char* gfirst_s = off_s + MAX_OWN;      // groups' first, + end
+  int* ngroups_s = reinterpret_cast<int*>(gfirst_s + MAX_OWN + 4);
 
   const int l = blockIdx.y;
   const int nsub = cap_len / SUB;
@@ -1173,17 +1000,275 @@ cudaError_t launch_f32(const void* qdisp, const void* lists,
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  // blocks a list as launch_bf16_as gives them
-  const int nsub = cap_len / SUB;
-  int groups = (264 + nlist - 1) / nlist;   // two blocks an SM
-  groups = groups > nsub ? nsub : groups;
-  const int least = (nsub + BF_MAX_OWN - 1) / BF_MAX_OWN;
-  groups = groups < least ? least : groups;
-  const dim3 grid(groups, nlist);
+  const dim3 grid(blocks_a_list(nlist, cap_len / SUB), nlist);
   kernel<<<grid, S8_THREADS, smem, stream>>>(
       static_cast<const unsigned char*>(qdisp),
       static_cast<const unsigned char*>(lists), row_ids, live_n, vals, idx,
       qcap, cap_len, row_bytes, p);
+  return cudaGetLastError();
+}
+
+// ---- int8 lists: int8 tensor cores on groups fed by a cp.async ring ------
+constexpr int IDS_AHEAD = 16;   // sub-blocks whose row ids load together
+
+// Shared memory of ivf_scan_s8 for rows of `row_bytes` bytes: the ring, the
+// query tile, a pass's scores, the owned sub-blocks' live bits, and per
+// sub-block its live extent, its offset in its group and the groups' first
+// sub-blocks (and the end), the group count.
+__host__ __device__ inline size_t s8_smem_bytes(int row_bytes) {
+  const int qstride = ((row_bytes + 31) & ~31) + 16;
+  return (size_t)S8_STAGES * S8_STAGE_BYTES + (size_t)S8_QT * qstride +
+         (size_t)S8_QT * SUB * 4 + (size_t)MAX_OWN * 4 * 4 +
+         (size_t)MAX_OWN * 4;
+}
+
+__global__ void __launch_bounds__(S8_THREADS, 2)
+ivf_scan_s8(const signed char* __restrict__ qdisp_,
+            const signed char* __restrict__ lists_,
+            const int* __restrict__ row_ids, const int* __restrict__ live_n,
+            float* __restrict__ out_vals, int* __restrict__ out_idx, int qcap,
+            int cap_len, int row_bytes, int p, float scale) {
+  const unsigned char* qdisp = reinterpret_cast<const unsigned char*>(qdisp_);
+  const unsigned char* lists = reinterpret_cast<const unsigned char*>(lists_);
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int kpad = (row_bytes + 31) & ~31;        // K in whole mma steps
+  const int qstride = kpad + 16;                  // odd 16-byte units: no
+  unsigned char* rows_s = smem;                   // ldmatrix conflicts
+  unsigned char* q_s = smem + S8_STAGES * S8_STAGE_BYTES;
+  float* score_s = reinterpret_cast<float*>(q_s + S8_QT * qstride);
+  unsigned* bits_s = reinterpret_cast<unsigned*>(score_s + S8_QT * SUB);
+  unsigned char* ext_s =
+      reinterpret_cast<unsigned char*>(bits_s + MAX_OWN * 4);
+  unsigned char* off_s = ext_s + MAX_OWN;         // row offset in its group
+  unsigned char* gfirst_s = off_s + MAX_OWN;      // groups' first, + end
+  int* ngroups_s = reinterpret_cast<int*>(gfirst_s + MAX_OWN + 4);
+
+  const int l = blockIdx.y;
+  const int nsub = cap_len / SUB;
+  const int width = nsub * p;
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const int g = lane >> 2, tig = lane & 3;
+  const int G = gridDim.x;
+  const int nown = (nsub - (int)blockIdx.x + G - 1) / G;   // sub-blocks owned
+  const int nlive = live_n == nullptr ? qcap : min(qcap, live_n[l]);
+
+  // dead tail of the dispatch: (-inf, -1), nothing read
+  if (nlive < qcap)
+    for (int k = 0; k < nown; ++k)
+      scan::fill_dead(out_vals, out_idx, l, qcap, width, nsub,
+                      blockIdx.x + k * G, p, nlive, qcap, t);
+  if (nlive == 0 || nown <= 0) return;
+
+  const size_t list0 = (size_t)l * cap_len;
+  const unsigned char* q_g = qdisp + (size_t)l * qcap * row_bytes;
+  const int nkc = (row_bytes + CHUNK - 1) / CHUNK;   // K chunks a row
+
+  // the owned sub-blocks' live rows as bits, their row ids read once,
+  // IDS_AHEAD sub-blocks' loads in flight at a time
+  for (int k0 = 0; k0 < nown; k0 += IDS_AHEAD) {
+    int v[IDS_AHEAD];
+#pragma unroll
+    for (int j = 0; j < IDS_AHEAD; ++j)
+      v[j] = k0 + j < nown
+                 ? row_ids[list0 + (size_t)(blockIdx.x + (k0 + j) * G) * SUB +
+                           t]
+                 : -1;
+#pragma unroll
+    for (int j = 0; j < IDS_AHEAD; ++j) {
+      const unsigned b = __ballot_sync(0xffffffffu, v[j] >= 0);
+      if (lane == 0 && k0 + j < nown) bits_s[(k0 + j) * 4 + warp] = b;
+    }
+  }
+  __syncthreads();
+  // live extents: one past each sub-block's last live row (the index
+  // interleaves a list's rows, so its live rows are the first few)
+  for (int k = t; k < nown; k += S8_THREADS) {
+    const unsigned* b = bits_s + 4 * k;
+    int e = 0;
+    for (int w = 3; w >= 0 && e == 0; --w)
+      if (b[w]) e = 32 * w + 32 - __clz(b[w]);
+    ext_s[k] = e;
+  }
+  __syncthreads();
+  // groups: the live sub-blocks in order, packed while their extents fit
+  // one 128-row stage; a stage holds a group's rows at one K chunk
+  if (t == 0) {
+    int ng = 0, rows = SUB + 1;
+    for (int k = 0; k < nown; ++k) {
+      const int e = ext_s[k];
+      if (e == 0) continue;
+      if (rows + e > SUB) {
+        gfirst_s[ng++] = k;
+        rows = 0;
+      }
+      off_s[k] = rows;
+      rows += e;
+    }
+    gfirst_s[ng] = nown;
+    *ngroups_s = ng;
+  }
+  for (int k = 0; k < nown; ++k)
+    if (ext_s[k] == 0)   // no live row: (-inf, -1) for every live slot
+      scan::fill_dead(out_vals, out_idx, l, qcap, width, nsub,
+                      blockIdx.x + k * G, p, 0, nlive, t);
+  __syncthreads();
+  const int ngroups = *ngroups_s;
+  if (ngroups == 0) return;
+
+  // copy assignment: 16-byte column c16 of stage rows r0 + 16 i, i < 8,
+  // each the list row roff[i] of the group being issued (or -1: zeros)
+  const int c16 = t & 7, r0 = t >> 3;
+  const int lj = lane >> 3, lr = lane & 7;           // ldmatrix addressing
+  int roff[8];
+  auto plan_rows = [&](int gi) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) roff[i] = -1;
+    for (int k = gfirst_s[gi]; k < gfirst_s[gi + 1]; ++k) {
+      const int e = ext_s[k], o = off_s[k];
+      const unsigned* bits = bits_s + 4 * k;
+      const int base = (blockIdx.x + k * G) * SUB;
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const int r = r0 + 16 * i - o;
+        if (r >= 0 && r < e && ((bits[r >> 5] >> (r & 31)) & 1u))
+          roff[i] = base + r;
+      }
+    }
+  };
+  // one stage: the group's rows at K chunk kc
+  auto issue = [&](int kc, int stage) {
+    unsigned char* st = rows_s + stage * S8_STAGE_BYTES;
+    const int col = kc * CHUNK + c16 * 16;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      // dead rows, rows past the group and K past the row are
+      // zero-filled, never read
+      const bool ok = roff[i] >= 0 && col < row_bytes;
+      s8::cp_async16(st + (r0 + 16 * i) * ROW_STRIDE + c16 * 16,
+                     ok ? (const void*)(lists + (list0 + roff[i]) * row_bytes +
+                                        col)
+                        : (const void*)lists,
+                     ok ? 16 : 0);
+    }
+  };
+
+  for (int q0 = 0; q0 < nlive; q0 += S8_QT) {
+    const int nq = min(S8_QT, nlive - q0);
+    const int nt = (nq + 7) >> 3;                    // live n-tiles: 1 or 2
+    __syncthreads();   // the previous pass is done with every buffer
+    // the query tile, once a pass: nq slots, zero-filled to 16 x kpad
+    for (int i = t; i < S8_QT * (kpad / 16); i += S8_THREADS) {
+      const int j = i / (kpad / 16), c = i - j * (kpad / 16);
+      const bool ok = j < nq && c * 16 < row_bytes;
+      s8::cp_async16(q_s + j * qstride + c * 16,
+                     ok ? (const void*)(q_g + (size_t)(q0 + j) * row_bytes +
+                                        c * 16)
+                        : (const void*)q_g,
+                     ok ? 16 : 0);
+    }
+    s8::cp_async_commit();
+
+    int acc[2][2][4];   // [row group of 16][n-tile of 8 slots][fragment]
+#pragma unroll
+    for (int a = 0; a < 2; ++a)
+#pragma unroll
+      for (int b = 0; b < 2; ++b)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[a][b][e] = 0;
+
+    // a unit is (group, K chunk kc) of one stage; the producer and the
+    // consumer walk the same units
+    int pg = 0, pkc = 0;    // the next unit to issue
+    int cg = 0, ckc = 0;    // the unit to compute
+#pragma unroll
+    for (int s = 0; s < S8_STAGES - 1; ++s) {
+      if (pg < ngroups) {
+        if (pkc == 0) plan_rows(pg);
+        issue(pkc, s);
+        if (++pkc == nkc) { pkc = 0; ++pg; }
+      }
+      s8::cp_async_commit();
+    }
+    for (int u = 0; cg < ngroups; ++u) {
+      s8::cp_async_wait<S8_STAGES - 2>();   // unit u (and the tile) landed
+      __syncthreads();                      // ... for every thread; stage
+      if (pg < ngroups) {                   // (u-1) % STAGES is free again
+        if (pkc == 0) plan_rows(pg);
+        issue(pkc, (u + S8_STAGES - 1) % S8_STAGES);
+        if (++pkc == nkc) { pkc = 0; ++pg; }
+      }
+      s8::cp_async_commit();
+
+      const unsigned char* st = rows_s + (u % S8_STAGES) * S8_STAGE_BYTES;
+      const int ksteps = min(CHUNK, kpad - ckc * CHUNK) / 32;
+      for (int ks = 0; ks < ksteps; ++ks) {
+        // B: slots (lj >> 1) * 8 + lr, bytes (lj & 1) * 16 of this k-step
+        unsigned b[4];
+        s8::ldmatrix_x4(b, q_s + ((lj >> 1) * 8 + lr) * qstride +
+                               ckc * CHUNK + ks * 32 + (lj & 1) * 16);
+#pragma unroll
+        for (int grp = 0; grp < 2; ++grp) {
+          // A: rows warp*32 + grp*16 + (lj & 1) * 8 + lr, bytes (lj >> 1) * 16
+          unsigned a[4];
+          s8::ldmatrix_x4(a, st + (warp * 32 + grp * 16 + (lj & 1) * 8 + lr) *
+                                      ROW_STRIDE + ks * 32 + (lj >> 1) * 16);
+          s8::mma_s8(acc[grp][0], a, b[0], b[1]);
+          if (nt == 2) s8::mma_s8(acc[grp][1], a, b[2], b[3]);
+        }
+      }
+
+      if (ckc == nkc - 1) {   // the group is scored: its sub-blocks' top-p
+#pragma unroll
+        for (int grp = 0; grp < 2; ++grp)
+#pragma unroll
+          for (int n = 0; n < 2; ++n)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int row = warp * 32 + grp * 16 + g + (e >= 2 ? 8 : 0);
+              const int slot = n * 8 + tig * 2 + (e & 1);
+              if (slot < nq)
+                score_s[slot * SUB + row] =
+                    __int2float_rn(acc[grp][n][e]) * scale;
+              acc[grp][n][e] = 0;
+            }
+        __syncthreads();
+        // every (sub-block, 4 slots) of the group, the warps taking turns,
+        // over the sub-block's window of the scores (f32_topp4)
+        const int nc = (nq + 3) >> 2;
+        int task = 0;
+        for (int k = gfirst_s[cg]; k < gfirst_s[cg + 1]; ++k) {
+          const int e = ext_s[k];
+          if (e == 0) continue;
+          const int sb = blockIdx.x + k * G;
+          for (int c = 0; c < nc; ++c, ++task) {
+            if ((task & (S8_WARPS - 1)) != warp) continue;
+            const size_t out0 = ((size_t)l * qcap + q0 + 4 * c) * width;
+            f32_topp4(score_s + 4 * c * SUB + off_s[k], e, bits_s + 4 * k,
+                      lane, p, nsub, sb, (int)(list0 + (size_t)sb * SUB),
+                      min(4, nq - 4 * c), out_vals + out0, out_idx + out0,
+                      width);
+          }
+        }
+      }
+      if (++ckc == nkc) { ckc = 0; ++cg; }
+    }
+  }
+}
+
+cudaError_t launch_s8(const void* qdisp, const void* lists, const int* row_ids,
+                      const int* live_n, float* vals, int* idx, int nlist,
+                      int qcap, int cap_len, int row_bytes, int p, float scale,
+                      cudaStream_t stream) {
+  const size_t smem = s8_smem_bytes(row_bytes);
+  auto kernel = ivf_scan_s8;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(blocks_a_list(nlist, cap_len / SUB), nlist);
+  kernel<<<grid, S8_THREADS, smem, stream>>>(
+      static_cast<const signed char*>(qdisp),
+      static_cast<const signed char*>(lists), row_ids, live_n, vals, idx,
+      qcap, cap_len, row_bytes, p, scale);
   return cudaGetLastError();
 }
 

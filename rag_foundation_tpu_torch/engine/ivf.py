@@ -17,13 +17,15 @@ Supports f32/bf16 storage or int8 (per-tensor symmetric).
 
 from __future__ import annotations
 
+import weakref
 from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
 
 from rag_foundation_tpu_torch.engine.profile import search_profile
-from rag_foundation_tpu_torch.ops.ivf_scan import ivf_list_scan
+from rag_foundation_tpu_torch.ops.ivf_scan import (S8_SLOTS, ivf_list_scan,
+                                                   live_slots, scan_rows)
 from rag_foundation_tpu_torch.ops.kmeans import assign_clusters, kmeans_fit
 from rag_foundation_tpu_torch.ops.quantize import (int8_matmul,
                                                    quantize_int8,
@@ -618,13 +620,37 @@ def ivf_search(
         probe_lists, dispatch, slot, dropped, qdisp, scan_scale = \
             scan_inputs(index, queries, nprobe, qcap, approx_select)
     with search_profile.stage("scan"):
+        live_n = live_slots(dispatch)
         vals, flat_idx = ivf_list_scan(qdisp, index.lists, index.row_ids,
-                                       dispatch, p=p, scale=scan_scale)
+                                       dispatch, p=p, scale=scan_scale,
+                                       live_n=live_n)
+        if index.lists.dtype == torch.int8 and p <= 32:
+            # the rows ivf_scan_s8 (int8, p <= 32) streams: live and staged
+            search_profile.count_scan_rows(
+                live_n, cached_scan_rows(index.row_ids), S8_SLOTS)
     with search_profile.stage("regather"):
         top_vals, row_ids = select_rows(index, vals, flat_idx, probe_lists,
                                         slot, k)
         top_vals, row_ids = _pad_k(top_vals, row_ids, k)
     return top_vals, row_ids, dropped
+
+
+# id(row_ids) -> (a reference to them, their version, scan_rows of them)
+_SCAN_ROWS: dict[int, tuple] = {}
+
+
+def cached_scan_rows(row_ids: torch.Tensor) -> torch.Tensor:
+    """``scan_rows(row_ids)``, computed again only once the ids change
+    (``ivf_append`` writes them in place, which bumps their version)."""
+    hit = _SCAN_ROWS.get(id(row_ids))
+    if hit is None or hit[0]() is not row_ids \
+            or hit[1] != row_ids._version:
+        for key in [k for k, v in _SCAN_ROWS.items() if v[0]() is None]:
+            del _SCAN_ROWS[key]
+        hit = _SCAN_ROWS[id(row_ids)] = (weakref.ref(row_ids),
+                                         row_ids._version,
+                                         scan_rows(row_ids))
+    return hit[2]
 
 
 def select_rows(

@@ -29,7 +29,11 @@ host (``tools/trace_cost.py``):
   and the probes its dispatch dropped past ``qcap``: a device scalar,
   kept until ``FOLD`` of them are summed into a device-side accumulator
   at once (no host read in the batch, three launches in ``FOLD``
-  batches). ``counts()`` reads them, with a synchronise.
+  batches). ``count_scan_rows`` adds an int8 list scan's rows, live and
+  staged (``scan_rows_live``, ``scan_rows_staged``: their ratio is how
+  full the kernel's stage rows are), from the batch's live slots a list
+  and its index's rows a list, summed on the device ``SCAN_FOLD`` batches
+  at a time in the same way. ``counts()`` reads them, with a synchronise.
 """
 
 from __future__ import annotations
@@ -48,6 +52,9 @@ DEVICE_STAGES = {"q_copy": "device.upload", "route": "device.route",
 TIMED_EVERY = 16
 # dropped-probe scalars held before they are summed on the device
 FOLD = 64
+# int8 scans held before their rows are summed on the device: a sum is
+# seven launches, about 170 us of host time on an H100 host
+SCAN_FOLD = 256
 
 # is a profiler recording? (a C-level flag, about 0.2 us; opening a range
 # with no profiler costs about 15 us)
@@ -132,6 +139,10 @@ class StageProfile:
         # batches' scalars not summed into it yet
         self._dropped: dict[torch.device, torch.Tensor] = {}
         self._pending: list[torch.Tensor] = []
+        # device -> int64 [live, staged] scan rows, and the scans not
+        # summed into it yet
+        self._scan_rows: dict[torch.device, torch.Tensor] = {}
+        self._scans: list[tuple] = []
         self._events: list = []            # reusable timing events
         self._seq = itertools.count()
         self._local = _Local()
@@ -208,17 +219,54 @@ class StageProfile:
                         (), dtype=torch.int64, device=device)
             acc.add_(torch.stack(group).sum())
 
+    def count_scan_rows(self, live_n: torch.Tensor, rows: torch.Tensor,
+                        slots: int) -> None:
+        """Add an int8 list scan's rows: ``live_n [nlist]`` the live query
+        slots a list (``ivf_scan.live_slots``), ``rows [nlist, 2]`` each
+        list's live rows and the stage rows the kernel fills in a pass over
+        it (``ivf_scan.scan_rows``), ``slots`` the query slots of a pass.
+        Held until ``SCAN_FOLD`` scans are summed on the device at once."""
+        with self._lock:
+            self._scans.append((live_n, rows, slots))
+            if len(self._scans) < SCAN_FOLD:
+                return
+            scans, self._scans = self._scans, []
+        self._fold_scans(scans)
+
+    def _fold_scans(self, scans: list[tuple]) -> None:
+        """Sum held scans into their devices' accumulators: per list, its
+        passes over all the scans times its rows a pass."""
+        groups: dict[tuple, tuple] = {}
+        for live_n, rows, slots in scans:
+            groups.setdefault((id(rows), slots), (rows, []))[1].append(live_n)
+        for (_, slots), (rows, group) in groups.items():
+            passes = torch.div(torch.stack(group) + (slots - 1), slots,
+                               rounding_mode="floor").sum(dim=0)
+            with self._lock:
+                acc = self._scan_rows.get(rows.device)
+                if acc is None:
+                    acc = self._scan_rows[rows.device] = torch.zeros(
+                        2, dtype=torch.int64, device=rows.device)
+            acc.add_((passes[:, None] * rows).sum(dim=0))
+
     def counts(self) -> dict[str, int]:
-        """``probes`` and ``probes_dropped`` since the last reset; reading
-        the device accumulators waits for the work queued before."""
+        """``probes``, ``probes_dropped``, ``scan_rows_live`` and
+        ``scan_rows_staged`` since the last reset; reading the device
+        accumulators waits for the work queued before."""
         with self._lock:
             pending, self._pending = self._pending, []
+            scans, self._scans = self._scans, []
         self._fold(pending)
+        self._fold_scans(scans)
         with self._lock:
             probes = self.probes
             accs = list(self._dropped.values())
+            scanned = list(self._scan_rows.values())
+        rows = [a.tolist() for a in scanned]
         return {"probes": probes,
-                "probes_dropped": sum(int(a.item()) for a in accs)}
+                "probes_dropped": sum(int(a.item()) for a in accs),
+                "scan_rows_live": sum(r[0] for r in rows),
+                "scan_rows_staged": sum(r[1] for r in rows)}
 
     def reset(self) -> None:
         with self._lock:
@@ -226,7 +274,8 @@ class StageProfile:
             self.calls.clear()
             self.probes = 0
             self._pending = []
-            for acc in self._dropped.values():
+            self._scans = []
+            for acc in (*self._dropped.values(), *self._scan_rows.values()):
                 acc.zero_()
 
     def snapshot(self) -> dict[str, dict]:

@@ -74,6 +74,45 @@ def live_slots(dispatch: torch.Tensor) -> torch.Tensor:
     return live.amax(dim=1).to(torch.int32).contiguous()
 
 
+# query slots ``ivf_scan_s8`` scores a pass over a list's rows
+S8_SLOTS = 16
+
+
+def _blocks_a_list(nlist: int, nsub: int) -> int:
+    """Blocks the ring kernels give a list (``blocks_a_list`` in
+    ``csrc/ivf_list_scan.cu``)."""
+    return max(min(-(-264 // nlist), nsub), -(-nsub // 128))
+
+
+def scan_rows(row_ids: torch.Tensor) -> torch.Tensor:
+    """Per list, ``[live rows, stage rows]`` (int64 ``[nlist, 2]``) of one
+    pass of ``ivf_scan_s8`` over it. Each of the list's blocks (block b
+    owns sub-blocks b, b + G, ...) packs its sub-blocks' live extents (one
+    past the last live row) in order into groups of at most 128 rows, a
+    group closed when the next extent would not fit; a group fills 128
+    stage rows (at each K chunk)."""
+    nlist, cap_len = row_ids.shape
+    nsub = cap_len // SUB
+    g = _blocks_a_list(nlist, nsub)
+    nown = -(-nsub // g)
+    live = (row_ids >= 0).view(nlist, nsub, SUB)
+    pos = torch.arange(1, SUB + 1, dtype=torch.int16, device=row_ids.device)
+    extent = torch.zeros((nlist, nown * g), dtype=torch.int64,
+                         device=row_ids.device)
+    extent[:, :nsub] = torch.where(live, pos, torch.zeros_like(pos)).amax(2)
+    extent = extent.view(nlist, nown, g)       # [list, k, block b]
+    fill = torch.full((nlist, g), SUB + 1, dtype=torch.int64,
+                      device=row_ids.device)
+    groups = torch.zeros_like(fill)
+    for k in range(nown):
+        e = extent[:, k]
+        new = (e > 0) & (fill + e > SUB)
+        groups += new
+        fill = torch.where(new, e, fill + e)
+    return torch.stack([live.sum(dim=(1, 2)), groups.sum(dim=1) * SUB],
+                       dim=1)
+
+
 def _check(qdisp, lists, row_ids, p):
     if qdisp.dim() != 3 or lists.dim() != 3 or row_ids.dim() != 2:
         raise ValueError("expected qdisp [nlist, qcap, d], lists "
@@ -150,12 +189,14 @@ def ivf_list_scan(
     p: int = 2,
     cap_block: int | None = None,   # accepted; no effect on results
     scale: float = 1.0,
+    live_n: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Returns ``(vals [nlist, qcap, w] f32, flat_idx [nlist, qcap, w]
     int32)`` with ``w = (cap_len // 128) * p``; ``flat_idx`` indexes the
     flattened ``[nlist*cap_len]`` corpus. For int8 lists the scores are
     ``float(int32 dot) * scale`` (pass ``scale = s*s`` for a per-tensor
-    scale ``s`` on both sides). ``cap_block`` is accepted for interface
+    scale ``s`` on both sides). ``live_n`` is ``live_slots(dispatch)`` where
+    the caller already has it. ``cap_block`` is accepted for interface
     parity and has no effect."""
     del cap_block
     _check(qdisp, lists, row_ids, p)
@@ -193,11 +234,12 @@ def ivf_list_scan(
                       device=qdisp.device)
     if nlist == 0 or qcap == 0 or cap_len == 0:
         return vals, idx
-    live_n = None
-    if dispatch is not None:
-        if dispatch.device != qdisp.device:
-            raise ValueError(f"dispatch on {dispatch.device}, qdisp on "
-                             f"{qdisp.device}")
+    if dispatch is None:
+        live_n = None
+    elif dispatch.device != qdisp.device:
+        raise ValueError(f"dispatch on {dispatch.device}, qdisp on "
+                         f"{qdisp.device}")
+    elif live_n is None:
         live_n = live_slots(dispatch)
     fn = _kernel()
     stream = torch.cuda.current_stream(qdisp.device).cuda_stream

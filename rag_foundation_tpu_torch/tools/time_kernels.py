@@ -21,8 +21,15 @@ batch of uniform traffic), int8 values from a seeded generator. It prints
 the card's name and power limit, then one line a variant: the ADC scan
 (``pq_list_scan``: qcap 16 and 8, with the dispatch and with every slot
 live, p 8 and 1, bf16 LUT, packed codes) and the flat scan
-(``ivf_list_scan``, p 3), each time beside its bound (``utils.roofline``'s
-``pq_scan_bound`` and ``scan_bound``). The flat section then times
+(``ivf_list_scan``, p 3; also at the class of the app's chats' largest
+dispatch, 759 live slots over 170 lists), each time beside its bound
+(``utils.roofline``'s ``pq_scan_bound`` and ``scan_bound``). The flat
+section then times the
+int8 route on the benchmark body's shape class (``BODY``: 4,096 lists of
+10,112 slots, uneven sizes drawn from ``QUANTILES``, 7 to 9,537 rows, and
+interleaved as the index lays them out; a Poisson(8) dispatch at qcap
+16 and a Poisson(0.5) one at qcap 8), each with the fill of its stage
+rows (``ivf_scan.scan_rows``), and
 BASELINE config 3's shape class (``CONFIG3``: 4,096 lists of 768 slots,
 244 live rows a list interleaved as the index lays them out, d 768, p 3):
 bf16 and f32 lists at a Poisson(8) dispatch (qcap 16, nprobe 32) and a
@@ -37,7 +44,8 @@ builds that source (another
 version of the kernel with the same C entry point; headers are taken
 from its own directory), checks that the two give bit-identical outputs
 on the main path's shape (int8, qcap 16, a Poisson(8) dispatch; p 8 for
-the ADC scan, 3 for the flat one) and times them in turns (other, this,
+the ADC scan, 3 for the flat one; for the flat one the chats' dispatch
+and the body's two dispatches too) and times them in turns (other, this,
 this, other; five rounds of two pairs each, and the number of pairs
 this version won), so that two versions are compared within one run on
 one card; ``--other-flat`` also at config 3's two dispatches in bf16 and
@@ -130,6 +138,18 @@ def _dispatch(torch, g, nlist: int, qcap: int):
     return disp, int(n_live.sum())
 
 
+def _chats_dispatch(torch, g, nlist: int, qcap: int):
+    """The class of the largest dispatch the app's chats gave the int8
+    scan (``chip_smoke.py`` phase 23: 759 live slots over 170 lists): 170
+    lists drawn by ``g``, 79 of them with 5 live slots and 91 with 4."""
+    n_live = torch.zeros(nlist, dtype=torch.int32, device="cuda")
+    read = torch.randperm(nlist, generator=g, device="cuda")[:170]
+    n_live[read] = 4
+    n_live[read[:79]] = 5
+    return torch.where(torch.arange(qcap, device="cuda")[None, :]
+                       < n_live[:, None], 0, -1).int()
+
+
 def _bound(t) -> str:
     """``(ms, bound_by, ...)`` of ``utils.roofline`` as text."""
     return f"{t[0]:.4f} ms ({t[1]})"
@@ -170,6 +190,8 @@ def _turns(torch, name, other, this, bound, check=None) -> int:
     if check is None:
         same = all(torch.equal(a, b) for a, b in zip(ov, tv))
         verdict = "bit-identical" if same else "DIFFER"
+        if not same:
+            FAILED.append(f"{name}: outputs differ")
     else:
         verdict = check(ov, tv)
     print(f"{name}: outputs {verdict}; bound {bound}", flush=True)
@@ -346,23 +368,105 @@ def time_flat(torch, g, nlist: int, live_rows: int,
                       device="cuda", dtype=torch.int8)
     ids = _lists(torch, g, nlist, cap_len, live_rows)
     disp, live = _dispatch(torch, g, nlist, qcap)
-    live_n = ivf_scan.live_slots(disp)
-    bound = flat_bound(ids, live_n, qcap, p, d)
-    name = (f"ivf_list_scan int8 qcap={qcap} Poisson(8) dispatch ({live} "
-            f"live slots) p={p}")
+    for disp, what in ((disp, f"Poisson(8) dispatch ({live} live slots)"),
+                       (_chats_dispatch(torch, g, nlist, qcap),
+                        "the chats' dispatch (759 live slots, 170 lists)")):
+        live_n = ivf_scan.live_slots(disp)
+        bound = flat_bound(ids, live_n, qcap, p, d)
+        name = f"ivf_list_scan int8 qcap={qcap} {what} p={p}"
 
-    def this():
-        return ivf_scan.ivf_list_scan(q, lists, ids, disp, p=p, scale=1e-4)
+        def this():
+            return ivf_scan.ivf_list_scan(q, lists, ids, disp, p=p,
+                                          scale=1e-4)
 
-    if not other_srcs:
-        print(f"{name}: {_ms(this):.3f} ms, bound {bound}", flush=True)
-    for src in other_srcs:
-        with tempfile.TemporaryDirectory() as tmp:
-            other, mine = _flat_other(torch, src, tmp, 0, q, lists, ids,
-                                      live_n, p, 1e-4)
-            _turns(torch, f"{name}, other = {src}", other, mine, bound)
+        if not other_srcs:
+            print(f"{name}: {_ms(this):.4f} ms, bound {bound}", flush=True)
+        for src in other_srcs:
+            with tempfile.TemporaryDirectory() as tmp:
+                other, mine = _flat_other(torch, src, tmp, 0, q, lists, ids,
+                                          live_n, p, 1e-4)
+                _turns(torch, f"{name}, other = {src}", other, mine, bound)
     del lists, q, ids
+    time_flat_body(torch, g, other_srcs)
     time_flat_config3(torch, g, other_srcs)
+
+
+# The benchmark's int8 body (perfbench's ivf_int8_10m: 10M docwalk rows,
+# nlist 4096, cap_len 10,112) has uneven lists: sizes drawn here from the
+# quantiles of its list sizes (QUANTILES: the size at each of QS, linear
+# between; about an eighth of the lists under 100 rows, half within
+# 2,245-2,668, an eighth past 4,285), interleaved over the sub-blocks as
+# the index lays them out; a Q=1024 batch at nprobe 32 gives Poisson(8)
+# live slots a list (qcap 16), a Q=64 batch Poisson(0.5) (qcap 8, about one
+# slot a list read)
+BODY = {"nlist": 4096, "cap_len": 10112, "d": 768, "p": 3,
+        "dispatches": ((16, 8.0), (8, 0.5))}
+QS = (0.0, 0.01, 0.02, 0.05, 0.08, 0.1, 0.12, 0.15, 0.2, 0.25, 0.5, 0.75, 0.8,
+      0.85, 0.88, 0.9, 0.95, 0.99, 1.0)
+QUANTILES = (7, 16, 16, 18, 25, 39, 94, 1430, 2176, 2245, 2455, 2668, 2742,
+             2892, 4285, 4608, 4976, 5614, 9537)
+
+
+def uneven_sizes(torch, g, nlist: int) -> "torch.Tensor":
+    """``nlist`` list sizes drawn from ``QUANTILES`` (inverse CDF, linear
+    between the knots) by ``g``."""
+    u = torch.rand(nlist, generator=g, device="cuda", dtype=torch.float64)
+    qs = torch.tensor(QS, device="cuda", dtype=torch.float64)
+    ks = torch.tensor(QUANTILES, device="cuda", dtype=torch.float64)
+    i = torch.searchsorted(qs, u, right=True).clamp(1, len(QS) - 1)
+    w = (u - qs[i - 1]) / (qs[i] - qs[i - 1])
+    return (ks[i - 1] + w * (ks[i] - ks[i - 1])).round().long()
+
+
+def time_flat_body(torch, g, other_srcs: list[str]) -> None:
+    """The int8 route on the benchmark body's shape class (``BODY``) at
+    its two dispatches, beside ``scan_bound`` and the fill of its stage
+    rows (``ivf_scan.scan_rows``); with ``other_srcs`` each source in
+    turns, outputs bit-identical."""
+    from rag_foundation_tpu_torch.ops import ivf_scan
+    nlist, cap_len, d, p = (BODY[k] for k in ("nlist", "cap_len", "d", "p"))
+    nsub = cap_len // 128
+    sizes = uneven_sizes(torch, g, nlist)
+    slot = torch.arange(cap_len, device="cuda")
+    rank = (slot % 128) * nsub + slot // 128
+    ids = torch.arange(nlist * cap_len, dtype=torch.int32,
+                       device="cuda").view(nlist, cap_len)
+    ids = torch.where(rank[None, :] < sizes[:, None], ids,
+                      torch.full_like(ids, -1)).contiguous()
+    lists = torch.randint(-127, 128, (nlist, cap_len, d), generator=g,
+                          device="cuda", dtype=torch.int8)
+    rows = ivf_scan.scan_rows(ids)
+    for qcap, lam in BODY["dispatches"]:
+        q = torch.randint(-127, 128, (nlist, qcap, d), generator=g,
+                          device="cuda", dtype=torch.int8)
+        n_live = torch.poisson(torch.full((nlist,), lam, device="cuda"),
+                               generator=g).clamp(0, qcap).int()
+        disp = torch.where(torch.arange(qcap, device="cuda")[None, :]
+                           < n_live[:, None], 0, -1).int()
+        live_n = ivf_scan.live_slots(disp)
+        read = live_n > 0
+        live, staged = (int(x) for x in rows[read].sum(dim=0))
+        name = (f"ivf_list_scan int8 body shape (nlist {nlist}, cap_len "
+                f"{cap_len}, lists of {int(sizes.min())}-{int(sizes.max())} "
+                f"rows, mean {float(sizes.float().mean()):.0f}) qcap={qcap} "
+                f"Poisson({lam:g}) dispatch ({int(live_n.sum())} live slots, "
+                f"{int(read.sum())} lists read) p={p}; fill "
+                f"{live / staged:.4f} (every 128-row sub-block staged: "
+                f"{live / (int(read.sum()) * cap_len):.4f})")
+        bound = flat_bound(ids, live_n, qcap, p, d)
+
+        def this():
+            return ivf_scan.ivf_list_scan(q, lists, ids, disp, p=p,
+                                          scale=1e-4)
+
+        if not other_srcs:
+            print(f"{name}: {_ms(this):.4f} ms, bound {bound}", flush=True)
+        for src in other_srcs:
+            with tempfile.TemporaryDirectory() as tmp:
+                other, mine = _flat_other(torch, src, tmp, 0, q, lists, ids,
+                                          live_n, p, 1e-4)
+                _turns(torch, f"{name}, other = {src}", other, mine, bound)
+    del lists
 
 
 # BASELINE config 3's dispatches (chip_smoke.py phase 27): 1M rows over

@@ -10,7 +10,9 @@ Replays, with no search work inside, the tracing that one batch of
 the batch (numbered, entered at dispatch and at finalize), the new
 stages (``q_quantize``, ``q_copy``, ``route``, ``scan``, ``regather``,
 ``own_wait``), five CUDA events and their resolution (``close_batch``),
-and the probe count with its device-side add. It times ``--reps``
+the probe count with its device-side add, and the int8 scan's row count
+(its index's rows a list looked up, its live slots held and summed on
+the device, as ``ivf_search`` counts a 4,096-list body). It times ``--reps``
 batches, each dispatched before the previous one's finalize (as
 ``search_many`` runs them), three ways, and prints one JSON line of
 microseconds a batch:
@@ -34,13 +36,15 @@ import time
 
 import torch
 
+from rag_foundation_tpu_torch.engine.ivf import cached_scan_rows
 from rag_foundation_tpu_torch.engine.profile import StageProfile
+from rag_foundation_tpu_torch.ops.ivf_scan import S8_SLOTS
 
 OLD = ("q_upload", "body_dispatch", "tail_dispatch", "tail_fetch",
        "rows_fetch", "idmap_merge")
 
 
-def old_dispatch(p: StageProfile, dev, dropped) -> None:
+def old_dispatch(p: StageProfile, dev, counted) -> None:
     for name in OLD[:3]:
         with p.stage(name):
             pass
@@ -52,8 +56,9 @@ def old_finalize(p: StageProfile, batch) -> None:
             pass
 
 
-def traced_dispatch(p: StageProfile, dev, dropped):
+def traced_dispatch(p: StageProfile, dev, counted):
     """A batch's dispatch, traced as ``StoreIndex`` nests it."""
+    dropped, live_n, row_ids = counted
     stage = p.stage
     with p.open_batch(dev) as batch:
         with stage("q_upload"):
@@ -65,7 +70,8 @@ def traced_dispatch(p: StageProfile, dev, dropped):
             with stage("route"):
                 p.count_probes(1024 * 32, dropped)
             with stage("scan"):
-                pass
+                p.count_scan_rows(live_n, cached_scan_rows(row_ids),
+                                  S8_SLOTS)
             with stage("regather"):
                 pass
         with stage("tail_dispatch"):
@@ -91,12 +97,14 @@ def per_batch_us(dispatch, finalize, dev, reps: int) -> float:
     """Microseconds a batch over ``reps`` batches, each dispatched before
     the previous one's finalize, as ``StoreIndex.search_many`` runs them."""
     p = StageProfile()
-    dropped = torch.zeros((), dtype=torch.int32, device=dev)
-    prev = dispatch(p, dev, dropped)
+    counted = (torch.zeros((), dtype=torch.int32, device=dev),
+               torch.ones(4096, dtype=torch.int32, device=dev),
+               torch.zeros((4096, 128), dtype=torch.int32, device=dev))
+    prev = dispatch(p, dev, counted)
 
     def one() -> None:
         nonlocal prev
-        batch = dispatch(p, dev, dropped)
+        batch = dispatch(p, dev, counted)
         finalize(p, prev)
         prev = batch
 

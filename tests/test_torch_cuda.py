@@ -393,6 +393,75 @@ def test_bf16_flat_route_k_padding_on_card(card, d):
     _near_tie_ids(kv, ki, rv, ri, q, lists)
 
 
+# live slots of the int8 route's lists (capped at qcap): none, one, a full
+# n-tile of 8, one past it, a full pass of 16
+S8_LIVE = (0, 1, 8, 9, 16)
+
+
+def _s8_lists(card, nlist, cap_len, qcap, d, seed):
+    """int8 lists laid out as ``engine/ivf.py`` interleaves them, their
+    sizes cycling from none to every row, so that sub-blocks of no live
+    row and of live extents from 1 to 128 rows occur, packed into groups
+    of one sub-block and of several (and groups ended by an extent that
+    does not fit); one list in three has tombstone holes (a tenth of its
+    live rows dead) inside its extents, one a sub-block of dead rows among
+    live ones. Rows 0 and 1 of every sub-block are equal
+    (a tie, the lower row first). The dispatch of list l has its first
+    ``S8_LIVE[l % 5]`` slots (capped at qcap) live."""
+    rng = np.random.default_rng(seed)
+    nsub = cap_len // 128
+    members = (0, 3, 30 * nsub, 32 * nsub + 1, 45 * nsub, 64 * nsub,
+               64 * nsub + 2, 100 * nsub, cap_len, 7, nsub)
+    m = np.asarray([members[l % len(members)] for l in range(nlist)])
+    slot = np.arange(cap_len)
+    rank = (slot % 128) * nsub + slot // 128
+    ids = np.arange(nlist * cap_len, dtype=np.int32).reshape(nlist, cap_len)
+    ids[rank[None, :] >= m[:, None]] = -1
+    holes = (np.arange(nlist) % 3 == 1)[:, None] \
+        & (rng.random(ids.shape) < 0.1)
+    ids[holes] = -1
+    if nsub > 1:
+        ids[4, 128:256] = -1                 # a dead sub-block among live
+    q = rng.integers(-127, 128, (nlist, qcap, d)).astype(np.int8)
+    lists = rng.integers(-127, 128, (nlist, cap_len, d)).astype(np.int8)
+    lists[:, 1::128] = lists[:, 0::128]
+    disp = np.full((nlist, qcap), -1, np.int32)
+    for l in range(nlist):
+        disp[l, :min(qcap, S8_LIVE[l % len(S8_LIVE)])] = l
+    return [torch.as_tensor(x, device=card) for x in (q, lists, ids, disp)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nlist,cap_len,d", [
+    (12, 1024, 768), (12, 10112, 768),   # several blocks a list
+    (12, 1024, 208), (12, 640, 48),      # a K tail: part of a 128-byte chunk
+    (300, 256, 64),                      # one block a list
+    (300, 16640, 32),                    # 130 sub-blocks: two blocks a list
+])
+@pytest.mark.parametrize("qcap", [8, 16])
+@pytest.mark.parametrize("p", [1, 3, 8])
+def test_int8_flat_route_uneven_lists_on_card(card, nlist, cap_len, d, qcap,
+                                              p):
+    """The int8 tensor-core route (its groups) on interleaved lists of
+    uneven sizes, bit-identical to its plain version, tie rule included:
+    lists of no live row, sub-blocks of no live row and of every extent,
+    tombstone holes inside extents; 0, 1, 8, 9 and 16 live slots; the
+    benchmark's cap_len 10,112; rows of a K tail; small nlist (several
+    blocks a list) and large (one, or two where a list has more
+    sub-blocks than a block holds bits of)."""
+    q, lists, ids, disp = _s8_lists(card, nlist, cap_len, qcap, d,
+                                    seed=nlist + cap_len + d + qcap + p)
+    assert ivf_scan.scan_route(torch.int8, qcap, d, p) == "s8"
+    for dispatch in (disp, None):
+        before = ivf_scan.LAUNCHES.count
+        kv, ki = ivf_list_scan(q, lists, ids, dispatch, p=p, scale=1e-4)
+        torch.cuda.synchronize()
+        assert ivf_scan.LAUNCHES.count == before + 1
+        rv, ri = ivf_list_scan_reference(q, lists, ids, dispatch, p=p,
+                                         scale=1e-4)
+        assert torch.equal(kv, rv) and torch.equal(ki, ri)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,qcap,d,p,want", [
     (torch.bfloat16, 8, 768, 3, "bf16_qt16"),

@@ -1,5 +1,6 @@
 """``engine/profile.py``'s tracing of ``StoreIndex``'s search on the CPU:
-the probe counters against ``build_dispatch``'s own count, the host
+the probe counters against ``build_dispatch``'s own count, the int8 scan's
+row counters against the interleaved layout of known list sizes, the host
 stages nested in the old ones, the device stages' arithmetic (fake
 events: the CPU records none), and the ``index.*`` profiler ranges,
 opened only while a profiler records and carrying the batch's number."""
@@ -14,6 +15,7 @@ from rag_foundation_tpu_torch.engine import profile as prof
 from rag_foundation_tpu_torch.engine.index import StoreIndex
 from rag_foundation_tpu_torch.engine.profile import (StageProfile,
                                                      search_profile)
+from rag_foundation_tpu_torch.ops.quantize import quantize_int8
 
 D, NLIST, NPROBE, Q = 32, 16, 4, 256
 MODES = {"int8": dict(mode="ivf_flat_int8"), "f32": dict(mode="ivf_flat"),
@@ -69,7 +71,8 @@ def test_dropped_probes_are_build_dispatchs_own_count(stores, mode,
     store.search_many(batches(rows), 10)
     got = search_profile.counts()
     assert len(seen) == 3 and seen[0] > 0 and seen[2] > 0
-    assert got == {"probes": 3 * Q * NPROBE, "probes_dropped": sum(seen)}
+    assert {k: got[k] for k in ("probes", "probes_dropped")} == {
+        "probes": 3 * Q * NPROBE, "probes_dropped": sum(seen)}
 
 
 def test_a_small_batch_counts_its_probes_and_drops_none(stores):
@@ -77,8 +80,9 @@ def test_a_small_batch_counts_its_probes_and_drops_none(stores):
     store, rows = stores[0]["int8"], stores[1]
     search_profile.reset()
     store.search_many([rows[:1], rows[1:2]], 10)
-    assert search_profile.counts() == {"probes": 2 * NPROBE,
-                                       "probes_dropped": 0}
+    got = search_profile.counts()
+    assert {k: got[k] for k in ("probes", "probes_dropped")} == {
+        "probes": 2 * NPROBE, "probes_dropped": 0}
     assert search_profile.calls["route"] == 2
 
 
@@ -98,6 +102,123 @@ def test_new_stages_nest_in_the_old(stores, mode):
     # the CPU records no event: no device stage, no own_wait
     assert not [n for n in calls if n.startswith("device.")]
     assert "own_wait" not in calls
+
+
+# rows a list, laid out as the index interleaves them over cap_len // 128
+# sub-blocks: none, one, live extents of at most 32, 64 and 128 rows, all
+SIZES = (0, 1, 7, 31 * 5, 32 * 5 + 1, 64 * 5, 64 * 5 + 3, 640)
+CAP_LEN = 640
+
+
+def _known_store(nlist):
+    """A store whose body has ``nlist`` lists of ``SIZES`` rows in turn."""
+    rng = np.random.default_rng(5)
+    cap_len = CAP_LEN
+    sizes = [SIZES[l % len(SIZES)] for l in range(nlist)]
+    centroids = rng.standard_normal((nlist, D)).astype(np.float32)
+    centroids /= np.linalg.norm(centroids, axis=1, keepdims=True)
+    rows = rng.standard_normal((sum(sizes), D)).astype(np.float32)
+    rows /= np.linalg.norm(rows, axis=1, keepdims=True)
+    assign = np.repeat(np.arange(nlist), sizes)
+    rank = np.concatenate([np.arange(m) for m in sizes])
+    dest = assign * cap_len + ivf.interleave_slots(rank, cap_len)
+    q, scale = quantize_int8(torch.as_tensor(rows))
+    lists = torch.zeros((nlist * cap_len, D), dtype=torch.int8)
+    lists[torch.as_tensor(dest)] = q
+    ids = torch.full((nlist * cap_len,), -1, dtype=torch.int32)
+    ids[torch.as_tensor(dest)] = torch.arange(len(rows), dtype=torch.int32)
+    body = ivf.IVFFlatIndex(torch.as_tensor(centroids),
+                            lists.view(nlist, cap_len, D),
+                            ids.view(nlist, cap_len),
+                            float(np.float32(scale)), len(rows))
+    store = StoreIndex(D, nlist=nlist, nprobe=2, device="cpu",
+                       **MODES["int8"])
+    store.adopt_body(body, np.arange(len(rows)))
+    return store, rows, sizes
+
+
+def _interleaved_rows(m: int, nsub: int, blocks: int) -> tuple[int, int]:
+    """(live rows, stage rows) of a pass of ``ivf_scan_s8`` over a list of
+    m rows: sub-block b holds ranks b, b + nsub, ... (``interleave_slots``),
+    so its live extent is ceil((m - b) / nsub); block j of the list's
+    ``blocks`` takes sub-blocks j, j + blocks, ... and packs their extents
+    in order into groups of at most 128 rows, 128 stage rows a group."""
+    extents = [-(-(m - b) // nsub) if b < m else 0 for b in range(nsub)]
+    groups = 0
+    for j in range(blocks):
+        fill = 129
+        for e in extents[j::blocks]:
+            if e and fill + e > 128:
+                groups, fill = groups + 1, 0
+            fill += e
+    return m, 128 * groups
+
+
+@pytest.mark.parametrize("nlist,blocks", [(8, 5), (264, 1)])
+def test_scan_rows_are_the_interleaved_layouts(monkeypatch, nlist, blocks):
+    """Through ``search_many`` on lists of known sizes: each probed int8
+    list adds its rows and the stage rows its interleaved layout implies,
+    a pass of 16 query slots at a time (lists of no query add nothing);
+    its sub-blocks split over five blocks (small nlist: each one a group)
+    or one (extents packed); over more than ``SCAN_FOLD`` batches, so the
+    device sums are exercised."""
+    seen = []
+    real = ivf.build_dispatch
+
+    def capturing(*args, **kw):
+        out = real(*args, **kw)
+        seen.append(out[1])
+        return out
+
+    monkeypatch.setattr(ivf, "build_dispatch", capturing)
+    store, rows, sizes = _known_store(nlist)
+    rng = np.random.default_rng(2)
+    # batches of 40 queries at stored rows, padded to 64: at most 16 slots
+    # a list where nlist is 264, qcap 32 (two passes of 16) where it is 8
+    picks = [rng.choice(len(rows), 40) for _ in range(prof.SCAN_FOLD + 3)]
+    search_profile.reset()
+    store.search_many([rows[i] + 0.01 for i in picks], 10)
+    got = search_profile.counts()
+    nsub = CAP_LEN // 128
+    per_list = np.asarray([_interleaved_rows(m, nsub, blocks) for m in sizes])
+    want = np.zeros(2, np.int64)
+    for dispatch in seen:
+        n = (dispatch >= 0).sum(dim=1).numpy()
+        want += ((-(-n // 16))[:, None] * per_list).sum(axis=0)
+    assert len(seen) == prof.SCAN_FOLD + 3 and want[0] > 0
+    if nlist == 8:
+        assert max(int((d >= 0).sum(dim=1).max()) for d in seen) > 16
+    assert (got["scan_rows_live"], got["scan_rows_staged"]) == tuple(want)
+    assert 0 < got["scan_rows_live"] < got["scan_rows_staged"]
+
+
+@pytest.mark.parametrize("mode", ["f32", "pq"])
+def test_scan_rows_count_only_int8_lists(stores, mode):
+    """f32 lists take another route and PQ bodies another kernel."""
+    store, rows = stores[0][mode], stores[1]
+    search_profile.reset()
+    store.search_many(batches(rows), 10)
+    got = search_profile.counts()
+    assert got["probes"] > 0
+    assert got["scan_rows_live"] == got["scan_rows_staged"] == 0
+
+
+def test_scan_rows_sum_passes_on_the_device():
+    """A held scan adds its lists' passes (live slots over ``slots``,
+    rounded up) times their rows; past ``SCAN_FOLD`` scans they are
+    summed."""
+    p = StageProfile()
+    rows = torch.tensor([[10, 32], [5, 64], [7, 128]])
+    live_n = torch.tensor([17, 0, 3], dtype=torch.int32)
+    for _ in range(prof.SCAN_FOLD + 1):
+        p.count_scan_rows(live_n, rows, 16)
+    assert len(p._scans) == 1
+    n = prof.SCAN_FOLD + 1
+    assert p.counts() == {"probes": 0, "probes_dropped": 0,
+                          "scan_rows_live": n * (2 * 10 + 7),
+                          "scan_rows_staged": n * (2 * 32 + 128)}
+    p.reset()
+    assert p.counts()["scan_rows_staged"] == 0
 
 
 class FakeEvent:
@@ -140,16 +261,19 @@ def test_device_stages_and_reset(monkeypatch):
     p.count_probes(40, torch.tensor(3, dtype=torch.int32))
     p.count_probes(8)
     p.count_probes(40, torch.tensor(2, dtype=torch.int32))
-    assert p.counts() == {"probes": 88, "probes_dropped": 5}
+    assert p.counts() == {"probes": 88, "probes_dropped": 5,
+                          "scan_rows_live": 0, "scan_rows_staged": 0}
     # past FOLD held scalars, they are summed into the accumulator
     for _ in range(prof.FOLD + 1):
         p.count_probes(1, torch.tensor(1, dtype=torch.int32))
     assert len(p._pending) == 1
     assert p.counts() == {"probes": 89 + prof.FOLD,
-                          "probes_dropped": 6 + prof.FOLD}
+                          "probes_dropped": 6 + prof.FOLD,
+                          "scan_rows_live": 0, "scan_rows_staged": 0}
     p.reset()
     assert dict(p.seconds) == {} and dict(p.calls) == {}
-    assert p.counts() == {"probes": 0, "probes_dropped": 0}
+    assert p.counts() == {"probes": 0, "probes_dropped": 0,
+                          "scan_rows_live": 0, "scan_rows_staged": 0}
 
 
 def test_no_range_opens_without_a_profiler(stores, monkeypatch):
