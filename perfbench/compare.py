@@ -160,6 +160,25 @@ def misencoded(residual: torch.Tensor, codes: torch.Tensor,
     return int((chosen > dist.min(dim=2).values + CODE_TOL).any(dim=0).sum())
 
 
+def served_gaps(ref_logits: torch.Tensor, prompt_len: int, served,
+                prefill: torch.Tensor, allowed: torch.Tensor
+                ) -> tuple[float, float]:
+    """``(logit_gap, token_deficit)`` of one request: ``ref_logits [s,
+    vocab]`` the reference's over the prompt and every served token but
+    the last, ``served [n]`` the answer's ids, ``prefill [vocab]`` the
+    logits the program's prefill returned, ``allowed [vocab]`` the
+    tokens the answer may use."""
+    rows = ref_logits[prompt_len - 1:]
+    std = rows.std(dim=1, unbiased=False)
+    gap = float(((prefill.float() - rows[0]).abs().max() / std[0]).item())
+    tok = torch.as_tensor(served, dtype=torch.int64, device=rows.device)
+    best = rows.masked_fill(~allowed, float("-inf")).max(dim=1).values
+    mine = rows.gather(1, tok[:, None]).squeeze(1)
+    deficit = torch.where(allowed[tok], (best - mine) / std,
+                          torch.full_like(best, float("inf")))
+    return gap, float(deficit.max().item())
+
+
 def judge(numbers: dict[str, float], limits: dict[str, float]
           ) -> tuple[bool, dict]:
     """``(correct, {name: {"value", "limit"}})``: every number at most

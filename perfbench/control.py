@@ -7,9 +7,14 @@ For each program seed: one run of the cell as the benchmark makes it
 (``--seconds`` long), its numbers. For each control seed: the cell's
 index built as a run builds it, then the control put in the program's
 place: ``reference.int4_topk``, the exact scan at int4, answers the
-batches a run would check, and the same comparison reads it. One JSON
-line a seed on standard output. The benchmark's own runs never run the
-control.
+batches a run would check, and the same comparison reads it. In a
+generation cell the control seed's run serves its window as a run does,
+and the comparison reads the control's outputs in the program's place:
+the reference with its weights rounded to fp8 e4m3
+(``reference_decoder.round_fp8``), its logits at the prompt's last
+position and, at each position of the same prompts and served tokens,
+the token it puts first. One JSON line a seed on standard output. The
+benchmark's own runs never run the control.
 """
 
 from __future__ import annotations
@@ -67,6 +72,16 @@ def control_numbers(args, root: Path, seed: int) -> dict:
     return numbers
 
 
+def generation_control(args, root: Path, seed: int) -> dict:
+    from perfbench import generate
+    run_args = harness.parse(
+        ["--workload", args.workload, "--seed", str(seed), "--seconds",
+         str(args.seconds), "--device", args.device])
+    out = generate.run(run_args, harness.load_cell(root, args.workload),
+                       time.perf_counter(), control=True)
+    return {name: float(c["value"]) for name, c in out["checks"].items()}
+
+
 def main(argv=None, root: Path | None = None) -> int:
     ap = argparse.ArgumentParser(prog="python3 -m perfbench.control")
     ap.add_argument("--workload", required=True)
@@ -87,8 +102,13 @@ def main(argv=None, root: Path | None = None) -> int:
                           "numbers": out["checks"]}), flush=True)
         if args.device == "cuda":
             torch.cuda.empty_cache()
+    generate = harness.load_cell(root, args.workload).cfg.get(
+        "kind") == "generate"
     for seed in [int(s) for s in args.control_seeds.split(",") if s]:
-        numbers = control_numbers(args, root, seed)
+        if generate:
+            numbers = generation_control(args, root, seed)
+        else:
+            numbers = control_numbers(args, root, seed)
         print(json.dumps({"seed": seed, "side": "control",
                           "numbers": {n: harness._finite(v)
                                       for n, v in numbers.items()}}),

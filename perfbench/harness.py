@@ -1,5 +1,8 @@
 """One run of one cell, driven by the data in ``BENCHMARK.json``.
 
+A configuration whose ``kind`` is ``"generate"`` is run by
+``generate.run``; one without ``kind`` is a search cell, run here.
+
 Set-up makes the corpus on the card (from the configuration's corpus
 seed: every run builds the same index) and the query pool (from the
 run's seed), builds the index through ``systems/<mode>.py`` and warms
@@ -138,6 +141,9 @@ def forbidden_modules() -> list[str]:
 def run(args, root: Path, t_start: float) -> dict:
     """One run; returns the result line's object, ``checks`` last."""
     cell = load_cell(root, args.workload)
+    if cell.cfg.get("kind", "search") == "generate":
+        from perfbench import generate
+        return generate.run(args, cell, t_start)
     cfg, k = cell.cfg, cell.cfg["k"]
     dev = torch.device(args.device, 0) if args.device == "cuda" \
         else torch.device(args.device)

@@ -11,6 +11,14 @@ query rows (or tables) read once; its operations are one score for each
 (query, live row of a probed list) pair. A share is that least time
 over the kernel's measured time; it cannot pass 100 % unless the work
 is counted too high or the time misses part of the work.
+
+A generation cell's model operations (``<flops>_flops(cfg, prompt_len,
+new_tokens)``, named by its configuration's ``flops``) count what a
+request needs: its prompt and every answer token but the last run
+through the model once, each position attending over the real context
+before it (causally, no padding), and the output head where a token is
+chosen. ``gen.mfu`` is their sum over the window's seconds at the bf16
+peak.
 """
 
 from __future__ import annotations
@@ -50,3 +58,16 @@ def adc_scan_s(q_n: int, m: int, m_bytes: int, k_codes: int,
     shared memory at ``SMEM_BYTES_S``."""
     nbytes = list_rows * (m_bytes + ID_BYTES) + q_n * k_codes * m * lut_esize
     return max(nbytes / HBM_BYTES_S, m * pairs * lut_esize / SMEM_BYTES_S)
+
+
+def prefix_lm_flops(cfg: dict, prompt_len: int, new_tokens: int) -> float:
+    """Operations of one answer of ``new_tokens`` to a prompt of
+    ``prompt_len`` on the GPT-style decoder of ``cfg``'s widths (``hidden``
+    h, ``layers``, ``ffn``, ``vocab_size`` V): ``T = prompt_len +
+    new_tokens - 1`` positions run, each ``2 h (3h + h + 2 ffn)`` of
+    products a layer and ``4 h (p + 1)`` of attention at position ``p``
+    (Q.K and P.V); the tied output head ``2 h V`` for each answer token."""
+    h, ffn = cfg["hidden"], cfg["ffn"]
+    t = prompt_len + new_tokens - 1
+    per_layer = t * 2 * h * (4 * h + 2 * ffn) + 4 * h * t * (t + 1) / 2
+    return cfg["layers"] * per_layer + new_tokens * 2 * h * cfg["vocab_size"]

@@ -1,8 +1,12 @@
 """Adapters that build the system under test, one file a ``mode`` of
-the configurations (``systems/<mode>.py``, each with ``build(cfg,
-corpus, device) -> Built``). With the harness's read of the program's
-``search_profile`` spans, they are the benchmark's only imports of the
-port."""
+the configurations (``systems/<mode>.py``): for a search configuration
+``build(cfg, corpus, device) -> Built``; for a generation configuration
+(``kind: "generate"``) ``load(cfg, root, device)``, an object with
+``widths`` (the architecture it loaded), ``serve(feed)`` (answers the
+requests ``feed.take()`` hands it, at most ``feed.concurrency`` at once,
+until it hands none; see ``generate.py``) and ``free()``. With the
+harness's read of the program's ``search_profile`` spans, they are the
+benchmark's only imports of the port."""
 
 from __future__ import annotations
 

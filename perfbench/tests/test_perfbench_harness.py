@@ -19,7 +19,8 @@ E2E = {"qps", "batch_p95_ms", "recall_at_10", "build_vec_s", "setup_s"}
 # the PQ cell's host-paced metrics spread too widely on the card for a
 # bound: it reports them per layer (``index.qps``, ``index.batch_p95_ms``,
 # ``build.vec_s``)
-E2E_OF = {"ivf_pq_10m.q1024": {"recall_at_10", "setup_s"}}
+E2E_OF = {"ivf_pq_10m.q1024": {"recall_at_10", "setup_s"},
+          "ivf_pq_10m.q64": {"recall_at_10", "setup_s"}}
 
 
 def run(root: Path, *args, device="cpu", pythonpath=True, pre=""):
@@ -40,7 +41,7 @@ def last_line(proc) -> dict:
 
 
 @pytest.mark.parametrize("cell", ["ivf_int8_10m.q1024", "ivf_pq_10m.q1024",
-                                  "ivf_int8_10m.q64"])
+                                  "ivf_int8_10m.q64", "ivf_pq_10m.q64"])
 def test_a_cell_runs_end_to_end(tiny_root, cell):
     proc = run(tiny_root, "--workload", cell, "--seed", "2147483777",
                "--seconds", "1", "--trace", "0")
@@ -63,9 +64,11 @@ def test_a_traced_run(tiny_root):
     assert out["correct"] is True
     assert {"busy_s", "window_s"} <= set(out["device"])
     assert set(out["breakdown"]) == {"device_ops", "idle_gaps"}
-    # the CPU has no device trace: only the host stages' metrics read
+    # the CPU has no device trace: only the host stages' metrics and the
+    # program's counters read
     assert set(out["metrics"]) == {"index.dispatch_host_ms",
-                                   "index.merge_host_ms"}
+                                   "index.merge_host_ms",
+                                   "index.dropped_probe_pct"}
     assert list(out)[-1] == "checks"
 
 
@@ -78,8 +81,10 @@ def test_a_traced_pq_run(tiny_root):
     # the CPU has no device trace: the roofline and idle share read none
     assert set(out["metrics"]) == {
         "index.qps", "index.batch_p95_ms", "build.vec_s",
-        "index.dispatch_host_ms.pq", "index.merge_host_ms.pq"}
-    assert all(m["value"] > 0 for m in out["metrics"].values())
+        "index.dispatch_host_ms.pq", "index.merge_host_ms.pq",
+        "index.dropped_probe_pct"}
+    assert all(m["value"] > 0 for m in out["metrics"].values()
+               if m is not out["metrics"]["index.dropped_probe_pct"])
     assert out["metrics"]["index.qps"]["value"] <= out["attempted"] / 1.5
 
 
@@ -172,7 +177,7 @@ def test_a_cell_added_by_files_alone(tmp_path):
         "source": "program_span", "layer": "index", "moves": "qps",
         "workloads": ["extra.q128"]})
     for m in bench["end_to_end"]:
-        if "workloads" in m:
+        if "ivf_int8_10m.q64" in m.get("workloads", []):
             m["workloads"].append("extra.q128")
     (root / "BENCHMARK.json").write_text(json.dumps(bench))
     out = last_line(run(root, "--workload", "extra.q128", "--seed", "9",

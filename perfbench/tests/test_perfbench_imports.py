@@ -15,7 +15,7 @@ FORBIDDEN = {"jax", "jaxlib", "flax", "rag_foundation_tpu"}
 PORT = "rag_foundation_tpu_torch"
 # the plain reference and the yardstick: no module of the port
 REFERENCE = ["corpus.py", "reference.py", "compare.py", "roofline.py",
-             "traffic.py", "trace.py"]
+             "traffic.py", "trace.py", "reference_decoder.py", "prompts.py"]
 
 
 def top_level_imports(path: Path) -> set[str]:
